@@ -1,0 +1,522 @@
+"""Declarative query IR: expressions, operators, catalog, validation.
+
+Counterpart of ``repro.query.ir`` for the operators this port lowers:
+``Scan``/``Filter``/``Project``/``GroupAgg`` over expression trees of
+columns and literals.  The other operators of the algebra (semi-joins,
+EXISTS probes, group-by-key, top-k) and runtime parameters come with later
+slices; their builder methods raise :class:`LoweringError`.
+
+Precedence gotcha: ``&``/``|`` bind tighter than comparisons in Python —
+always parenthesize comparisons inside conjunctions:
+``(C("a") >= lo) & (C("a") < hi)``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping, Optional, Sequence
+
+import numpy as np
+
+
+# ---------------------------------------------------------------------------
+# typed errors
+# ---------------------------------------------------------------------------
+
+
+class QueryError(Exception):
+    """Base class for all query-IR errors."""
+
+
+class UnknownPlanError(QueryError, LookupError):
+    """A plan/query name is not in the registry."""
+
+
+class IRValidationError(QueryError):
+    """The IR tree is malformed w.r.t. the catalog (unbound column,
+    unknown table, ...)."""
+
+
+class LoweringError(QueryError):
+    """The IR is valid but not compilable (min/max aggregates, kernel
+    shape mismatch, an operator not yet ported)."""
+
+
+# ---------------------------------------------------------------------------
+# expressions
+# ---------------------------------------------------------------------------
+
+
+class Expr:
+    """Base expression node.  Operators build trees; ``==`` builds a
+    predicate."""
+
+    def __add__(self, other):
+        return BinOp("+", self, _wrap(other))
+
+    def __radd__(self, other):
+        return BinOp("+", _wrap(other), self)
+
+    def __sub__(self, other):
+        return BinOp("-", self, _wrap(other))
+
+    def __rsub__(self, other):
+        return BinOp("-", _wrap(other), self)
+
+    def __mul__(self, other):
+        return BinOp("*", self, _wrap(other))
+
+    def __rmul__(self, other):
+        return BinOp("*", _wrap(other), self)
+
+    def __truediv__(self, other):
+        return BinOp("/", self, _wrap(other))
+
+    def __neg__(self):
+        return UnaryOp("neg", self)
+
+    def __eq__(self, other):  # noqa: D105 — builds a predicate
+        return BinOp("==", self, _wrap(other))
+
+    def __ne__(self, other):
+        return BinOp("!=", self, _wrap(other))
+
+    def __lt__(self, other):
+        return BinOp("<", self, _wrap(other))
+
+    def __le__(self, other):
+        return BinOp("<=", self, _wrap(other))
+
+    def __gt__(self, other):
+        return BinOp(">", self, _wrap(other))
+
+    def __ge__(self, other):
+        return BinOp(">=", self, _wrap(other))
+
+    def __and__(self, other):
+        return BinOp("and", self, _wrap(other))
+
+    def __or__(self, other):
+        return BinOp("or", self, _wrap(other))
+
+    def __invert__(self):
+        return UnaryOp("not", self)
+
+    __hash__ = object.__hash__
+
+
+def _wrap(v) -> "Expr":
+    return v if isinstance(v, Expr) else Lit(v)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Col(Expr):
+    """Reference to a column of the current stream."""
+
+    name: str
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Lit(Expr):
+    value: object
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class BinOp(Expr):
+    op: str  # + - * / == != < <= > >= and or
+    lhs: Expr
+    rhs: Expr
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class UnaryOp(Expr):
+    op: str  # not neg
+    operand: Expr
+
+
+C = Col  # builder shorthand: C("l_shipdate") <= cutoff
+
+
+_BINOPS = {
+    "+": lambda a, b: a + b,
+    "-": lambda a, b: a - b,
+    "*": lambda a, b: a * b,
+    "/": lambda a, b: a / b,
+    "==": lambda a, b: a == b,
+    "!=": lambda a, b: a != b,
+    "<": lambda a, b: a < b,
+    "<=": lambda a, b: a <= b,
+    ">": lambda a, b: a > b,
+    ">=": lambda a, b: a >= b,
+    "and": lambda a, b: a & b,
+    "or": lambda a, b: a | b,
+}
+
+
+def eval_expr(e: Expr, cols: Mapping[str, object]):
+    """Evaluate an expression against a column dict (torch tensors inside a
+    plan, numpy on the host — both work: only python operators)."""
+    if isinstance(e, Col):
+        return cols[e.name]
+    if isinstance(e, Lit):
+        return e.value
+    if isinstance(e, BinOp):
+        return _BINOPS[e.op](eval_expr(e.lhs, cols), eval_expr(e.rhs, cols))
+    if isinstance(e, UnaryOp):
+        v = eval_expr(e.operand, cols)
+        return ~v if e.op == "not" else -v
+    raise IRValidationError(f"unknown expression node {type(e).__name__}")
+
+
+def expr_columns(e: Expr) -> frozenset:
+    """Set of column names an expression reads."""
+    if isinstance(e, Col):
+        return frozenset((e.name,))
+    if isinstance(e, Lit):
+        return frozenset()
+    if isinstance(e, BinOp):
+        return expr_columns(e.lhs) | expr_columns(e.rhs)
+    if isinstance(e, UnaryOp):
+        return expr_columns(e.operand)
+    raise IRValidationError(f"unknown expression node {type(e).__name__}")
+
+
+_FLIP_CMP = {"<": ">", "<=": ">=", ">": "<", ">=": "<=",
+             "==": "==", "!=": "!="}
+
+
+def normalize_comparison(e: Expr) -> Optional[tuple]:
+    """``Col op Lit`` (either side) -> (column, op, value), with the
+    operator flipped when the literal is on the left; None for anything
+    else."""
+    if not isinstance(e, BinOp) or e.op not in _FLIP_CMP:
+        return None
+    if isinstance(e.lhs, Col) and isinstance(e.rhs, Lit):
+        return e.lhs.name, e.op, e.rhs.value
+    if isinstance(e.lhs, Lit) and isinstance(e.rhs, Col):
+        return e.rhs.name, _FLIP_CMP[e.op], e.lhs.value
+    return None
+
+
+def conjuncts(e: Expr) -> list:
+    """Flatten a conjunction into its factors."""
+    if isinstance(e, BinOp) and e.op == "and":
+        return conjuncts(e.lhs) + conjuncts(e.rhs)
+    return [e]
+
+
+# ---------------------------------------------------------------------------
+# logical operators
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Scan:
+    """Leaf: the partitioned base table (one partition per node)."""
+
+    table: str
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Filter:
+    child: object
+    pred: Expr
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Project:
+    """Add derived columns (name -> expression over the stream)."""
+
+    child: object
+    cols: tuple  # ((name, Expr), ...)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GroupKey:
+    name: str
+    expr: Expr
+    cardinality: int
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Agg:
+    name: str
+    agg: str  # sum | count | min | max (min/max do not lower)
+    expr: Optional[Expr] = None  # None for count
+
+    VALID = ("sum", "count", "min", "max")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GroupAgg:
+    """Grouped aggregation over small composite key spaces.  Result: dense
+    ``(prod(cardinalities), len(aggs))`` array, groups in row-major key
+    order."""
+
+    child: object
+    keys: tuple  # (GroupKey, ...) — may be empty (global aggregate)
+    aggs: tuple  # (Agg, ...)
+    method: str = "auto"  # auto | onehot | dense | kernel
+
+
+# ---------------------------------------------------------------------------
+# catalog: what the validator/lowerer knows about the data
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ColumnStats:
+    """Cheap per-column statistics (min, max, distinct count)."""
+
+    lo: float
+    hi: float
+    n_distinct: int  # 0 = unknown (float domains)
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedInfo:
+    """Resident encoding of a bit-packed column: width/offset for
+    frame-of-reference columns, the sorted ``values`` tuple for dictionary
+    columns — what the lowering needs to rewrite predicates into code
+    space and to predict bytes scanned."""
+
+    width: int
+    offset: int = 0
+    values: Optional[tuple] = None
+    dtype: str = "int32"
+
+
+@dataclasses.dataclass(frozen=True)
+class TableInfo:
+    name: str
+    columns: tuple
+    replicated: bool
+    num_rows: int
+    stats: Mapping[str, ColumnStats] = dataclasses.field(default_factory=dict)
+    # packed-resident columns: name -> PackedInfo (empty = raw residency)
+    packed: Mapping[str, PackedInfo] = dataclasses.field(default_factory=dict)
+
+
+# TPC-H co-partitioned edges (solid edges of the paper's Fig. 1):
+# child table -> (parent table, child's foreign-key column)
+TPCH_COPARTITIONED = {
+    "lineitem": ("orders", "l_orderkey"),
+    "partsupp": ("part", "ps_partkey"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Catalog:
+    tables: Mapping[str, TableInfo]
+    copartitioned: Mapping[str, tuple]
+    num_nodes: int = 1
+
+    def table(self, name: str) -> TableInfo:
+        try:
+            return self.tables[name]
+        except KeyError:
+            raise IRValidationError(
+                f"unknown table {name!r}; catalog has {sorted(self.tables)}"
+            ) from None
+
+
+def build_catalog(tables: Mapping[str, object], *, num_nodes: int = 1,
+                  copartitioned: Optional[Mapping[str, tuple]] = None,
+                  packed: Optional[Mapping[str, Mapping[str, PackedInfo]]] = None,
+                  ) -> Catalog:
+    """Catalog from host-side tables whose columns are numpy arrays (the
+    driver's decoded ``tables`` view): column names, replication, and
+    min/max/distinct stats.  ``packed`` declares the resident encoding per
+    table/column."""
+    infos = {}
+    for name, t in tables.items():
+        stats = {}
+        num_rows = 0
+        for cname, col in t.columns.items():
+            arr = np.asarray(col)
+            num_rows = arr.shape[0]
+            if arr.size == 0:
+                continue
+            lo, hi = float(arr.min()), float(arr.max())
+            if arr.dtype == np.bool_:
+                nd = 2
+            elif np.issubdtype(arr.dtype, np.integer):
+                nd = int(min(hi - lo + 1, arr.shape[0]))
+            else:
+                nd = 0
+            stats[cname] = ColumnStats(lo=lo, hi=hi, n_distinct=nd)
+        infos[name] = TableInfo(
+            name=name,
+            columns=tuple(t.columns.keys()),
+            replicated=bool(getattr(t, "replicated", False)),
+            num_rows=int(num_rows),
+            stats=stats,
+            packed=dict((packed or {}).get(name, {})),
+        )
+    return Catalog(
+        tables=infos,
+        copartitioned=dict(TPCH_COPARTITIONED if copartitioned is None
+                           else copartitioned),
+        num_nodes=num_nodes,
+    )
+
+
+# ---------------------------------------------------------------------------
+# validation: IR tree x catalog -> stream schema (or a typed error)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamInfo:
+    """Inferred schema of the tuple stream at a node: the base table whose
+    partitioning the stream follows, plus all visible column names."""
+
+    base: str
+    columns: frozenset
+
+
+def _check_bound(expr: Expr, stream: StreamInfo, what: str):
+    missing = expr_columns(expr) - stream.columns
+    if missing:
+        raise IRValidationError(
+            f"{what} references unbound column(s) {sorted(missing)} — the "
+            f"stream over {stream.base!r} has {sorted(stream.columns)}"
+        )
+
+
+def validate(node, catalog: Catalog) -> StreamInfo:
+    """Validate an operator tree bottom-up; returns the root's stream
+    schema.  Raises :class:`IRValidationError` with a precise message."""
+    if isinstance(node, Scan):
+        info = catalog.table(node.table)
+        return StreamInfo(base=node.table, columns=frozenset(info.columns))
+
+    if isinstance(node, Filter):
+        s = validate(node.child, catalog)
+        _check_bound(node.pred, s, "filter predicate")
+        return s
+
+    if isinstance(node, Project):
+        s = validate(node.child, catalog)
+        cols = set(s.columns)
+        for name, e in node.cols:
+            _check_bound(e, dataclasses.replace(s, columns=frozenset(cols)),
+                         f"projection {name!r}")
+            cols.add(name)
+        return StreamInfo(base=s.base, columns=frozenset(cols))
+
+    if isinstance(node, GroupAgg):
+        s = validate(node.child, catalog)
+        seen = set()
+        for k in node.keys:
+            if k.cardinality is None or k.cardinality <= 0:
+                raise IRValidationError(
+                    f"group key {k.name!r} needs a positive cardinality"
+                )
+            _check_bound(k.expr, s, f"group key {k.name!r}")
+            if k.name in seen:
+                raise IRValidationError(f"duplicate output name {k.name!r}")
+            seen.add(k.name)
+        for a in node.aggs:
+            if a.agg not in Agg.VALID:
+                raise IRValidationError(
+                    f"aggregate {a.name!r}: unknown kind {a.agg!r} "
+                    f"(valid: {Agg.VALID})"
+                )
+            if a.agg != "count":
+                if a.expr is None:
+                    raise IRValidationError(
+                        f"aggregate {a.name!r}: {a.agg} needs an expression"
+                    )
+                _check_bound(a.expr, s, f"aggregate {a.name!r}")
+            if a.name in seen:
+                raise IRValidationError(f"duplicate output name {a.name!r}")
+            seen.add(a.name)
+        if node.method not in ("auto", "onehot", "dense", "kernel"):
+            raise IRValidationError(f"unknown group-agg method {node.method!r}")
+        return StreamInfo(base=s.base, columns=frozenset(seen))
+
+    raise IRValidationError(f"unknown operator {type(node).__name__}")
+
+
+# ---------------------------------------------------------------------------
+# the fluent builder
+# ---------------------------------------------------------------------------
+
+
+def _as_group_key(k) -> GroupKey:
+    if isinstance(k, GroupKey):
+        return k
+    name, expr = k[0], _wrap(k[1])
+    card = k[2] if len(k) > 2 else None
+    return GroupKey(name=name, expr=expr, cardinality=card)
+
+
+def _as_agg(a) -> Agg:
+    if isinstance(a, Agg):
+        return a
+    name, kind = a[0], a[1]
+    expr = a[2] if len(a) > 2 else None
+    return Agg(name=name, agg=kind,
+               expr=_wrap(expr) if expr is not None else None)
+
+
+def _not_ported(op: str):
+    raise LoweringError(f"{op} is not yet ported to the PyTorch package")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Query:
+    """An IR tree plus an optional name."""
+
+    root: object
+    name: Optional[str] = None
+
+    def _with(self, root) -> "Query":
+        return Query(root=root, name=self.name)
+
+    def filter(self, pred: Expr) -> "Query":
+        return self._with(Filter(self.root, _wrap(pred)))
+
+    def project(self, **cols) -> "Query":
+        items = tuple((n, _wrap(e)) for n, e in cols.items())
+        return self._with(Project(self.root, items))
+
+    def semijoin(self, *args, **kwargs) -> "Query":
+        _not_ported("semijoin")
+
+    def exists(self, *args, **kwargs) -> "Query":
+        _not_ported("exists")
+
+    def group_agg(self, keys: Sequence = (), aggs: Sequence = (),
+                  method: str = "auto") -> "Query":
+        return self._with(GroupAgg(
+            self.root,
+            keys=tuple(_as_group_key(k) for k in keys),
+            aggs=tuple(_as_agg(a) for a in aggs),
+            method=method,
+        ))
+
+    def group_by_key(self, *args, **kwargs) -> "Query":
+        _not_ported("group_by_key")
+
+    def top_k(self, *args, **kwargs) -> "Query":
+        _not_ported("top_k")
+
+    def named(self, name: str) -> "Query":
+        return Query(root=self.root, name=name)
+
+    @property
+    def table(self) -> str:
+        """Base table of the root stream (the leaf scan's table)."""
+        node = self.root
+        while not isinstance(node, Scan):
+            node = node.child
+        return node.table
+
+
+class Q:
+    """Entry point: ``Q.scan("lineitem")``."""
+
+    @staticmethod
+    def scan(table: str) -> Query:
+        return Query(root=Scan(table))
