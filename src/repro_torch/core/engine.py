@@ -59,7 +59,12 @@ class PlanContext:
 
 class Cluster:
     """A shared-nothing cluster of ``num_nodes`` nodes, stacked on the
-    leading axis of tensors on one ``device``."""
+    leading axis of tensors on one ``device``.
+
+    Constructing a ``Cluster`` turns TF32 off for the whole process
+    (``torch.backends.cuda.matmul.allow_tf32`` and
+    ``torch.backends.cudnn.allow_tf32`` set to False), which every other
+    float32 matmul and convolution in the process then sees."""
 
     def __init__(self, num_nodes: int = 8, device=None):
         if num_nodes < 1:

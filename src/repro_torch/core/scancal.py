@@ -1,8 +1,7 @@
 """Calibration of the scan-strategy choice (compressed residency).
 
-Counterpart of ``repro.core.scancal`` (the rates, the predictors, the
-chooser and the file loader; the calibration tool waits for a later slice).
-Sequential scans are bandwidth-bound: packing a column at ``width`` bits
+Counterpart of ``repro.core.scancal`` (the rates, the predictors and the
+chooser).  Sequential scans are bandwidth-bound: packing a column at ``width`` bits
 streams ``width/32`` of the raw bytes but pays ALU work to test predicates
 in code space.  Three machine rates and a roofline over them decide, per
 scanned column, whether to evaluate the predicate on packed words or to
@@ -15,18 +14,16 @@ decode the column and filter raw:
 The builtin rates are the JAX package's own defaults (a bandwidth-bound
 node, packed wins at every realistic width), so both packages make the
 same decisions; they are model parameters, not measurements of any device.
+The file loader and the calibration tool wait for a slice that measures
+the card: until then every plan uses :data:`BUILTIN`, so no calibration
+file left in a checkout changes which scans run packed.
 """
 from __future__ import annotations
 
 import dataclasses
-import json
-import os
 from typing import Optional
 
 from repro_torch.core import compression
-
-ENV_VAR = "REPRO_SCAN_CAL"
-DEFAULT_PATH = os.path.join("experiments", "bench", "scan_calibration.json")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,40 +35,8 @@ class ScanCalibration:
     unpack_gvps: float = 4.0
     source: str = "builtin"
 
-    @classmethod
-    def from_json(cls, d: dict) -> "ScanCalibration":
-        fields = {f.name for f in dataclasses.fields(cls)}
-        return cls(**{k: v for k, v in d.items() if k in fields})
-
 
 BUILTIN = ScanCalibration()
-
-
-class ScanCalError(RuntimeError):
-    """An explicitly requested calibration file is missing or unusable."""
-
-
-def load(path: Optional[str] = None, *,
-         strict: Optional[bool] = None) -> ScanCalibration:
-    """Calibration from ``path`` / $REPRO_SCAN_CAL / the default location;
-    explicit sources raise on failure, the implicit default falls back to
-    :data:`BUILTIN`."""
-    explicit = path or os.environ.get(ENV_VAR)
-    if strict is None:
-        strict = explicit is not None
-    target = explicit or DEFAULT_PATH
-    try:
-        with open(target) as f:
-            return ScanCalibration.from_json(json.load(f))
-    except (OSError, ValueError, TypeError, AttributeError) as e:
-        if strict:
-            origin = "argument" if path else f"${ENV_VAR}"
-            kind = ("unreadable" if isinstance(e, OSError)
-                    else "not a calibration JSON object")
-            raise ScanCalError(
-                f"scan calibration file {target!r} (from {origin}) is "
-                f"{kind}: {e}") from e
-        return BUILTIN
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,7 @@ is ``kernels.ref.filtered_group_sum``; dispatch is in ``kernels.ops``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -38,9 +39,10 @@ def launch_shape(n: int, num_groups: int, c: int) -> tuple:
     return slabs, chunk, -(-n // chunk), slabs * slab_bytes
 
 
+@functools.cache
 def _lib():
-    lib = build.library("grouped_agg")
-    fn = lib.repro_filtered_group_sum
+    """The kernel's C entry point, its signature set once."""
+    fn = build.library("grouped_agg").repro_filtered_group_sum
     fn.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,

@@ -18,6 +18,7 @@ source).  The plain PyTorch version, decode-then-compare, is
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -36,9 +37,10 @@ def check_shape(padded_rows: int, width: int) -> int:
     return padded_rows // 32
 
 
+@functools.cache
 def _lib():
-    lib = build.library("scan_filter")
-    fn = lib.repro_scan_filter
+    """The kernel's C entry point, its signature set once."""
+    fn = build.library("scan_filter").repro_scan_filter
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]

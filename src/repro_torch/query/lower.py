@@ -76,7 +76,7 @@ def _decide_scans(root, catalog: Catalog, cal=None) -> dict:
     into one scan.  Returns ``{id(filter): [(conjuncts_tuple,
     [ScanDecision, ...]), ...]}`` for filters touching a packed column."""
     if cal is None:
-        cal = scancal.load(strict=False)
+        cal = scancal.BUILTIN
     decisions = {}
     base = None
     for node in _chain(root):
