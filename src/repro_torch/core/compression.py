@@ -1,12 +1,13 @@
-"""Fixed-width bit packing and packed bitsets (paper §3.2.1).
+"""Fixed-width bit packing and packed bitsets (paper §3.2.1), the §3.2.2
+cost model of the semi-join alternatives, and the Elias–Fano wire
+parameters that the exchange codec and the byte-accurate model share.
 
-Counterpart of ``repro.core.compression`` (the packing and bitset parts;
-the §3.2.2 cost model and the Elias–Fano helpers come with the exchange
-slice).  Words are bit-identical to the JAX package's ``uint32`` words, but
-stored as ``int32``: this torch build has no shifts, adds or comparisons on
-``uint32``.  All shift and compare arithmetic runs in ``int64`` masked with
-``0xFFFFFFFF``, so a word with bit 31 set is treated as unsigned, never
-sign-extended.  ``words.numpy().view(np.uint32)`` is the JAX word array.
+Counterpart of ``repro.core.compression``.  Words are bit-identical to the
+JAX package's ``uint32`` words, but stored as ``int32``: this torch build
+has no shifts, adds or comparisons on ``uint32``.  All shift and compare
+arithmetic runs in ``int64`` masked with ``0xFFFFFFFF``, so a word with bit
+31 set is treated as unsigned, never sign-extended.
+``words.numpy().view(np.uint32)`` is the JAX word array.
 
 Functions take a leading batch of any shape (the node axis of the
 node-stacked cluster): ``pack_bits`` on ``(P, n)`` values gives ``(P,
@@ -14,6 +15,7 @@ words)``, etc.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 M32 = 0xFFFFFFFF
@@ -142,3 +144,112 @@ def probe_bitset(words: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     idx = idx.to(torch.int64)
     word = torch.gather(as_u32(words), -1, idx >> 5)
     return ((word >> (idx & 31)) & 1).to(torch.bool)
+
+
+# ---------------------------------------------------------------------------
+# §3.2.2 analytic cost model (bits communicated per node)
+# ---------------------------------------------------------------------------
+
+
+def alt1_bits(n: float, m: float, P: int) -> float:
+    """Request-based semi-join: n requests after local filtering (n/P per
+    node), remote table of m rows: n/P * log2(m*P/n) bits per node."""
+    if n <= 0:
+        return 0.0
+    return (n / P) * float(np.log2(max(m * P / n, 2.0)))
+
+
+def alt2_bits(m: float, gamma: float) -> float:
+    """Replicated-bitset semi-join: γm qualifying rows of an m-row table:
+    γ·m·log2(1/γ) bits; γ <= 0 ships nothing worth counting, γ >= 1 the
+    m raw bits."""
+    if gamma <= 0:
+        return 0.0
+    if gamma >= 1:
+        return float(m)
+    return gamma * m * float(np.log2(1.0 / gamma))
+
+
+def choose_semijoin(n: float, m: float, gamma: float, P: int) -> int:
+    """1 or 2 — the cheaper alternative under the paper's model (for
+    n/P > m Alternative 2 is better anyway)."""
+    if n / P > m:
+        return 2
+    return 1 if alt1_bits(n, m, P) <= alt2_bits(m, gamma) else 2
+
+
+# ---------------------------------------------------------------------------
+# packed wire format parameters (shared by the exchange codec and the
+# byte-accurate cost model, so the model is exact by construction)
+# ---------------------------------------------------------------------------
+
+# The EF high parts live in a bounded universe of EF_UNIVERSE values, so a
+# decoder finds every high part from EF_UNIVERSE - 1 zero markers of the
+# upper bitvector.
+EF_UNIVERSE = 16
+
+
+def ef_params(capacity: int, domain: int) -> tuple:
+    """Elias–Fano split of ``capacity`` sorted keys from a per-destination
+    domain of ``domain`` values: ``(l, upper_words, lower_words)``.  Each
+    key keeps ``l = max(0, ceil(log2(domain)) - 4)`` low bits, packed at
+    width l; its high part (< EF_UNIVERSE) is unary-coded in a bitvector
+    of ``capacity + high_domain + 1 + EF_UNIVERSE - 1`` bits, whose spare
+    zeros make every zero-marker query answerable."""
+    c = max(1, int(capacity))
+    d = max(1, int(domain))
+    l = max(0, (d - 1).bit_length() - 4) if d > 1 else 0
+    hd = (d - 1) >> l
+    upper_bits = c + hd + 1 + (EF_UNIVERSE - 1)
+    lw = packed_words(c, l) if l else 0
+    return l, (upper_bits + 31) // 32, lw
+
+
+def packed_request_words(capacity: int, domain: int) -> int:
+    """32-bit words of one packed request row: EF upper bitvector + EF
+    lower bits + the folded validity-mask bitset."""
+    l, uw, lw = ef_params(capacity, domain)
+    return uw + lw + bitset_words(capacity)
+
+
+# ---------------------------------------------------------------------------
+# byte-accurate §3.2.2 model: static wire bytes of the compiled exchanges
+# ---------------------------------------------------------------------------
+
+
+def alt1_wire_bytes(capacity: int, P: int, domain: int = 0, *,
+                    packed: bool = True, reply_bytes: int = 1) -> float:
+    """Per-node bytes of the Alt-1 request/reply exchange at the plan's
+    static buffer shapes: P-1 remote destination rows of ``capacity``
+    slots, requests plus replies.  raw = int32 key + bool mask + reply
+    byte(s) per slot; packed = EF-coded keys with the mask folded in, and
+    1-byte (boolean) replies as a bitset."""
+    rows = max(P - 1, 1)
+    if packed and domain > 0:
+        reply_words = (bitset_words(capacity) if reply_bytes == 1
+                       else -(-capacity * reply_bytes // 4))
+        words = packed_request_words(capacity, domain) + reply_words
+        return float(rows * words * 4)
+    return float(rows * capacity * (4 + 1 + reply_bytes))
+
+
+def alt2_wire_bytes(m: float, P: int) -> float:
+    """Per-node bytes of the Alt-2 replicated bitset: the local partition's
+    packed predicate bits (m/P rows), allgathered to the other P-1 nodes;
+    the same on raw and packed wire."""
+    local = (int(m) + max(P, 1) - 1) // max(P, 1)
+    return float(max(P - 1, 1) * bitset_words(local) * 4)
+
+
+def choose_semijoin_wire(capacity: int, m: float, P: int, *,
+                         domain: int = 0, packed: bool = True,
+                         cal=None) -> int:
+    """Alternative at the plan's static exchange shapes, 1 or 2: the wire
+    bytes of the Alt-1 exchange against the Alt-2 bitset allgather.  The
+    JAX package's latency model (``cal``) rests on a calibration of other
+    hardware; the port has none for the card."""
+    if cal is not None:
+        raise NotImplementedError(
+            "the port has no wire calibration of the card yet")
+    a1 = alt1_wire_bytes(capacity, P, domain, packed=packed)
+    return 1 if a1 <= alt2_wire_bytes(m, P) else 2

@@ -6,9 +6,10 @@ collectives".  In the port the P nodes of the cluster are stacked on the
 leading axis of every partitioned tensor on ONE device: a plan is a Python
 function ``plan(ctx, tables)`` whose body works on all nodes at once (one
 kernel launch covers every node; the node index is a grid dimension), and
-a collective is a reduction over the node axis — ``psum(x)`` is
-``x.sum(0)``.  PyTorch runs eagerly, so ``Cluster.compile`` only binds the
-plan to its context and returns a callable.
+a collective is an operation over the node axis — ``psum(x)`` is
+``x.sum(0)``, the exchanges are in :mod:`repro_torch.core.exchange`.
+PyTorch runs eagerly, so ``Cluster.compile`` only binds the plan to its
+context and returns a callable.
 """
 from __future__ import annotations
 
@@ -49,6 +50,8 @@ class PlanContext:
     capacities: Mapping[str, int]            # plan-specific buffer capacities
     device: torch.device
     scale_factor: float = 1.0
+    backend: str = "xla"      # all-to-all backend: "xla" | "one_factor"
+    wire: str = "packed"      # exchange wire format: "packed" | "raw"
 
     def part(self, table: str) -> RangePartitioning:
         return self.parts[table]
@@ -89,7 +92,8 @@ class Cluster:
         return table.to(self.device)
 
     def context(self, tables: Mapping[str, Table], capacities=None, *,
-                scale_factor: float = 1.0) -> PlanContext:
+                backend: str = "xla", scale_factor: float = 1.0,
+                wire: str = "packed") -> PlanContext:
         parts = {
             name: RangePartitioning(t.num_rows,
                                     1 if t.replicated else self.num_nodes)
@@ -97,12 +101,14 @@ class Cluster:
         }
         return PlanContext(num_nodes=self.num_nodes, parts=parts,
                            capacities=dict(capacities or {}),
-                           device=self.device, scale_factor=scale_factor)
+                           device=self.device, scale_factor=scale_factor,
+                           backend=backend, wire=wire)
 
     # -- compilation -------------------------------------------------------
     def compile(self, plan: Callable, ctx: PlanContext) -> Callable:
         """Bind a plan to its context: returns ``fn(columns)`` over the
-        placed column dicts (table name -> column name -> column).
+        placed column dicts (table name -> column name -> column), with
+        the plan as ``fn.plan``.
 
         Compressed residency: tables may hold PackedColumn entries.  A plan
         that declares ``handles_packed`` (the IR lowering) receives them
@@ -118,12 +124,15 @@ class Cluster:
         def run(columns):
             return plan(ctx, entry(columns))
 
+        run.plan = plan
         return run
 
     def run(self, plan: Callable, tables: Mapping[str, Table],
-            capacities=None, *, scale_factor: float = 1.0):
+            capacities=None, *, backend: str = "xla",
+            scale_factor: float = 1.0, wire: str = "packed"):
         """Convenience: place, compile, execute."""
         placed = {name: self.load(t) for name, t in tables.items()}
-        ctx = self.context(placed, capacities, scale_factor=scale_factor)
+        ctx = self.context(placed, capacities, backend=backend,
+                           scale_factor=scale_factor, wire=wire)
         fn = self.compile(plan, ctx)
         return fn({name: t.columns for name, t in placed.items()})

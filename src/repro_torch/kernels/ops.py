@@ -18,12 +18,22 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.grouped_agg import filtered_group_sum_cuda
 from repro_torch.kernels.scan_filter import scan_filter_cuda
+from repro_torch.kernels.wire_codec import (
+    ef_decode_cuda,
+    ef_encode_cuda,
+    mask_fold_cuda,
+    mask_unfold_cuda,
+)
 
 _FORCE_REF = os.environ.get("REPRO_NO_KERNELS", "0") == "1"
 _USE_KERNELS = not _FORCE_REF
 
 _WRAPPERS = {"scan_filter": scan_filter_cuda,
-             "filtered_group_sum": filtered_group_sum_cuda}
+             "filtered_group_sum": filtered_group_sum_cuda,
+             "ef_encode": ef_encode_cuda,
+             "ef_decode": ef_decode_cuda,
+             "mask_fold": mask_fold_cuda,
+             "mask_unfold": mask_unfold_cuda}
 
 
 def use_kernels(enable: bool) -> None:
@@ -68,3 +78,33 @@ def scan_filter(words, lo, hi, *, rows, padded_rows, width, negate=False):
                                 padded_rows=padded_rows, width=width,
                                 negate=negate)
     return ref.scan_filter(words, lo, hi, rows, padded_rows, width, negate)
+
+
+def ef_encode(buckets, bucket_mask, base, *, domain):
+    """Packed request rows of sorted key buckets: (R, cap) int32 + bool,
+    per-row key base (R,) int64 -> (R, packed_request_words) int32."""
+    if _kernel_path(buckets):
+        return ef_encode_cuda(buckets, bucket_mask, base, domain=domain)
+    return ref.ef_encode(buckets, bucket_mask, base, domain)
+
+
+def ef_decode(words, base, *, capacity, domain):
+    """Inverse of :func:`ef_encode`: (R, W) int32 -> (keys (R, capacity)
+    int32, mask (R, capacity) bool)."""
+    if _kernel_path(words):
+        return ef_decode_cuda(words, base, capacity=capacity, domain=domain)
+    return ref.ef_decode(words, base, capacity, domain)
+
+
+def mask_fold(mask):
+    """(R, c) bool -> (R, ceil(c/32)) int32 bitset rows."""
+    if _kernel_path(mask):
+        return mask_fold_cuda(mask)
+    return ref.mask_fold(mask)
+
+
+def mask_unfold(words, *, n):
+    """(R, w) int32 bitset rows -> (R, n) bool."""
+    if _kernel_path(words):
+        return mask_unfold_cuda(words, n)
+    return ref.mask_unfold(words, n)

@@ -1,10 +1,10 @@
 """Declarative query IR: expressions, operators, catalog, validation.
 
-Counterpart of ``repro.query.ir`` for the operators this port lowers:
-``Scan``/``Filter``/``Project``/``GroupAgg`` over expression trees of
-columns and literals.  The other operators of the algebra (semi-joins,
-EXISTS probes, group-by-key, top-k) and runtime parameters come with later
-slices; their builder methods raise :class:`LoweringError`.
+Counterpart of ``repro.query.ir``: the operators ``Scan``, ``Filter``,
+``Project``, ``SemiJoin``, ``Exists``, ``GroupAgg``, ``GroupAggByKey`` and
+``TopK`` (with ``Fetch`` attributes) over expression trees of columns and
+literals.  Runtime parameters (``Param``) and binned keys (``Bin``) come
+with a later slice.
 
 Precedence gotcha: ``&``/``|`` bind tighter than comparisons in Python —
 always parenthesize comparisons inside conjunctions:
@@ -231,6 +231,34 @@ class Project:
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
+class SemiJoin:
+    """Keep stream rows whose foreign ``key`` points at a row of ``table``
+    satisfying ``pred`` — the paper's §3.2.2 remote-attribute filter.
+
+    alt: "auto" picks local evaluation for co-partitioned edges, else the
+    cheaper of Alt-1 (request exchange) / Alt-2 (replicated bitset) under
+    the byte-accurate cost model; "local"/"request"/"bitset" pin it."""
+
+    child: object
+    table: str
+    key: Expr
+    pred: Expr
+    alt: str = "auto"  # auto | local | request | bitset
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Exists:
+    """EXISTS probe: keep stream rows (over their base table) for which some
+    row of the co-partitioned ``table`` with ``key`` == the stream row's
+    primary key satisfies ``pred`` (Q4's late-lineitem probe)."""
+
+    child: object
+    table: str
+    key: str  # foreign-key column of ``table`` referencing the stream's base
+    pred: Expr
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class GroupKey:
     name: str
     expr: Expr
@@ -256,6 +284,43 @@ class GroupAgg:
     keys: tuple  # (GroupKey, ...) — may be empty (global aggregate)
     aggs: tuple  # (Agg, ...)
     method: str = "auto"  # auto | onehot | dense | kernel
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GroupAggByKey:
+    """Dense group-by on a co-partitioned foreign key: aggregates stream
+    rows into one value per row of the parent ``into`` table (Q18's
+    quantity per order), yielding a stream over ``into`` with the aggregate
+    names as derived columns."""
+
+    child: object
+    key: Expr  # foreign-key column referencing ``into``'s primary key
+    into: str
+    aggs: tuple  # (Agg, ...) — sum/count only
+
+
+@dataclasses.dataclass(frozen=True)  # field equality: plain strings only
+class Fetch:
+    """Late-materialized output attribute (§3.2.7).  ``table=None`` fetches
+    ``name`` from the stream's own table (derived columns included);
+    otherwise ``name`` is fetched from ``table`` keyed by the previously
+    fetched attribute ``key``."""
+
+    name: str
+    table: Optional[str] = None
+    key: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TopK:
+    """Global top-k of the stream by ``value`` (desc, primary key asc
+    tiebreak), via per-node selection + the §3.2.3 merging reduction."""
+
+    child: object
+    value: Expr
+    k: int
+    pred: Optional[Expr] = None
+    fetch: tuple = ()
 
 
 # ---------------------------------------------------------------------------
@@ -404,6 +469,47 @@ def validate(node, catalog: Catalog) -> StreamInfo:
             cols.add(name)
         return StreamInfo(base=s.base, columns=frozenset(cols))
 
+    if isinstance(node, SemiJoin):
+        s = validate(node.child, catalog)
+        _check_bound(node.key, s, "semijoin key")
+        target = catalog.table(node.table)
+        if target.replicated:
+            raise IRValidationError(
+                f"semijoin against replicated table {node.table!r}: "
+                f"replicated tables are not partitioned — evaluate the "
+                f"predicate locally with project/filter instead"
+            )
+        t_stream = StreamInfo(base=node.table,
+                              columns=frozenset(target.columns))
+        _check_bound(node.pred, t_stream, "semijoin predicate")
+        if node.alt not in ("auto", "local", "request", "bitset"):
+            raise IRValidationError(f"unknown semijoin alt {node.alt!r}")
+        return s
+
+    if isinstance(node, Exists):
+        s = validate(node.child, catalog)
+        inner = catalog.table(node.table)
+        if inner.replicated:
+            raise IRValidationError(
+                f"exists-probe against replicated table {node.table!r}: "
+                f"replicated tables are not partitioned"
+            )
+        edge = catalog.copartitioned.get(node.table)
+        if edge is None or edge[0] != s.base or edge[1] != node.key:
+            raise IRValidationError(
+                f"exists-probe needs {node.table!r} co-partitioned with the "
+                f"stream's base table {s.base!r} on {node.key!r}; known "
+                f"co-partitioned edges: {dict(catalog.copartitioned)}"
+            )
+        if node.key not in inner.columns:
+            raise IRValidationError(
+                f"exists key {node.key!r} is not a column of {node.table!r}"
+            )
+        i_stream = StreamInfo(base=node.table,
+                              columns=frozenset(inner.columns))
+        _check_bound(node.pred, i_stream, "exists predicate")
+        return s
+
     if isinstance(node, GroupAgg):
         s = validate(node.child, catalog)
         seen = set()
@@ -435,6 +541,60 @@ def validate(node, catalog: Catalog) -> StreamInfo:
             raise IRValidationError(f"unknown group-agg method {node.method!r}")
         return StreamInfo(base=s.base, columns=frozenset(seen))
 
+    if isinstance(node, GroupAggByKey):
+        s = validate(node.child, catalog)
+        parent = catalog.table(node.into)
+        edge = catalog.copartitioned.get(s.base)
+        if (edge is None or edge[0] != node.into
+                or not isinstance(node.key, Col) or node.key.name != edge[1]):
+            raise IRValidationError(
+                f"group_by_key into {node.into!r} needs the stream's base "
+                f"table {s.base!r} co-partitioned with it on the key column; "
+                f"known co-partitioned edges: {dict(catalog.copartitioned)}"
+            )
+        _check_bound(node.key, s, "group_by_key key")
+        cols = set(parent.columns)
+        for a in node.aggs:
+            if a.agg not in ("sum", "count"):
+                raise IRValidationError(
+                    f"group_by_key aggregate {a.name!r}: only sum/count are "
+                    f"supported (got {a.agg!r})"
+                )
+            if a.agg != "count":
+                _check_bound(a.expr, s, f"aggregate {a.name!r}")
+            cols.add(a.name)
+        return StreamInfo(base=node.into, columns=frozenset(cols))
+
+    if isinstance(node, TopK):
+        s = validate(node.child, catalog)
+        _check_bound(node.value, s, "top-k value")
+        if node.pred is not None:
+            _check_bound(node.pred, s, "top-k predicate")
+        if node.k <= 0:
+            raise IRValidationError("top-k needs k > 0")
+        fetched = set()
+        for f in node.fetch:
+            if f.table is None:
+                if f.name not in s.columns:
+                    raise IRValidationError(
+                        f"fetch {f.name!r}: not a column of the stream over "
+                        f"{s.base!r}"
+                    )
+            else:
+                remote = catalog.table(f.table)
+                if f.name not in remote.columns:
+                    raise IRValidationError(
+                        f"fetch {f.name!r}: not a column of {f.table!r}"
+                    )
+                if f.key is None or f.key not in fetched:
+                    raise IRValidationError(
+                        f"remote fetch {f.name!r} from {f.table!r} needs "
+                        f"key= one of the previously fetched attributes "
+                        f"({sorted(fetched) or 'none yet'})"
+                    )
+            fetched.add(f.name)
+        return s
+
     raise IRValidationError(f"unknown operator {type(node).__name__}")
 
 
@@ -460,10 +620,6 @@ def _as_agg(a) -> Agg:
                expr=_wrap(expr) if expr is not None else None)
 
 
-def _not_ported(op: str):
-    raise LoweringError(f"{op} is not yet ported to the PyTorch package")
-
-
 @dataclasses.dataclass(frozen=True, eq=False)
 class Query:
     """An IR tree plus an optional name."""
@@ -481,11 +637,13 @@ class Query:
         items = tuple((n, _wrap(e)) for n, e in cols.items())
         return self._with(Project(self.root, items))
 
-    def semijoin(self, *args, **kwargs) -> "Query":
-        _not_ported("semijoin")
+    def semijoin(self, table: str, key: Expr, pred: Expr,
+                 alt: str = "auto") -> "Query":
+        return self._with(SemiJoin(self.root, table, _wrap(key), _wrap(pred),
+                                   alt))
 
-    def exists(self, *args, **kwargs) -> "Query":
-        _not_ported("exists")
+    def exists(self, table: str, key: str, pred: Expr) -> "Query":
+        return self._with(Exists(self.root, table, key, _wrap(pred)))
 
     def group_agg(self, keys: Sequence = (), aggs: Sequence = (),
                   method: str = "auto") -> "Query":
@@ -496,11 +654,17 @@ class Query:
             method=method,
         ))
 
-    def group_by_key(self, *args, **kwargs) -> "Query":
-        _not_ported("group_by_key")
+    def group_by_key(self, key: Expr, into: str, aggs: Sequence) -> "Query":
+        return self._with(GroupAggByKey(
+            self.root, _wrap(key), into, tuple(_as_agg(a) for a in aggs)
+        ))
 
-    def top_k(self, *args, **kwargs) -> "Query":
-        _not_ported("top_k")
+    def top_k(self, value: Expr, k: int, pred: Optional[Expr] = None,
+              fetch: Sequence = ()) -> "Query":
+        return self._with(TopK(
+            self.root, _wrap(value), int(k),
+            _wrap(pred) if pred is not None else None, tuple(fetch),
+        ))
 
     def named(self, name: str) -> "Query":
         return Query(root=self.root, name=name)

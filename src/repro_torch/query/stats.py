@@ -1,12 +1,19 @@
-"""Compressed residency: code-space predicate rewrite and per-column scan
+"""The §3.2.2 selectivity model, exchange capacities and wire formats, and
+compressed residency's code-space predicate rewrite and per-column scan
 strategy.
 
-Counterpart of the scan half of ``repro.query.stats``.  A comparison
-against a literal rewrites into an inclusive code-range test ``lo <= code
-<= hi`` (optionally negated) over the packed words — frame-of-reference
-columns by integer arithmetic on the offset, dictionary columns by binary
-search over the sorted values.  Anything else (column-vs-column, arithmetic
-on the column) is evaluated on the decoded column.
+Counterpart of ``repro.query.stats`` for literal predicates.  Exchange
+buffers have static shapes, so the expected number of surviving keys
+becomes a buffer capacity: the per-destination mean under uniform routing
+plus a 6-sigma tail margin and a constant floor, rounded up to a power of
+two; the exchange's overflow flag surfaces any under-estimate at run time.
+
+A comparison against a literal rewrites into an inclusive code-range test
+``lo <= code <= hi`` (optionally negated) over the packed words —
+frame-of-reference columns by integer arithmetic on the offset, dictionary
+columns by binary search over the sorted values.  Anything else
+(column-vs-column, arithmetic on the column) is evaluated on the decoded
+column.
 """
 from __future__ import annotations
 
@@ -16,12 +23,121 @@ import math
 from typing import Mapping, Optional
 
 from repro_torch.core import scancal
+from repro_torch.core.exchange import WireFormat
 from repro_torch.query.ir import (
+    BinOp,
+    Col,
+    ColumnStats,
     Expr,
+    LoweringError,
     PackedInfo,
+    UnaryOp,
     expr_columns,
     normalize_comparison,
 )
+
+# Selinger-style default for predicates the model cannot see through
+# (column-vs-column comparisons, opaque expressions).
+DEFAULT_SELECTIVITY = 1.0 / 3.0
+
+
+def next_pow2(n: int) -> int:
+    return 1 << max(0, int(n - 1).bit_length())
+
+
+def capacity_for(expected: float, *, floor: int = 64) -> int:
+    """Static per-destination buffer capacity for an expected message count:
+    mean + 6*sqrt(mean) binomial tail margin + constant slack, rounded up
+    to a power of two."""
+    e = max(float(expected), 0.0)
+    need = e + 6.0 * math.sqrt(e) + 16.0
+    return next_pow2(max(floor, math.ceil(need)))
+
+
+def _range_fraction(st: ColumnStats, op: str, v: float) -> float:
+    """Fraction of a uniform [lo, hi] domain satisfying ``col op v``."""
+    lo, hi = st.lo, st.hi
+    if hi <= lo:
+        return 1.0
+    integral = st.n_distinct > 0
+    span = (hi - lo + 1.0) if integral else (hi - lo)
+    if op == "<":
+        frac = (v - lo) / span
+    elif op == "<=":
+        frac = (v - lo + (1.0 if integral else 0.0)) / span
+    elif op == ">":
+        frac = (hi - v) / span
+    elif op == ">=":
+        frac = (hi - v + (1.0 if integral else 0.0)) / span
+    else:
+        return DEFAULT_SELECTIVITY
+    return min(1.0, max(0.0, frac))
+
+
+def estimate_selectivity(pred: Expr, stats: Mapping[str, ColumnStats]
+                         ) -> float:
+    """Estimated fraction of rows satisfying ``pred`` under independence +
+    uniformity (the paper's model; good enough to size buffers, and the
+    run-time overflow flag catches the rest)."""
+    if isinstance(pred, BinOp):
+        if pred.op == "and":
+            return (estimate_selectivity(pred.lhs, stats)
+                    * estimate_selectivity(pred.rhs, stats))
+        if pred.op == "or":
+            a = estimate_selectivity(pred.lhs, stats)
+            b = estimate_selectivity(pred.rhs, stats)
+            return min(1.0, a + b - a * b)
+        norm = normalize_comparison(pred)
+        if norm is not None:
+            col, op, v = norm
+            st = stats.get(col)
+            if st is None:
+                return DEFAULT_SELECTIVITY
+            if op == "==":
+                return (1.0 / st.n_distinct if st.n_distinct
+                        else DEFAULT_SELECTIVITY)
+            if op == "!=":
+                return (1.0 - (1.0 / st.n_distinct) if st.n_distinct
+                        else DEFAULT_SELECTIVITY)
+            try:
+                return _range_fraction(st, op, float(v))
+            except (TypeError, ValueError):
+                return DEFAULT_SELECTIVITY
+        return DEFAULT_SELECTIVITY
+    if isinstance(pred, UnaryOp) and pred.op == "not":
+        return 1.0 - estimate_selectivity(pred.operand, stats)
+    if isinstance(pred, Col):
+        # bare boolean column: no histogram, assume an even split
+        return 0.5
+    return DEFAULT_SELECTIVITY
+
+
+def request_capacity(table_rows: int, selectivity: float,
+                     num_nodes: int) -> int:
+    """Capacity for an Alt-1 request exchange: each node ships
+    ``rows/P * sel`` keys, spread uniformly over P destinations."""
+    n_local = ((table_rows / max(num_nodes, 1))
+               * min(max(selectivity, 0.0), 1.0))
+    return capacity_for(n_local / max(num_nodes, 1))
+
+
+def wire_format_for(table_rows: int, num_nodes: int,
+                    kind: str = "packed") -> WireFormat:
+    """Wire format of an exchange addressing the owners of a table
+    range-partitioned over ``num_nodes``: the per-destination key domain
+    is ``rows_per_node``.  ``"auto"`` — the JAX package's latency choice
+    between packed and raw — needs a wire calibration of the card, which
+    the port does not have yet."""
+    if kind == "auto":
+        raise LoweringError(
+            "wire='auto' needs a wire calibration of the card (codec and "
+            "link rates), which the port does not have yet; pass "
+            "wire='packed' or wire='raw'")
+    if kind == "raw":
+        return WireFormat.raw()
+    if kind != "packed":
+        raise LoweringError(f"unknown wire format {kind!r}")
+    return WireFormat.packed_for(table_rows, num_nodes)
 
 _I32_MIN, _I32_MAX = -(2 ** 31), 2 ** 31 - 1
 

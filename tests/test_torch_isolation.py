@@ -36,7 +36,9 @@ def test_port_file_list_is_complete():
     names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
              for p in PORT_FILES[:-1]}
     for mod in ("core/compression.py", "core/columnar.py", "core/engine.py",
-                "kernels/ops.py", "query/lower.py", "tpch/driver.py"):
+                "core/exchange.py", "core/semijoin.py", "core/topk.py",
+                "core/late_materialization.py", "kernels/ops.py",
+                "kernels/wire_codec.py", "query/lower.py", "tpch/driver.py"):
         assert mod in names
 
 

@@ -91,7 +91,9 @@ def test_cuda_wrappers_reject_cpu_tensors():
                                 torch.zeros((1, 4), dtype=torch.int32),
                                 torch.zeros((1, 4), dtype=torch.int32),
                                 cutoff=0, num_groups=2)
-    assert ops.launch_counts() == {"scan_filter": 0, "filtered_group_sum": 0}
+    assert ops.launch_counts() == {
+        k: 0 for k in ("scan_filter", "filtered_group_sum", "ef_encode",
+                       "ef_decode", "mask_fold", "mask_unfold")}
 
 
 def test_use_kernels_false_keeps_the_plain_version():

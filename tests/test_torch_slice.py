@@ -145,7 +145,6 @@ def test_packed_scan_decodes_only_what_the_plan_touches(port_driver):
     """Decode on first touch: q6 scans l_shipdate packed and never expands
     it; only the aggregate's columns are decoded."""
     from repro_torch.core import columnar
-    from repro_torch.query.lower import lower
     from repro_torch.tpch.queries import IR_QUERIES
 
     decoded = []
@@ -158,11 +157,10 @@ def test_packed_scan_decodes_only_what_the_plan_touches(port_driver):
     widths = {n: c.width for n, c in
               port_driver.placed["lineitem"].columns.items()
               if isinstance(c, PackedColumn)}
-    plan = port_driver.cluster.compile(
-        lower(IR_QUERIES["q6"], port_driver.catalog), port_driver.ctx)
+    plan = port_driver.compile_query(IR_QUERIES["q6"])
     columnar.PackedColumn.decode = spy
     try:
-        plan(port_driver._columns())
+        plan(port_driver.columns())
     finally:
         columnar.PackedColumn.decode = orig
     # l_extendedprice is raw; l_discount (dictionary) is the one decode
