@@ -47,7 +47,37 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
    resident bytes; each kernel's time at its main-path shape beside its
    plain version, a PyTorch library call where one exists, and its bound
    (the codec kernels at the q4_sj and q18_sj shapes).
-7. One ``{"kernels": [...]}`` line, then the last line
+7. The language model, after the TPC-H phases have
+   dropped what they placed on the card:
+   a. ``flash_attention_fwd`` (B7) against its plain version computed in
+      f32 from the same inputs: f32 within 2e-5 and bf16 within one bf16
+      rounding (rtol 2^-8, atol 1e-5) over H/KV in {4/4, 8/2, 8/1},
+      causal, window 4, prefix 8, both, non-causal, ragged and mixed
+      lengths, D = 8 .. 256, a fully masked row (0), and the prefill shape
+      (8, 8, 4096, 128) bf16; lse within 2e-5.  ``decode_attention`` (B9)
+      likewise over f32, bf16 and int8 caches, lengths 1, 37, a split
+      boundary and Smax, at (4, 4, 16) x 64, (8, 8, 128) x 4160 and
+      decode_32k's 32,768 positions.  Each twice: identical.
+   b. Path (i): qwen2.5-3b at full width (36 layers, d_model 2048, random
+      weights from seed 0, cast once to bf16), batch 4: prefill of 4,096
+      tokens with ``attn_impl="flash"``, then ``decode_loop`` of 64 greedy
+      tokens through ``make_serve_step(shards=8, k=8)``.  Launches: B7 36
+      times, B9 never.  The same prefill with the plain B7, the plain
+      path's decode steps teacher-forced on the same tokens, and a prefill
+      of 4,095 tokens plus one decode step, each within 0.05 x the largest
+      |logit|; the sharded head equals argmax on every step.
+   c. Path (ii): the int8 cache, 512 prompt tokens fed one a step through
+      the serve step, then 64 greedy tokens: B9 36 x 576 times, B7 never;
+      logits within rtol 0.1, atol 0.15 of the bf16 cache fed the same
+      tokens, the int8 argmax among its top 5 on every row and step.
+   d. B7 on each of the 36 layers' prefill inputs of path (i), and B9 on
+      each layer's input of path (ii)'s last step, against their plain
+      versions within one bf16 rounding (rtol 2^-8, atol 1e-5).
+   e. Times (CUDA events, medians of warm runs): prefill, time to first
+      token, decode ms a step for both flavours; resident bytes; B7 and B9
+      at their main-path inputs beside their plain versions,
+      ``scaled_dot_product_attention`` and their bounds.
+8. One ``{"kernels": [...]}`` line (eight kernels), then the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or when
@@ -56,6 +86,7 @@ it is run outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import pathlib
 import statistics
@@ -68,6 +99,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # published peaks of one H100 SXM (NVIDIA data sheet) for the bounds
 MEM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12     # tensor cores, dense
 
 NODES = 8
 
@@ -89,11 +121,11 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, ops: float) -> tuple:
+def bound(nbytes: float, ops: float, rate: float = F32_OPS_PER_S) -> tuple:
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the f32 rate."""
+    operations over ``rate`` (by default the f32 rate)."""
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -282,54 +314,17 @@ def check_group_sum(torch, ops, ref, gen, n, num_groups, c, cutoff):
     return float(err.max()), (measures, groups, pred)
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--sf", type=float, default=10.0,
-                    help="TPC-H scale factor (default 10: 60M lineitems)")
-    ap.add_argument("--repeat", type=int, default=10,
-                    help="warm runs per query for the median")
-    ap.add_argument("--profile", action="store_true",
-                    help="also profile one warm run of each query "
-                         "(torch.profiler: device time by kernel)")
-    args = ap.parse_args(argv)
-
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 1
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print("chip_smoke: run from a checkout of the repository "
-              "(src/repro_torch is missing)", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT / "src"))
+def tpch_phases(args, torch, smi: str):
+    """The TPC-H phases (3-6 of the module docstring): B1-B3 against
+    their plain versions, the queries, bytes and times.  Returns (the
+    kernels' entries of the JSON line, a summary dict).  Everything
+    they placed on the card is dropped when they return."""
     from repro_torch.core import compression
     from repro_torch.core.columnar import PackedColumn
-    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.tpch import dbgen
     from repro_torch.tpch.driver import TPCHDriver
     from repro_torch.tpch.schema import DEFAULT_PARAMS as DP
-
-    t_start = time.perf_counter()
-    # -- 1. device -----------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    kind = torch.cuda.get_device_name(0)
-    print(f"nvidia-smi: {smi}")
-    print(f"device: {kind} (count {torch.cuda.device_count()}), torch "
-          f"{torch.__version__}, CUDA {torch.version.cuda}")
-
-    # -- 2. build ------------------------------------------------------------
-    t0 = time.perf_counter()
-    reports = build.build_all()
-    print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(reports)} "
-          f"into {build.BUILD_DIR.relative_to(ROOT)}")
-    for name, rep in reports.items():
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
 
     # -- 3. kernels against their plain versions -------------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -692,14 +687,596 @@ def main(argv=None) -> int:
             "bound_ms": t4["bound_ms"], "bound_by": t4["bound_by"],
             "library_ms": None, "shape": "q4_sj " + t4["shape"],
             "q18_sj": t18})
+    return kernels, {"queries_ms": query_ms, "gen_s": gen_s,
+                     "resident_bytes": drv.resident_bytes,
+                     "lineitem_bytes": li_bytes, "sf": args.sf,
+                     "nodes": NODES}
+
+
+# ---------------------------------------------------------------------------
+# the language-model phases: B7, B9 and qwen2.5-3b serving at full width
+# ---------------------------------------------------------------------------
+
+LM_BATCH = 4
+LM_PROMPT = 4096            # prefill tokens a sequence, path (i)
+LM_MAX_LEN = 4160           # cache positions: the prompt + 64 decode steps
+LM_STEPS = 64               # greedy tokens of each path
+LM_QUANT_PROMPT = 512       # prompt fed one token a step, path (ii)
+LM_SHARDS = 8               # stacked vocab shards of the top-k head
+LM_TOPK = 8
+LM_REPEAT = 3               # warm runs of each timed LM step
+F32_TOL = 2e-5              # the JAX tests' own f32 tolerance
+BF16_ULP = 2.0 ** -8        # one bf16 rounding of an output, relative
+# Full-width bf16 paths that differ only in where f32 results are rounded
+# to bf16: the largest logit difference may reach this share of the
+# step's largest |logit|.  tools/logit_fault_control.py measured the sound
+# B7 at 0.0064-0.0096 of it in (b)-(d), p rounded to bf16 before p.v (a
+# tensor-core kernel's rounding) at 0.0101, and planted B7 faults in (b)
+# and (c) at 0.22 (one future key visible) to 1.59 (output zeroed); the
+# limit sits between them, about 5x from the rounding and 4x from the
+# faults.
+LOGIT_RTOL = 0.05
+# int8 cache against the bf16 cache: the JAX test's bounds
+# (tests/test_serve_sampling.py::test_quant_cache_decode_matches_bf16)
+QUANT_RTOL, QUANT_ATOL = 0.1, 0.15
+
+
+def _errs(got, want) -> dict:
+    """Max and mean absolute difference, and the largest |want|."""
+    d = (got.float() - want.float()).abs()
+    return {"max": float(d.max()), "mean": float(d.mean()),
+            "ref_max": float(want.float().abs().max())}
+
+
+def check_flash(torch, ops, ref, gen):
+    """B7 against its plain version (f32, from the same inputs): the CPU
+    tests' shapes and masks, ragged and mixed lengths, D = 8 .. 256, a
+    fully masked row; f32 and bf16 inputs; twice identical."""
+    masks = [dict(causal=True), dict(causal=True, window=4),
+             dict(causal=True, prefix=8),
+             dict(causal=True, window=4, prefix=8), dict(causal=False)]
+    cases = [(2 * kv, h // kv, 64, 64, 16, m)
+             for h, kv in ((4, 4), (8, 2), (8, 1)) for m in masks]
+    cases += [(8, 4, 48, 48, 16, dict(causal=True)),
+              (8, 4, 32, 80, 16, dict(causal=False)),
+              (8, 4, 80, 32, 16, dict(causal=True)),
+              (4, 8, 1000, 1000, 128, dict(causal=True)),
+              (4, 3, 129, 77, 64, dict(causal=True, prefix=40)),
+              (2, 8, 37, 37, 256, dict(causal=True, window=9)),
+              (4, 2, 32, 32, 8, dict(causal=True, window=0))]
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for dtype in worst:
+        for bkv, g, s, sk, d, m in cases:
+            q = torch.randn((bkv, g, s, d), generator=gen, device="cuda")
+            k = torch.randn((bkv, sk, d), generator=gen, device="cuda")
+            v = torch.randn((bkv, sk, d), generator=gen, device="cuda")
+            q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+            out, lse = ops.flash_attention_fwd(q, k, v, **m)
+            out2, lse2 = ops.flash_attention_fwd(q, k, v, **m)
+            want, wlse = ref.flash_attention_fwd(q.float(), k.float(),
+                                                 v.float(), **m)
+            torch.cuda.synchronize()
+            what = f"flash {dtype} BKV={bkv} G={g} S={s} Sk={sk} D={d} {m}"
+            if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+                fail(f"{what}: not repeatable")
+            rtol = F32_TOL if dtype == torch.float32 else BF16_ULP
+            atol = F32_TOL if dtype == torch.float32 else 1e-5
+            if not torch.allclose(out.float(), want, rtol=rtol, atol=atol):
+                fail(f"{what}: out differs from the plain version by "
+                     f"{_errs(out, want)}")
+            if not torch.allclose(lse, wlse, rtol=F32_TOL, atol=F32_TOL):
+                fail(f"{what}: lse differs by {_errs(lse, wlse)}")
+            if m.get("window") == 0 and out.any():
+                fail(f"{what}: a fully masked row is not 0")
+            worst[dtype] = max(worst[dtype], _errs(out, want)["max"])
+    print(f"flash_attention_fwd: {len(cases)} shapes x f32/bf16 within the "
+          f"plain version (f32 {F32_TOL}; bf16 one rounding, rtol 2^-8 atol "
+          f"1e-5; lse {F32_TOL}), repeatable; max abs err f32 "
+          f"{worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e}")
+    # the prefill's shape: 4 sequences x 2 kv heads, 8 query heads each
+    q = torch.randn((8, 8, LM_PROMPT, 128), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    k = torch.randn((8, LM_PROMPT, 128), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    v = torch.randn_like(k)
+    out, lse = ops.flash_attention_fwd(q, k, v, causal=True)
+    want, wlse = ref.flash_attention_fwd(q.float(), k.float(), v.float())
+    if not (torch.allclose(out.float(), want, rtol=BF16_ULP, atol=1e-5)
+            and torch.allclose(lse, wlse, rtol=F32_TOL, atol=F32_TOL)):
+        fail(f"flash at the prefill shape differs: {_errs(out, want)}, "
+             f"lse {_errs(lse, wlse)}")
+    print(f"flash_attention_fwd at the prefill shape (8, 8, {LM_PROMPT}, "
+          f"128) bf16 causal: max abs err {_errs(out, want)['max']:.3e} "
+          f"(rtol 2^-8, atol 1e-5)")
+
+
+def _decode_inputs(torch, gen, bkv, g, smax, d, kind):
+    q = torch.randn((bkv, g, d), generator=gen, device="cuda")
+    scales = {}
+    if kind == "int8":
+        k = torch.randint(-127, 128, (bkv, smax, d), generator=gen,
+                          device="cuda", dtype=torch.int8)
+        v = torch.randint(-127, 128, (bkv, smax, d), generator=gen,
+                          device="cuda", dtype=torch.int8)
+        for name in ("k_scale", "v_scale"):
+            scales[name] = (torch.rand((bkv, smax), generator=gen,
+                                       device="cuda") * 0.04 + 1e-3)
+        return q.to(torch.bfloat16), k, v, scales
+    k = torch.randn((bkv, smax, d), generator=gen, device="cuda")
+    v = torch.randn((bkv, smax, d), generator=gen, device="cuda")
+    dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    return q.to(dtype), k.to(dtype), v.to(dtype), scales
+
+
+def check_decode(torch, ops, ref, gen):
+    """B9 against its plain version (f32, from the same inputs): f32, bf16
+    and int8 caches, lengths 1, 37, split boundaries (64: two splits of
+    32; 65) and Smax, at the CPU tests' shape, the path's (8, 8, 128) x 4160
+    and decode_32k's 32,768 positions (splits of 256); twice identical."""
+    shapes = [(4, 4, 64, 16, (1, 37, 48, 64)),
+              (8, 8, LM_MAX_LEN, 128, (1, 37, 64, 65, LM_MAX_LEN)),
+              (8, 8, 32768, 128, (32767, 32768))]
+    worst = {}
+    for bkv, g, smax, d, lengths in shapes:
+        for kind in ("f32", "bf16", "int8"):
+            q, k, v, sc = _decode_inputs(torch, gen, bkv, g, smax, d, kind)
+            for length in lengths:
+                out = ops.decode_attention(q, k, v, length, **sc)
+                again = ops.decode_attention(q, k, v, length, **sc)
+                want = ref.decode_attention(q.float(), k, v, length,
+                                            sc.get("k_scale"),
+                                            sc.get("v_scale"))
+                torch.cuda.synchronize()
+                what = (f"decode {kind} BKV={bkv} G={g} Smax={smax} D={d} "
+                        f"length={length}")
+                if not torch.equal(out, again):
+                    fail(f"{what}: not repeatable")
+                tol = (dict(rtol=F32_TOL, atol=F32_TOL) if kind == "f32"
+                       else dict(rtol=BF16_ULP, atol=1e-5))
+                if not torch.allclose(out.float(), want, **tol):
+                    fail(f"{what}: differs from the plain version by "
+                         f"{_errs(out, want)}")
+                worst[kind] = max(worst.get(kind, 0.0),
+                                  _errs(out, want)["max"])
+            del q, k, v, sc
+    print(f"decode_attention: f32/bf16/int8 caches within the plain version "
+          f"(f32 {F32_TOL}; bf16 out rtol 2^-8 atol 1e-5) at (4,4,16) x 64, "
+          f"(8,8,128) x {LM_MAX_LEN} and x 32768, lengths 1..Smax, "
+          f"repeatable; max abs err {worst}")
+
+
+def _recording(obj, name, store):
+    """Wrap ``obj.name`` to append the arguments of each call to ``store``
+    (a list, or a bounded deque to keep the last calls); returns the
+    original for restoring."""
+    orig = getattr(obj, name)
+
+    def call(*a, **kw):
+        store.append((a, kw))
+        return orig(*a, **kw)
+
+    setattr(obj, name, call)
+    return orig
+
+
+def _recording_logits(model, store: list):
+    """Keep every decode step's logits of ``model`` (an instance
+    attribute shadows the method until deleted)."""
+    orig = model.decode_step
+
+    def step(params, state, token):
+        logits, state = orig(params, state, token)
+        store.append(logits)
+        return logits, state
+
+    model.decode_step = step
+
+
+def _events_ms(torch, fn, repeat: int):
+    """Median device time of ``fn()`` over ``repeat`` warm runs (CUDA
+    events around each), with the last run's result."""
+    times = []
+    for _ in range(repeat):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), out
+
+
+def _hold_bf16(torch, out, want, what: str):
+    """A bf16 kernel output within one bf16 rounding of its plain
+    version computed in f32 (the limit of ``check_flash``/``check_decode``)."""
+    if not torch.allclose(out.float(), want, rtol=BF16_ULP, atol=1e-5):
+        fail(f"{what}: differs from the plain version by {_errs(out, want)} "
+             f"(rtol 2^-8, atol 1e-5)")
+
+
+def _logit_check(torch, got, want, what: str) -> dict:
+    e = _errs(got, want)
+    if not e["max"] <= LOGIT_RTOL * e["ref_max"]:
+        fail(f"{what}: logits differ by {e} (limit {LOGIT_RTOL} x max "
+             f"|logit|)")
+    return e
+
+
+def lm_phases(args, torch, smi: str):
+    """B7 and B9 against their plain versions, then qwen2.5-3b at full
+    width: path (i) prefill through B7 + bf16-cache decode, path (ii)
+    int8-cache decode through B9, and their times.  Returns (the kernels'
+    entries of the JSON line, a summary dict)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import build
+    from repro_torch.serve import sampling
+    from repro_torch.serve.engine import decode_loop, make_serve_step
+
+    # f32 references in full f32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    check_flash(torch, ops, ref, gen)
+    check_decode(torch, ops, ref, gen)
+    torch.cuda.empty_cache()
+
+    # -- the model at full width, random weights from seed 0 ------------------
+    cfg = get_arch("qwen2.5-3b")
+    model = build(cfg)
+    B, V = LM_BATCH, cfg.padded_vocab()
+    t0 = time.perf_counter()
+    p32 = model.init(0, device="cuda")
+    f32_bytes = sum(t.numel() * t.element_size() for t in p32.parameters())
+    n_params = sum(t.numel() for t in p32.parameters())
+    params = model.cast(p32)
+    del p32
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in params.parameters())
+    print(f"qwen2.5-3b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size} padded to {V}: "
+          f"{n_params} parameters, f32 {f32_bytes} B -> bf16 {param_bytes} "
+          f"B on the card, initialised and cast in {init_s:.1f} s")
+    tokens = torch.randint(0, cfg.vocab_size, (B, LM_PROMPT), generator=gen,
+                           device="cuda")
+    zero = dict.fromkeys(ops.launch_counts(), 0)
+
+    def head(logits):
+        """The sharded greedy head on one step's logits (B, V)."""
+        local = logits.reshape(B, LM_SHARDS, V // LM_SHARDS).transpose(0, 1)
+        return sampling.topk_logits(local, LM_TOPK)[1][0, :, 0]
+
+    # -- path (i): prefill through B7, greedy decode over the bf16 cache ------
+    state0 = model.init_decode_state(B, LM_MAX_LEN)
+    cache_bytes = sum(t.numel() * t.element_size() for t in state0[:2])
+    flash_in, logits_k = [], []
+    orig_fa = _recording(ops, "flash_attention_fwd", flash_in)
+    _recording_logits(model, logits_k)
+    ops.reset_launch_counts()
+    logits0, st = model.prefill(params, {"tokens": tokens}, state0,
+                                attn_impl="flash")
+    first = torch.argmax(logits0, dim=-1)
+    gen_toks, st = decode_loop(model, params, st, first, LM_STEPS,
+                               shards=LM_SHARDS, k=LM_TOPK)
+    torch.cuda.synchronize()
+    got = ops.launch_counts()
+    ops.flash_attention_fwd = orig_fa
+    del model.decode_step
+    want = {**zero, "flash_attention_fwd": cfg.n_layers}
+    if got != want:
+        fail(f"path (i) launched {got}, expected {want}")
+    fa_launches = got["flash_attention_fwd"]
+    if st.length != LM_MAX_LEN or gen_toks.shape != (B, LM_STEPS + 1):
+        fail(f"path (i): cache length {st.length}, tokens "
+             f"{tuple(gen_toks.shape)}")
+    if not all(torch.isfinite(x.float()).all() for x in [logits0, *logits_k]):
+        fail("path (i): non-finite logits")
+    # (e) the sharded greedy head equals argmax of the full logits
+    if not torch.equal(head(logits0), first):
+        fail("path (i): the sharded head differs from argmax on the prefill")
+    for t, lg in enumerate(logits_k):
+        a = torch.argmax(lg, dim=-1)
+        if not (torch.equal(head(lg), a) and torch.equal(a, gen_toks[:, t + 1])):
+            fail(f"path (i) step {t}: the sharded head differs from argmax")
+    print(f"path (i): prefill {B} x {LM_PROMPT} tokens + {LM_STEPS} greedy "
+          f"steps (shards {LM_SHARDS}, k {LM_TOPK}); launches {got}; the "
+          f"sharded head equals argmax of the full logits on every step")
+    # (b) + (c): the plain B7, then the same decode steps teacher-forced
+    ops.use_kernels(False)
+    lp0, stp = model.prefill(params, {"tokens": tokens},
+                             model.init_decode_state(B, LM_MAX_LEN),
+                             attn_impl="flash")
+    ops.use_kernels(True)
+    e_b = _logit_check(torch, logits0, lp0, "(b) prefill vs the plain B7")
+    e_c = {"max": 0.0, "mean": 0.0, "ref_max": 0.0}
+    agree = 0
+    for t in range(LM_STEPS):
+        lp, stp = model.decode_step(params, stp, gen_toks[:, t:t + 1])
+        e = _logit_check(torch, logits_k[t], lp, f"(c) decode step {t}")
+        e_c = {k: max(e_c[k], e[k]) for k in e_c}
+        agree += int(torch.equal(torch.argmax(lp, -1), gen_toks[:, t + 1]))
+    del stp, lp0
+    print(f"(b) prefill logits vs the plain B7: {e_b}; (c) {LM_STEPS} decode "
+          f"steps teacher-forced on the plain path's cache: worst {e_c}, "
+          f"argmax equal on {agree}/{LM_STEPS} steps (limit {LOGIT_RTOL} x "
+          f"max |logit|)")
+    # (d) prefill of S - 1 tokens + one decode step vs the full prefill
+    _, std = model.prefill(params, {"tokens": tokens[:, :-1]},
+                           model.init_decode_state(B, LM_MAX_LEN),
+                           attn_impl="flash")
+    ld, std = model.decode_step(params, std, tokens[:, -1:])
+    e_d = _logit_check(torch, ld, logits0,
+                       "(d) prefill S-1 + decode vs prefill S")
+    del std, ld
+    print(f"(d) prefill of {LM_PROMPT - 1} + one decode step vs the "
+          f"{LM_PROMPT}-token prefill: {e_d}")
+    torch.cuda.empty_cache()
+
+    # -- path (ii): int8-cache decode through B9 ------------------------------
+    mq = build(cfg, cache_quant=True)
+    sq = mq.init_decode_state(B, LM_MAX_LEN)
+    qcache_bytes = sum(t.numel() * t.element_size() for t in sq[:4])
+    step = make_serve_step(mq, shards=LM_SHARDS, k=LM_TOPK)
+    # the last step's calls, one a layer
+    dec_in, logits_q = collections.deque(maxlen=cfg.n_layers), []
+    orig_da = _recording(ops, "decode_attention", dec_in)
+    _recording_logits(mq, logits_q)
+    ops.reset_launch_counts()
+    for t in range(LM_QUANT_PROMPT):
+        nxt, sq = step(params, sq, tokens[:, t])
+    sq_prompt = sq
+    q_toks, sq = decode_loop(mq, params, sq, nxt, LM_STEPS,
+                             shards=LM_SHARDS, k=LM_TOPK)
+    torch.cuda.synchronize()
+    got = ops.launch_counts()
+    ops.decode_attention = orig_da
+    del mq.decode_step
+    n_steps = LM_QUANT_PROMPT + LM_STEPS
+    want = {**zero, "decode_attention": cfg.n_layers * n_steps}
+    if got != want:
+        fail(f"path (ii) launched {got}, expected {want}")
+    da_launches = got["decode_attention"]
+    fed = torch.cat([tokens[:, :LM_QUANT_PROMPT], q_toks[:, :LM_STEPS]], 1)
+    # the bf16-cache path fed the same tokens
+    mf = build(cfg)
+    sf = mf.init_decode_state(B, LM_MAX_LEN)
+    worst = {"max": 0.0, "mean": 0.0, "ref_max": 0.0}
+    over, in_top5 = 0.0, True
+    for t in range(n_steps):
+        lf, sf = mf.decode_step(params, sf, fed[:, t:t + 1])
+        if t == LM_QUANT_PROMPT - 1:
+            sf_prompt = sf
+        lq = logits_q[t].float()
+        if not torch.isfinite(lq).all():
+            fail(f"path (ii) step {t}: non-finite logits")
+        e = _errs(lq, lf)
+        worst = {k: max(worst[k], e[k]) for k in worst}
+        excess = (lq - lf.float()).abs() - (QUANT_ATOL
+                                            + QUANT_RTOL * lf.float().abs())
+        over = max(over, float(excess.max()))
+        top5 = torch.topk(lf.float(), 5, dim=-1).indices
+        in_top5 &= bool((top5 == lq.argmax(-1, keepdim=True)).any(-1).all())
+    if over > 0:
+        fail(f"path (ii): int8 logits outside rtol {QUANT_RTOL} atol "
+             f"{QUANT_ATOL} of the bf16 cache's by up to {over}; {worst}")
+    if not in_top5:
+        fail("path (ii): an int8 argmax outside the bf16 path's top 5")
+    print(f"path (ii): {LM_QUANT_PROMPT} prompt tokens one a step + "
+          f"{LM_STEPS} greedy steps over the int8 cache; launches {got}; "
+          f"logits vs the bf16 cache fed the same tokens: worst {worst} "
+          f"(rtol {QUANT_RTOL}, atol {QUANT_ATOL}); int8 argmax in the bf16 "
+          f"top 5 on every row and step")
+    del logits_q, logits_k
+    torch.cuda.empty_cache()
+
+    # -- times ----------------------------------------------------------------
+    times = {}
+    st_t = model.init_decode_state(B, LM_MAX_LEN)
+
+    def prefill_and_head():
+        lg, s = model.prefill(params, {"tokens": tokens}, st_t,
+                              attn_impl="flash")
+        return lg, s, torch.argmax(lg, dim=-1)
+
+    ttft, (_, st_after, first_t) = _events_ms(torch, prefill_and_head,
+                                              LM_REPEAT)
+    pre_ms, _ = _events_ms(torch, lambda: model.prefill(
+        params, {"tokens": tokens}, st_t, attn_impl="flash"), LM_REPEAT)
+    times["prefill_ms"] = pre_ms
+    times["prefill_tokens_per_s"] = B * LM_PROMPT / pre_ms * 1e3
+    times["ttft_ms"] = ttft
+
+    def loop(m, s, tok):
+        return lambda: decode_loop(m, params, s, tok, LM_STEPS,
+                                   shards=LM_SHARDS, k=LM_TOPK)
+
+    for name, m, s, tok in (
+            ("bf16_at_4096", model, st_after, first_t),
+            ("bf16_at_512", mf, sf_prompt, fed[:, LM_QUANT_PROMPT]),
+            ("int8_at_512", mq, sq_prompt, fed[:, LM_QUANT_PROMPT])):
+        ms, _ = _events_ms(torch, loop(m, s, tok), LM_REPEAT)
+        times[f"decode_{name}_ms_per_step"] = ms / LM_STEPS
+        times[f"decode_{name}_tokens_per_s"] = B * LM_STEPS / ms * 1e3
+    print(f"qwen2.5-3b times (CUDA events, median of {LM_REPEAT} warm runs, "
+          f"batch {B}) on {smi}: {times}")
+    if args.profile:
+        profile_query(torch, lambda: model.prefill(
+            params, {"tokens": tokens}, st_t, attn_impl="flash"), "prefill")
+        profile_query(torch, loop(model, st_after, first_t),
+                      "decode bf16 cache x64 (lengths 4097-4160)")
+        profile_query(torch, loop(mq, sq_prompt, fed[:, LM_QUANT_PROMPT]),
+                      "decode int8 cache x64 (lengths 513-576)")
+    resident = {"params_bf16": param_bytes, "params_f32_master": f32_bytes,
+                "kv_cache_bf16": cache_bytes, "kv_cache_int8": qcache_bytes}
+    print(f"resident bytes: {resident}")
+    del st_t, st_after, sf, sf_prompt, sq, sq_prompt, st
+    torch.cuda.empty_cache()
+
+    # -- the kernels at their main-path inputs --------------------------------
+    # every layer's prefill input, held to one bf16 rounding
+    b7_err = 0.0
+    for i, ((qg, kg, vg), kw) in enumerate(flash_in):
+        out, _ = fa.flash_attention_fwd_cuda(qg, kg, vg, **kw)
+        want, _ = ref.flash_attention_fwd(qg.float(), kg.float(), vg.float(),
+                                          **kw)
+        _hold_bf16(torch, out, want,
+                   f"flash_attention_fwd on layer {i}'s prefill input")
+        b7_err = max(b7_err, _errs(out, want)["max"])
+        del out, want
+    (qg, kg, vg), kw = flash_in[0]
+    b7_ms = cuda_ms(lambda: fa.flash_attention_fwd_cuda(qg, kg, vg, **kw), 5)
+    b7_plain = cuda_ms(lambda: ref.flash_attention_fwd(qg, kg, vg, **kw), 2)
+    bkv, g, s, d = qg.shape
+    q4 = qg.reshape(B, bkv // B * g, s, d)
+    k4, v4 = (t.reshape(B, bkv // B, s, d) for t in (kg, vg))
+    b7_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, enable_gqa=True), 5)
+    b7_bytes = 2 * (2 * qg.numel() + kg.numel() + vg.numel()) + 4 * bkv * g * s
+    b7_ops = 4 * d * bkv * g * s * (s + 1) // 2
+    b7_bound, b7_by = bound(b7_bytes, b7_ops, BF16_OPS_PER_S)
+    b7_f32 = b7_ops / F32_OPS_PER_S * 1e3
+    print(f"flash_attention_fwd at the prefill input {tuple(qg.shape)} bf16 "
+          f"causal: {b7_ms:.3f} ms, plain {b7_plain:.3f} ms, sdpa "
+          f"{b7_lib:.3f} ms, bound {b7_bound:.4f} ms ({b7_by}: {b7_ops} FLOP "
+          f"at 989 TFLOP/s bf16; {b7_bytes} B); at 67 TFLOP/s f32 "
+          f"{b7_f32:.3f} ms; max abs err over the {len(flash_in)} layers' "
+          f"inputs {b7_err:.3e} (rtol 2^-8, atol 1e-5)")
+
+    # every layer's input of the last int8 step
+    b9_err = 0.0
+    for i, ((qd, kq, vq, length), kwd) in enumerate(dec_in):
+        out = da.decode_attention_cuda(qd, kq, vq, length, **kwd)
+        want = ref.decode_attention(qd.float(), kq, vq, length,
+                                    kwd["k_scale"], kwd["v_scale"])
+        _hold_bf16(torch, out, want,
+                   f"decode_attention on layer {i}'s last int8 step input")
+        b9_err = max(b9_err, _errs(out, want)["max"])
+    (qd, kq, vq, length), kwd = dec_in[-1]
+    b9_ms = cuda_ms(lambda: da.decode_attention_cuda(qd, kq, vq, length,
+                                                     **kwd), 50)
+    b9_plain = cuda_ms(lambda: ref.decode_attention(
+        qd, kq, vq, length, kwd["k_scale"], kwd["v_scale"]), 10)
+    bkv, g, d = qd.shape
+    b9_bytes = (bkv * length * (2 * d * kq.element_size() + 8)
+                + 2 * qd.numel() * qd.element_size())
+    b9_bound, b9_by = bound(b9_bytes, 4 * bkv * g * length * d,
+                            BF16_OPS_PER_S)
+    # the same function over a bf16 cache holding the dequantised values
+    kb = (kq.float() * kwd["k_scale"][..., None]).to(torch.bfloat16)
+    vb = (vq.float() * kwd["v_scale"][..., None]).to(torch.bfloat16)
+    b9b_ms = cuda_ms(lambda: da.decode_attention_cuda(qd, kb, vb, length),
+                     50)
+    b9b_plain = cuda_ms(lambda: ref.decode_attention(qd, kb, vb, length), 10)
+    qs = qd.reshape(B, bkv // B * g, 1, d)
+    ks4, vs4 = (t.reshape(B, bkv // B, -1, d)[:, :, :length]
+                for t in (kb, vb))
+    b9b_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks4, vs4, enable_gqa=True), 50)
+    b9b_bytes = bkv * length * 2 * d * 2 + 2 * qd.numel() * qd.element_size()
+    b9b_bound, _ = bound(b9b_bytes, 4 * bkv * g * length * d, BF16_OPS_PER_S)
+    print(f"decode_attention at the last int8 step's input q "
+          f"{tuple(qd.shape)}, cache {tuple(kq.shape)}, length {length}: "
+          f"{b9_ms:.4f} ms, plain {b9_plain:.4f} ms, bound {b9_bound:.5f} ms "
+          f"({b9_by}, {b9_bytes} B); bf16 cache: {b9b_ms:.4f} ms, plain "
+          f"{b9b_plain:.4f} ms, sdpa {b9b_lib:.4f} ms, bound "
+          f"{b9b_bound:.5f} ms; max abs err over the {len(dec_in)} layers' "
+          f"inputs {b9_err:.3e} (rtol 2^-8, atol 1e-5)")
+
+    kernels = [
+        {"name": "flash_attention_fwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:134",
+         "tpu_function": "src/repro/kernels/flash_attention.py:"
+                         "flash_attention_fwd_grouped",
+         "launches": fa_launches, "max_abs_err": b7_err, "ms": b7_ms,
+         "plain_ms": b7_plain, "bound_ms": b7_bound, "bound_by": b7_by,
+         "library_ms": b7_lib, "f32_ops_bound_ms": b7_f32,
+         "shape": f"q {tuple(qg.shape)} bf16 causal (layer 0 of the "
+                  f"prefill)"},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+         "replaces": "src/repro/kernels/decode_attention.py:69",
+         "tpu_function": "src/repro/kernels/decode_attention.py:"
+                         "decode_attention",
+         "launches": da_launches, "max_abs_err": b9_err, "ms": b9_ms,
+         "plain_ms": b9_plain, "bound_ms": b9_bound, "bound_by": b9_by,
+         "library_ms": None,
+         "shape": f"q {tuple(qd.shape)} bf16, int8 cache "
+                  f"{tuple(kq.shape)}, length {length}",
+         "bf16_cache": {"ms": b9b_ms, "plain_ms": b9b_plain,
+                        "library_ms": b9b_lib, "bound_ms": b9b_bound}},
+    ]
+    summary = {**times, "resident_bytes": resident, "params": n_params,
+               "batch": B, "prompt": LM_PROMPT, "max_len": LM_MAX_LEN,
+               "logit_errs": {"b": e_b, "c": e_c, "d": e_d,
+                              "int8_vs_bf16": worst}}
+    return kernels, summary
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sf", type=float, default=10.0,
+                    help="TPC-H scale factor (default 10: 60M lineitems)")
+    ap.add_argument("--repeat", type=int, default=10,
+                    help="warm runs per query for the median")
+    ap.add_argument("--profile", action="store_true",
+                    help="also profile one warm run of each query, of the "
+                         "prefill and of each decode flavour "
+                         "(torch.profiler: device time by kernel)")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: run from a checkout of the repository "
+              "(src/repro_torch is missing)", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+
+    t_start = time.perf_counter()
+    # -- 1. device -----------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    kind = torch.cuda.get_device_name(0)
+    print(f"nvidia-smi: {smi}")
+    print(f"device: {kind} (count {torch.cuda.device_count()}), torch "
+          f"{torch.__version__}, CUDA {torch.version.cuda}")
+
+    # -- 2. build ------------------------------------------------------------
+    t0 = time.perf_counter()
+    reports = build.build_all()
+    print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(reports)} "
+          f"into {build.BUILD_DIR.relative_to(ROOT)}")
+    for name, rep in reports.items():
+        for line in rep.splitlines():
+            if "built in" in line or "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+
+    tpch_kernels, tpch = tpch_phases(args, torch, smi)
+    torch.cuda.empty_cache()
+    lm_kernels, lm = lm_phases(args, torch, smi)
+    kernels = tpch_kernels + lm_kernels
+    summary = {"card": smi, "tpch": tpch, "lm": lm}
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was never launched on the main path")
-    print(json.dumps({"queries_ms": query_ms, "gen_s": gen_s,
-                      "resident_bytes": drv.resident_bytes,
-                      "lineitem_bytes": li_bytes, "sf": args.sf,
-                      "nodes": NODES, "card": smi,
-                      "total_s": time.perf_counter() - t_start}))
+    summary["total_s"] = time.perf_counter() - t_start
+    print(json.dumps(summary))
     print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {

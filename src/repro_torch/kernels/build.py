@@ -17,10 +17,12 @@ import os
 import pathlib
 import shutil
 import subprocess
+import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("scan_filter", "grouped_agg", "wire_codec")
+SOURCES = ("scan_filter", "grouped_agg", "wire_codec", "flash_attention",
+           "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,19 +53,21 @@ def _target(name: str) -> tuple:
 
 def compile_source(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless its library is already built.
-    Returns the compiler's report (``-Xptxas -v``: registers, shared
-    memory and spills per kernel), empty when nothing was built."""
+    Returns the build's seconds and the compiler's report (``-Xptxas -v``:
+    registers, shared memory and spills per kernel), empty when nothing
+    was built."""
     src, lib = _target(name)
     if lib.exists():
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    t0 = time.perf_counter()
     proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
     os.replace(tmp, lib)
-    return proc.stderr
+    return f"built in {time.perf_counter() - t0:.1f} s\n{proc.stderr}"
 
 
 def build_all(names=SOURCES) -> dict:

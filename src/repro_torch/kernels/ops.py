@@ -16,6 +16,12 @@ import os
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.kernels.flash_attention import (
+    flash_attention_fwd_cuda,
+    group,
+    ungroup,
+)
 from repro_torch.kernels.grouped_agg import filtered_group_sum_cuda
 from repro_torch.kernels.scan_filter import scan_filter_cuda
 from repro_torch.kernels.wire_codec import (
@@ -33,7 +39,9 @@ _WRAPPERS = {"scan_filter": scan_filter_cuda,
              "ef_encode": ef_encode_cuda,
              "ef_decode": ef_decode_cuda,
              "mask_fold": mask_fold_cuda,
-             "mask_unfold": mask_unfold_cuda}
+             "mask_unfold": mask_unfold_cuda,
+             "flash_attention_fwd": flash_attention_fwd_cuda,
+             "decode_attention": decode_attention_cuda}
 
 
 def use_kernels(enable: bool) -> None:
@@ -108,3 +116,38 @@ def mask_unfold(words, *, n):
     if _kernel_path(words):
         return mask_unfold_cuda(words, n)
     return ref.mask_unfold(words, n)
+
+
+def flash_attention_fwd(qg, kg, vg, *, causal=True, window=None, prefix=0):
+    """Grouped GQA attention forward: q (BKV, G, S, D), k and v
+    (BKV, Sk, D) -> (out (BKV, G, S, D) in q's dtype, lse (BKV, G, S)
+    f32)."""
+    if _kernel_path(qg):
+        return flash_attention_fwd_cuda(qg, kg, vg, causal=causal,
+                                        window=window, prefix=prefix)
+    return ref.flash_attention_fwd(qg, kg, vg, causal, window, prefix)
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, prefix=0):
+    """Flash attention forward in the (B, S, H, D) layout, GQA through the
+    KV dim of k and v (B, Sk, KV, D): groups, runs
+    :func:`flash_attention_fwd`, ungroups.  Counterpart of
+    ``repro.kernels.ops.flash_attention`` without its backward (serving
+    takes no gradient) and without block sizes (the kernel takes any S)."""
+    B, KV = q.shape[0], k.shape[2]
+    qg, kg, vg = (t.contiguous() for t in group(q, k, v))
+    out, _ = flash_attention_fwd(qg, kg, vg, causal=causal, window=window,
+                                 prefix=prefix)
+    return ungroup(out, B, KV)
+
+
+def decode_attention(q, k_cache, v_cache, length, *, k_scale=None,
+                     v_scale=None):
+    """One-token attention: q (BKV, G, D) against caches (BKV, Smax, D),
+    float or int8 with (BKV, Smax) f32 scales; positions >= ``length``
+    masked -> (BKV, G, D) in q's dtype."""
+    if _kernel_path(q):
+        return decode_attention_cuda(q, k_cache, v_cache, length,
+                                     k_scale=k_scale, v_scale=v_scale)
+    return ref.decode_attention(q, k_cache, v_cache, length, k_scale,
+                                v_scale)

@@ -7,6 +7,8 @@ every CUDA kernel against them on the card.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core import compression
@@ -107,3 +109,71 @@ def ef_decode(words, base, capacity, domain):
         capacity)
     keys = base.to(torch.int64)[:, None] + ((hi << l) | lo)
     return torch.where(mask, keys, 0).to(torch.int32), mask
+
+
+# ---------------------------------------------------------------------------
+# attention (B7 flash forward, B9 decode): full materialisation with the
+# kernels' guards.  Float32 arithmetic; f32 products must not run in TF32
+# (torch.backends.cuda.matmul.allow_tf32 False, PyTorch's default).
+# ---------------------------------------------------------------------------
+
+NEG_INF = float(torch.finfo(torch.float32).min)
+
+
+def _masked_softmax_parts(s):
+    """(p, l, m) of scores ``s`` with NEG_INF at masked keys, the kernels'
+    guards: p = 0 where s <= NEG_INF / 2, so a fully masked row has
+    m = NEG_INF and l = 0."""
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    p = torch.where(s <= NEG_INF / 2, 0.0, p)
+    return p, p.sum(dim=-1), m[..., 0]
+
+
+def flash_attention_fwd(qg, kg, vg, causal=True, window=None, prefix=0):
+    """Grouped GQA attention: q (BKV, G, S, D), k and v (BKV, Sk, D) ->
+    (out (BKV, G, S, D) in q's dtype, lse (BKV, G, S) f32).  Query i sees
+    key j when ``not causal``, or when ``j <= i`` (and ``j > i - window``
+    with a window) or ``j < prefix``.  ``out = acc / max(l, 1e-30)`` (0 on
+    a fully masked row), ``lse = m + log(max(l, 1e-30))``."""
+    S, D = qg.shape[2], qg.shape[3]
+    Sk = kg.shape[1]
+    scale = 1.0 / math.sqrt(D)
+    qf = qg.float() * scale
+    s = torch.einsum("bgsd,btd->bgst", qf, kg.float())
+    if causal:
+        q_pos = torch.arange(S, device=qg.device)[:, None]
+        k_pos = torch.arange(Sk, device=qg.device)[None, :]
+        vis = k_pos <= q_pos
+        if window is not None:
+            vis &= k_pos > q_pos - window
+        if prefix:
+            vis |= k_pos < prefix
+        s = torch.where(vis, s, NEG_INF)
+    p, l, m = _masked_softmax_parts(s)
+    del s
+    out = torch.einsum("bgst,btd->bgsd", p, vg.float())
+    out = out / torch.clamp(l, min=1e-30)[..., None]
+    lse = m + torch.log(torch.clamp(l, min=1e-30))
+    return out.to(qg.dtype), lse
+
+
+def decode_attention(q, k_cache, v_cache, length, k_scale=None,
+                     v_scale=None):
+    """One-token grouped attention: q (BKV, G, D) against caches
+    (BKV, Smax, D), float or int8 with (BKV, Smax) f32 scales (then
+    k = codes * k_scale); positions >= ``length`` are masked.  Returns
+    (BKV, G, D) in q's dtype, ``acc / max(l, 1e-30)``."""
+    D = q.shape[-1]
+    Smax = k_cache.shape[1]
+    scale = 1.0 / math.sqrt(D)
+    kf, vf = k_cache.float(), v_cache.float()
+    if k_scale is not None:
+        kf = kf * k_scale[..., None]
+        vf = vf * v_scale[..., None]
+    s = torch.einsum("bgd,bsd->bgs", q.float() * scale, kf)
+    pos = torch.arange(Smax, device=q.device)
+    s = torch.where(pos < int(length), s, NEG_INF)
+    p, l, _ = _masked_softmax_parts(s)
+    out = torch.einsum("bgs,bsd->bgd", p, vf)
+    return (out / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)

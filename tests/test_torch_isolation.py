@@ -9,8 +9,8 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "tools" / "logit_fault_control.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + SCRIPTS
 
 
 def _imported_modules(path: pathlib.Path) -> list:
@@ -34,23 +34,39 @@ def test_port_imports_no_jax_and_no_repro(path):
 
 def test_port_file_list_is_complete():
     names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
-             for p in PORT_FILES[:-1]}
+             for p in PORT_FILES if p not in SCRIPTS}
     for mod in ("core/compression.py", "core/columnar.py", "core/engine.py",
                 "core/exchange.py", "core/semijoin.py", "core/topk.py",
                 "core/late_materialization.py", "kernels/ops.py",
-                "kernels/wire_codec.py", "query/lower.py", "tpch/driver.py"):
+                "kernels/wire_codec.py", "query/lower.py", "tpch/driver.py",
+                "kernels/flash_attention.py", "kernels/decode_attention.py",
+                "models/config.py", "models/params.py", "models/layers.py",
+                "models/transformer.py", "models/model.py",
+                "models/convert.py", "configs/registry.py",
+                "configs/qwen2_5_3b.py", "serve/sampling.py",
+                "serve/engine.py"):
         assert mod in names
 
 
-@pytest.mark.parametrize("entry", ["cluster", "driver"])
+@pytest.mark.parametrize("entry", ["cluster", "driver", "model",
+                                   "decode_state"])
 def test_entry_points_need_cuda_or_an_explicit_cpu(entry, monkeypatch):
+    from repro_torch.configs import get_arch
     from repro_torch.core.engine import Cluster
+    from repro_torch.models.model import build
     from repro_torch.tpch.driver import TPCHDriver
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = build(get_arch("qwen2.5-3b", smoke=True))
     make = {"cluster": lambda **kw: Cluster(8, **kw),
-            "driver": lambda **kw: TPCHDriver(0.001, **kw)}[entry]
+            "driver": lambda **kw: TPCHDriver(0.001, **kw),
+            "model": lambda **kw: model.init(0, **kw),
+            "decode_state": lambda **kw: model.init_decode_state(
+                2, 8, **kw)}[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()
     if entry == "cluster":
         assert make(device="cpu").device == torch.device("cpu")
+    if entry == "model":
+        p = make(device="cpu")
+        assert p.embedding["table"].device == torch.device("cpu")

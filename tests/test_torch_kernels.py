@@ -80,6 +80,8 @@ def test_group_sum_launch_shape_fits_the_card(num_groups, c):
 
 
 def test_cuda_wrappers_reject_cpu_tensors():
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_fwd_cuda
     from repro_torch.kernels.grouped_agg import filtered_group_sum_cuda
     from repro_torch.kernels.scan_filter import scan_filter_cuda
 
@@ -91,9 +93,18 @@ def test_cuda_wrappers_reject_cpu_tensors():
                                 torch.zeros((1, 4), dtype=torch.int32),
                                 torch.zeros((1, 4), dtype=torch.int32),
                                 cutoff=0, num_groups=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_fwd_cuda(torch.zeros((1, 2, 8, 16)),
+                                 torch.zeros((1, 8, 16)),
+                                 torch.zeros((1, 8, 16)))
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention_cuda(torch.zeros((1, 2, 16)),
+                              torch.zeros((1, 8, 16)),
+                              torch.zeros((1, 8, 16)), 4)
     assert ops.launch_counts() == {
         k: 0 for k in ("scan_filter", "filtered_group_sum", "ef_encode",
-                       "ef_decode", "mask_fold", "mask_unfold")}
+                       "ef_decode", "mask_fold", "mask_unfold",
+                       "flash_attention_fwd", "decode_attention")}
 
 
 def test_use_kernels_false_keeps_the_plain_version():
