@@ -77,7 +77,35 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
       token, decode ms a step for both flavours; resident bytes; B7 and B9
       at their main-path inputs beside their plain versions,
       ``scaled_dot_product_attention`` and their bounds.
-8. One ``{"kernels": [...]}`` line (eight kernels), then the last line
+8. Training qwen2.5-3b at full width, after the serving phases have
+   dropped what they placed on the card:
+   a. ``flash_attention_bwd`` (B8) against its plain version computed in
+      f32 from the same inputs (out and lse from B7) over the shapes of
+      7a and the training shape (4, 8, 4096, 128) bf16 causal: f32 within
+      2e-5 of the largest |gradient|, bf16 within one output rounding on
+      top of that (|got - want| <= 2^-8 |want| + 2e-5 max |want|); a fully
+      masked row gives zero gradients; each twice, identical.
+   c. f32 parameters from seed 0, bf16 compute, remat full, one batch of
+      2 x 4,096 tokens from ``SyntheticLM``: the first step's loss and
+      gradients through B7 + B8 (``attn_impl="flash"``) against the plain
+      chunked attention under autograd (``"xla"``), before any AdamW
+      state exists: losses within 1e-2 relative, each parameter's
+      gradient within ``GRAD_RTOL`` relative Frobenius distance (backed by
+      ``tools/grad_fault_control.py``); then B8 on each of the 36 layers'
+      inputs of that step within the bf16 limit of 8a.
+   b. 4 AdamW steps on that batch through ``make_train_step(...,
+      fwd_kw={"attn_impl": "flash"})``: every loss and gradient norm
+      finite, the loss after the last step below the first step's, and
+      exactly 72 B7 launches (36 forward + 36 recompute) and 36 B8
+      launches a step, no other kernel.
+   d. ``launch/train.py main --smoke --device cuda --ckpt <dir>``: the
+      loss falls over 30 steps; a second run to 32 steps resumes at the
+      saved step 30 and runs steps 31 and 32.
+   e. Times: the train step (CUDA events, median of the 3 warm steps),
+      tokens/s, ``torch.cuda.max_memory_allocated``; B8 at layer 0's
+      training input beside its plain version, the backward of
+      ``scaled_dot_product_attention`` and its bound.
+9. One ``{"kernels": [...]}`` line (nine kernels), then the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or when
@@ -88,6 +116,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -728,22 +757,28 @@ def _errs(got, want) -> dict:
             "ref_max": float(want.float().abs().max())}
 
 
+# (BKV, G, S, Sk, D, mask) of the attention kernels' checks: the CPU
+# tests' shapes and masks, ragged and mixed lengths, D = 8 .. 256, a fully
+# masked row (window 0)
+FLASH_MASKS = [dict(causal=True), dict(causal=True, window=4),
+               dict(causal=True, prefix=8),
+               dict(causal=True, window=4, prefix=8), dict(causal=False)]
+FLASH_CASES = [(2 * kv, h // kv, 64, 64, 16, m)
+               for h, kv in ((4, 4), (8, 2), (8, 1)) for m in FLASH_MASKS]
+FLASH_CASES += [(8, 4, 48, 48, 16, dict(causal=True)),
+                (8, 4, 32, 80, 16, dict(causal=False)),
+                (8, 4, 80, 32, 16, dict(causal=True)),
+                (4, 8, 1000, 1000, 128, dict(causal=True)),
+                (4, 3, 129, 77, 64, dict(causal=True, prefix=40)),
+                (2, 8, 37, 37, 256, dict(causal=True, window=9)),
+                (4, 2, 32, 32, 8, dict(causal=True, window=0))]
+
+
 def check_flash(torch, ops, ref, gen):
-    """B7 against its plain version (f32, from the same inputs): the CPU
-    tests' shapes and masks, ragged and mixed lengths, D = 8 .. 256, a
-    fully masked row; f32 and bf16 inputs; twice identical."""
-    masks = [dict(causal=True), dict(causal=True, window=4),
-             dict(causal=True, prefix=8),
-             dict(causal=True, window=4, prefix=8), dict(causal=False)]
-    cases = [(2 * kv, h // kv, 64, 64, 16, m)
-             for h, kv in ((4, 4), (8, 2), (8, 1)) for m in masks]
-    cases += [(8, 4, 48, 48, 16, dict(causal=True)),
-              (8, 4, 32, 80, 16, dict(causal=False)),
-              (8, 4, 80, 32, 16, dict(causal=True)),
-              (4, 8, 1000, 1000, 128, dict(causal=True)),
-              (4, 3, 129, 77, 64, dict(causal=True, prefix=40)),
-              (2, 8, 37, 37, 256, dict(causal=True, window=9)),
-              (4, 2, 32, 32, 8, dict(causal=True, window=0))]
+    """B7 against its plain version (f32, from the same inputs) over
+    ``FLASH_CASES``, f32 and bf16 inputs, twice identical; then at the
+    prefill shape."""
+    cases = FLASH_CASES
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for dtype in worst:
         for bkv, g, s, sk, d, m in cases:
@@ -1222,6 +1257,347 @@ def lm_phases(args, torch, smi: str):
     return kernels, summary
 
 
+# ---------------------------------------------------------------------------
+# phase 8: training qwen2.5-3b at full width through B7 and B8
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH = 2             # sequences a step (the registry's train_4k: 256)
+TRAIN_SEQ = 4096
+TRAIN_STEPS = 4             # AdamW steps on one batch, phase 8b
+TRAIN_LR = 1e-3
+# The first step through B7 + B8 against the plain attention path, both
+# bf16 at full width: the losses within this relative difference, and each
+# parameter's gradient within GRAD_RTOL relative Frobenius distance
+# (||g - g_plain|| / ||g_plain||).  tools/grad_fault_control.py read the
+# largest distance over the 435 tensors at 0.0476 for the sound B8 and
+# 0.0477 with p rounded to bf16 (a tensor-core kernel's rounding; both at
+# layers.26.attn.bk, whose gradient cancels most), and at 0.926 (the
+# diagonal query tile skipped in dk/dv), 10.6 (dq unscaled) and 876
+# (delta dropped) for planted B8 faults.  The limit sits near the
+# geometric mean of 0.0477 and 0.926, about 4x from each (PERF.md, PR 14).
+TRAIN_LOSS_RTOL = 1e-2
+GRAD_RTOL = 0.2
+
+
+def _hold_bf16_grad(torch, got, want, what: str):
+    """A bf16 gradient within one output rounding of its plain version
+    computed in f32, on top of the f32 tolerance:
+    |got - want| <= 2^-8 |want| + 2e-5 max |want|.  The f32 term is the
+    f32 check's own (F32_TOL): on the training inputs both the kernel and
+    the plain version differ from an f64 computation by up to 7e-5 of the
+    largest |gradient| (PERF.md, PR 14), so a floor of 1e-6 of it, below
+    that noise, failed one element in a million near zero."""
+    w = want.float()
+    lim = BF16_ULP * w.abs() + F32_TOL * float(w.abs().max())
+    if not bool(((got.float() - w).abs() <= lim).all()):
+        fail(f"{what}: differs from the plain version by {_errs(got, w)} "
+             f"(2^-8 |want| + 2e-5 max |want|)")
+
+
+def check_flash_bwd(torch, ops, ref, gen):
+    """B8 against its plain version (f32, from the same inputs, out and
+    lse from B7) over ``FLASH_CASES`` in f32 and bf16 and at the training
+    shape in bf16: f32 within 2e-5 of the largest |gradient|, bf16 within
+    one output rounding on top of that (``_hold_bf16_grad``); each twice,
+    identical; a fully masked row gives zero gradients.  Returns the
+    largest absolute errors by dtype."""
+    train = (2 * TRAIN_BATCH, 8, TRAIN_SEQ, TRAIN_SEQ, 128,
+             dict(causal=True))
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for dtype in worst:
+        cases = FLASH_CASES + ([train] if dtype == torch.bfloat16 else [])
+        for bkv, g, s, sk, d, m in cases:
+            q, do = (torch.randn((bkv, g, s, d), generator=gen,
+                                 device="cuda").to(dtype) for _ in range(2))
+            k, v = (torch.randn((bkv, sk, d), generator=gen,
+                                device="cuda").to(dtype) for _ in range(2))
+            out, lse = ops.flash_attention_fwd(q, k, v, **m)
+            got = ops.flash_attention_bwd(q, k, v, out, lse, do, **m)
+            again = ops.flash_attention_bwd(q, k, v, out, lse, do, **m)
+            want = ref.flash_attention_bwd(q.float(), k.float(), v.float(),
+                                           out.float(), lse, do.float(), **m)
+            torch.cuda.synchronize()
+            what = (f"flash bwd {dtype} BKV={bkv} G={g} S={s} Sk={sk} D={d} "
+                    f"{m}")
+            for name, a, b, w in zip("qkv", got, again, want):
+                if not torch.equal(a, b):
+                    fail(f"{what}: d{name} not repeatable")
+                if dtype == torch.float32:
+                    e = _errs(a, w)
+                    if not e["max"] <= F32_TOL * e["ref_max"]:
+                        fail(f"{what}: d{name} differs from the plain "
+                             f"version by {e} (2e-5 x max |grad|)")
+                else:
+                    _hold_bf16_grad(torch, a, w, f"{what}: d{name}")
+                if m.get("window") == 0 and a.any():
+                    fail(f"{what}: a fully masked row gives d{name} != 0")
+                worst[dtype] = max(worst[dtype], _errs(a, w)["max"])
+            del q, k, v, do, out, lse, got, again, want
+    print(f"flash_attention_bwd: {len(FLASH_CASES)} shapes x f32/bf16 and "
+          f"the training shape {train[:5]} bf16 causal within the plain "
+          f"version (f32 2e-5 x max |grad|; bf16 2^-8 |want| + 2e-5 max "
+          f"|want|), repeatable; max abs err f32 {worst[torch.float32]:.3e}, "
+          f"bf16 {worst[torch.bfloat16]:.3e}")
+    return worst
+
+
+def _named_grads(params) -> dict:
+    """name -> gradient of every parameter; the .grad fields cleared."""
+    out = {}
+    for n, p in params.named_parameters():
+        out[n], p.grad = p.grad, None
+    return out
+
+
+def first_step_grads(model, params, batch, attn_impl: str):
+    """One step's loss and gradients, no update: (loss, name -> grad)."""
+    loss = model.loss(params, batch, attn_impl=attn_impl)
+    loss.backward()
+    return float(loss.detach()), _named_grads(params)
+
+
+def grad_distances(torch, got: dict, want: dict) -> dict:
+    """name -> ||got - want||_F / ||want||_F."""
+    return {n: float(torch.linalg.vector_norm(got[n] - want[n])
+                     / torch.linalg.vector_norm(want[n]).clamp_min(1e-30))
+            for n in want}
+
+
+def train_phases(args, torch, smi: str):
+    """Phase 8: B8 against its plain version; qwen2.5-3b at full width,
+    its first step through B7 + B8 against the plain attention path, then
+    AdamW steps; the smoke trainer through ``launch/train.py``; times.
+    Returns (B8's entry of the JSON line, B7's launches in the training
+    steps, a summary dict)."""
+    import shutil
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model import build
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import trainer as trainer_mod
+    from repro_torch.train.train_step import TrainState, make_train_step
+
+    # -- 8a. B8 against its plain version ------------------------------------
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    check_flash_bwd(torch, ops, ref, gen)
+    torch.cuda.empty_cache()
+
+    # -- the model at full width, random f32 weights from seed 0 -------------
+    cfg = get_arch("qwen2.5-3b")
+    model = build(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, device="cuda", trainable=True)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                       global_batch=TRAIN_BATCH, seed=0)
+    batch = data.device_batch(0, device="cuda")
+    torch.cuda.synchronize()
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in params.parameters())
+    print(f"training qwen2.5-3b: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {param_bytes} B of f32 parameters ({cfg.compute_dtype} "
+          f"compute, remat full), batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
+          f"from SyntheticLM seed 0; initialised in "
+          f"{time.perf_counter() - t0:.1f} s")
+    zero = dict.fromkeys(ops.launch_counts(), 0)
+    per_step = {**zero, "flash_attention_fwd": 2 * cfg.n_layers,
+                "flash_attention_bwd": cfg.n_layers}
+
+    # -- 8c. the first step through B7 + B8 and through the plain path -------
+    # (before any AdamW state: parameters + two f32 gradient sets, 41 GB)
+    b8_in = []
+    orig_bwd = _recording(ops, "flash_attention_bwd", b8_in)
+    ops.reset_launch_counts()
+    loss_f, g_flash = first_step_grads(model, params, batch, "flash")
+    torch.cuda.synchronize()
+    got = ops.launch_counts()
+    ops.flash_attention_bwd = orig_bwd
+    if got != per_step:
+        fail(f"the first training step launched {got}, expected {per_step}")
+    loss_x, g_plain = first_step_grads(model, params, batch, "xla")
+    torch.cuda.synchronize()
+    if not all(torch.isfinite(g).all() for g in (*g_flash.values(),
+                                                   *g_plain.values())):
+        fail("the first step: non-finite gradients")
+    loss_rel = abs(loss_f - loss_x) / abs(loss_x)
+    dist = grad_distances(torch, g_flash, g_plain)
+    worst_name = max(dist, key=dist.get)
+    if not (math.isfinite(loss_f) and loss_rel <= TRAIN_LOSS_RTOL):
+        fail(f"the first step's loss {loss_f} through B7 + B8 vs {loss_x} "
+             f"through the plain path: relative {loss_rel} > "
+             f"{TRAIN_LOSS_RTOL}")
+    if dist[worst_name] > GRAD_RTOL:
+        fail(f"the first step's gradient of {worst_name} through B7 + B8 is "
+             f"{dist[worst_name]} (relative Frobenius) from the plain "
+             f"path's, limit {GRAD_RTOL}")
+    del g_flash, g_plain
+    torch.cuda.empty_cache()
+    print(f"(8c) the first step through B7 + B8 vs the plain attention path: "
+          f"loss {loss_f} vs {loss_x} (relative {loss_rel:.3e}, limit "
+          f"{TRAIN_LOSS_RTOL}); launches {got}; gradients' relative "
+          f"Frobenius distance at most {dist[worst_name]:.4e} "
+          f"({worst_name}; limit {GRAD_RTOL}), median "
+          f"{statistics.median(dist.values()):.4e} over {len(dist)} tensors")
+    # B8 on each layer's inputs of that step (the backward runs the last
+    # layer first)
+    b8_in = [(tuple(t.detach() for t in a), kw) for a, kw in b8_in]
+    b8_err = 0.0
+    for i, ((qg, kg, vg, out, lse, do), kw) in enumerate(b8_in):
+        layer = cfg.n_layers - 1 - i
+        g = fb.flash_attention_bwd_cuda(qg, kg, vg, out, lse, do, **kw)
+        w = ref.flash_attention_bwd(qg.float(), kg.float(), vg.float(),
+                                    out.float(), lse, do.float(), **kw)
+        for name, a, b in zip("qkv", g, w):
+            _hold_bf16_grad(torch, a, b, f"flash_attention_bwd d{name} on "
+                                         f"layer {layer}'s training input")
+            b8_err = max(b8_err, _errs(a, b)["max"])
+        del g, w
+    # its times at layer 0's input, beside the plain version and the
+    # backward of scaled_dot_product_attention at the same shape
+    (qg, kg, vg, out, lse, do), kw = b8_in[-1]
+    del b8_in
+    b8_ms = cuda_ms(lambda: fb.flash_attention_bwd_cuda(qg, kg, vg, out, lse,
+                                                        do, **kw), 5)
+    b8_plain = cuda_ms(lambda: ref.flash_attention_bwd(qg, kg, vg, out, lse,
+                                                       do, **kw), 2)
+    bkv, g, s, d = qg.shape
+    B, KV = TRAIN_BATCH, bkv // TRAIN_BATCH
+    q4 = qg.reshape(B, KV * g, s, d).detach().requires_grad_()
+    k4, v4 = (t.reshape(B, KV, s, d).detach().requires_grad_()
+              for t in (kg, vg))
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                        enable_gqa=True)
+    do4 = do.reshape(B, KV * g, s, d)
+    b8_lib = cuda_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), do4,
+                                                 retain_graph=True), 5)
+    pairs = bkv * g * s * (s + 1) // 2          # causal, Sk = S
+    b8_ops = 10 * d * pairs                     # 5 products of 2 D a pair
+    b8_bytes = (2 * (3 * qg.numel() + 2 * kg.numel()) + 4 * lse.numel()
+                + 2 * (qg.numel() + 2 * kg.numel()))
+    b8_bound, b8_by = bound(b8_bytes, b8_ops, BF16_OPS_PER_S)
+    b8_f32 = b8_ops / F32_OPS_PER_S * 1e3
+    print(f"flash_attention_bwd on the {cfg.n_layers} layers' training "
+          f"inputs: within the bf16 limit, max abs err {b8_err:.3e}; at "
+          f"layer 0's input q {tuple(qg.shape)} bf16 causal: {b8_ms:.3f} ms, "
+          f"plain {b8_plain:.3f} ms, sdpa backward {b8_lib:.3f} ms, bound "
+          f"{b8_bound:.4f} ms ({b8_by}: {b8_ops} FLOP at 989 TFLOP/s bf16; "
+          f"{b8_bytes} B); at 67 TFLOP/s f32 {b8_f32:.3f} ms")
+    shape = f"q {tuple(qg.shape)} bf16 causal (layer 0 of a training step)"
+    del qg, kg, vg, out, lse, do, q4, k4, v4, o4, do4
+    torch.cuda.empty_cache()
+
+    # -- 8b. AdamW steps on the batch through B7 + B8 -------------------------
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                          total_steps=TRAIN_STEPS)
+    state = TrainState(params, adamw_init(params))
+    del params
+    step_fn = make_train_step(model, opt_cfg, fwd_kw={"attn_impl": "flash"})
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, step_ms = [], [], []
+    launches = dict(zero)
+    for t in range(TRAIN_STEPS):
+        ops.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, met = step_fn(state, batch)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        got = ops.launch_counts()
+        if got != per_step:
+            fail(f"training step {t + 1} launched {got}, expected {per_step}")
+        for k, n in got.items():
+            launches[k] += n
+        losses.append(float(met["loss"]))
+        gnorms.append(float(met["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        final = float(model.loss(state.params, batch, attn_impl="flash"))
+    if not all(map(math.isfinite, losses + gnorms + [final])):
+        fail(f"training: non-finite loss or gradient norm: {losses}, "
+             f"{gnorms}, {final}")
+    if not final < losses[0]:
+        fail(f"training: the loss after {TRAIN_STEPS} steps, {final}, is not "
+             f"below the first step's {losses[0]}")
+    ms = statistics.median(step_ms[1:])
+    times = {"train_step_ms": ms,
+             "train_tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
+             "step_ms": step_ms, "peak_allocated_bytes": peak}
+    print(f"(8b) {TRAIN_STEPS} AdamW steps (lr {TRAIN_LR}) on one batch "
+          f"through B7 + B8: losses {losses}, then {final}; gradient norms "
+          f"{gnorms}; launches a step {per_step}; step {ms:.1f} ms (median of "
+          f"the {TRAIN_STEPS - 1} warm steps, CUDA events; all {step_ms}), "
+          f"{times['train_tokens_per_s']:.1f} tokens/s; peak allocated "
+          f"{peak} B on {smi}")
+    if args.profile:
+        profile_query(torch, lambda: step_fn(state, batch),
+                      "train step (2 x 4096)", top=14)
+    del state, batch, step_fn
+    torch.cuda.empty_cache()
+
+    # -- 8d. the smoke trainer through launch/train.py, with a restart -------
+    (ROOT / "build").mkdir(exist_ok=True)         # git-ignored
+    ckdir = tempfile.mkdtemp(prefix="train-ckpt-", dir=ROOT / "build")
+    histories = []
+    orig_run = trainer_mod.Trainer.run
+
+    def run(self, *a, **kw):
+        out = orig_run(self, *a, **kw)
+        histories.append(out[1])
+        return out
+
+    argv = ["--arch", "qwen2.5-3b", "--smoke", "--batch", "8", "--seq",
+            "32", "--lr", "1e-2", "--device", "cuda", "--ckpt", ckdir,
+            "--ckpt-every", "10"]
+    trainer_mod.Trainer.run = run
+    try:
+        launch_train.main(argv + ["--steps", "30"])
+        first = statistics.mean(h["loss"] for h in histories[0][:5])
+        last = statistics.mean(h["loss"] for h in histories[0][-5:])
+        if not last < first - 0.1 or ckpt.latest_step(ckdir) != 30:
+            fail(f"the smoke trainer: loss {first} -> {last} over 30 steps, "
+                 f"latest checkpoint {ckpt.latest_step(ckdir)}")
+        launch_train.main(argv + ["--steps", "32"])
+        resumed = [h["step"] for h in histories[1]]
+        if resumed != [31, 32]:
+            fail(f"the restarted smoke trainer ran steps {resumed}, not "
+                 f"[31, 32]")
+    finally:
+        trainer_mod.Trainer.run = orig_run
+        shutil.rmtree(ckdir, ignore_errors=True)
+    print(f"(8d) launch/train.py --smoke --device cuda: loss {first:.4f} -> "
+          f"{last:.4f} (means of the first and last 5 of 30 steps); the "
+          f"restart resumed at step 30 and ran steps {resumed}")
+
+    kernel = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention_bwd.py:126",
+        "tpu_function": "src/repro/kernels/flash_attention_bwd.py:"
+                        "flash_attention_bwd",
+        "launches": launches["flash_attention_bwd"], "max_abs_err": b8_err,
+        "ms": b8_ms, "plain_ms": b8_plain, "bound_ms": b8_bound,
+        "bound_by": b8_by, "library_ms": b8_lib, "f32_ops_bound_ms": b8_f32,
+        "shape": shape}
+    summary = {**times, "losses": losses, "loss_after": final,
+               "grad_norms": gnorms, "first_step": {
+                   "loss": loss_f, "loss_plain": loss_x,
+                   "loss_rel": loss_rel, "grad_dist_max": dist[worst_name],
+                   "grad_dist_argmax": worst_name},
+               "smoke_trainer": {"first5": first, "last5": last,
+                                 "resumed": resumed},
+               "batch": TRAIN_BATCH, "seq": TRAIN_SEQ}
+    return kernel, launches["flash_attention_fwd"], summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=10.0,
@@ -1230,8 +1606,8 @@ def main(argv=None) -> int:
                     help="warm runs per query for the median")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one warm run of each query, of the "
-                         "prefill and of each decode flavour "
-                         "(torch.profiler: device time by kernel)")
+                         "prefill, of each decode flavour and of a training "
+                         "step (torch.profiler: device time by kernel)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1270,8 +1646,15 @@ def main(argv=None) -> int:
     tpch_kernels, tpch = tpch_phases(args, torch, smi)
     torch.cuda.empty_cache()
     lm_kernels, lm = lm_phases(args, torch, smi)
-    kernels = tpch_kernels + lm_kernels
-    summary = {"card": smi, "tpch": tpch, "lm": lm}
+    torch.cuda.empty_cache()
+    b8_kernel, b7_train, train = train_phases(args, torch, smi)
+    for k in lm_kernels:
+        if k["name"] == "flash_attention_fwd":
+            k["launches_by_path"] = {"prefill": k["launches"],
+                                     "training": b7_train}
+            k["launches"] += b7_train
+    kernels = tpch_kernels + lm_kernels + [b8_kernel]
+    summary = {"card": smi, "tpch": tpch, "lm": lm, "train": train}
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was never launched on the main path")

@@ -6,7 +6,9 @@ hand-written CUDA kernel ``csrc/flash_attention.cu``: GQA online-softmax
 attention in the grouped layout, q (BKV, G, S, D), k and v (BKV, Sk, D) ->
 out (BKV, G, S, D) in q's dtype and lse (BKV, G, S) f32, with causal,
 window and prefix masks and the TPU kernel's guards (a fully masked row
-gives 0).  Any S and Sk; forward only (serving takes no gradient).
+gives 0).  Any S and Sk.  Its backward is B8
+(``flash_attention_bwd.py``); ``kernels.ops`` pairs the two in a
+``torch.autograd.Function``.
 
 Bound on the H100: operations, ``4 D BKV G S (S + 1) / 2`` FLOP with a
 causal mask; the kernel computes in f32 on the CUDA cores (see the source

@@ -22,6 +22,7 @@ from repro_torch.kernels.flash_attention import (
     group,
     ungroup,
 )
+from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
 from repro_torch.kernels.grouped_agg import filtered_group_sum_cuda
 from repro_torch.kernels.scan_filter import scan_filter_cuda
 from repro_torch.kernels.wire_codec import (
@@ -41,6 +42,7 @@ _WRAPPERS = {"scan_filter": scan_filter_cuda,
              "mask_fold": mask_fold_cuda,
              "mask_unfold": mask_unfold_cuda,
              "flash_attention_fwd": flash_attention_fwd_cuda,
+             "flash_attention_bwd": flash_attention_bwd_cuda,
              "decode_attention": decode_attention_cuda}
 
 
@@ -128,16 +130,51 @@ def flash_attention_fwd(qg, kg, vg, *, causal=True, window=None, prefix=0):
     return ref.flash_attention_fwd(qg, kg, vg, causal, window, prefix)
 
 
+def flash_attention_bwd(qg, kg, vg, out, lse, do, *, causal=True,
+                        window=None, prefix=0):
+    """Gradients of :func:`flash_attention_fwd`: q, out and do
+    (BKV, G, S, D), k and v (BKV, Sk, D), lse (BKV, G, S) f32 -> (dq, dk,
+    dv) in the inputs' dtype; dk and dv summed over the G query heads."""
+    if _kernel_path(qg):
+        return flash_attention_bwd_cuda(qg, kg, vg, out, lse, do,
+                                        causal=causal, window=window,
+                                        prefix=prefix)
+    return ref.flash_attention_bwd(qg, kg, vg, out, lse, do, causal, window,
+                                   prefix)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Grouped attention with its flash backward, the counterpart of the
+    JAX package's ``custom_vjp`` ``_flash_grouped``: the forward saves q,
+    k, v, out and lse, the backward recomputes p tile by tile (B8 on the
+    card).  Each direction dispatches by device."""
+
+    @staticmethod
+    def forward(ctx, qg, kg, vg, causal, window, prefix):
+        out, lse = flash_attention_fwd(qg, kg, vg, causal=causal,
+                                       window=window, prefix=prefix)
+        ctx.save_for_backward(qg, kg, vg, out, lse)
+        ctx.mask = (causal, window, prefix)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        causal, window, prefix = ctx.mask
+        dq, dk, dv = flash_attention_bwd(*ctx.saved_tensors, do.contiguous(),
+                                         causal=causal, window=window,
+                                         prefix=prefix)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, causal=True, window=None, prefix=0):
-    """Flash attention forward in the (B, S, H, D) layout, GQA through the
-    KV dim of k and v (B, Sk, KV, D): groups, runs
-    :func:`flash_attention_fwd`, ungroups.  Counterpart of
-    ``repro.kernels.ops.flash_attention`` without its backward (serving
-    takes no gradient) and without block sizes (the kernel takes any S)."""
+    """Differentiable flash attention in the (B, S, H, D) layout, GQA
+    through the KV dim of k and v (B, Sk, KV, D): groups, runs
+    :class:`_FlashAttention` (B7 forward, B8 backward), ungroups.
+    Counterpart of ``repro.kernels.ops.flash_attention`` without block
+    sizes (the kernels take any S)."""
     B, KV = q.shape[0], k.shape[2]
     qg, kg, vg = (t.contiguous() for t in group(q, k, v))
-    out, _ = flash_attention_fwd(qg, kg, vg, causal=causal, window=window,
-                                 prefix=prefix)
+    out = _FlashAttention.apply(qg, kg, vg, causal, window, prefix)
     return ungroup(out, B, KV)
 
 

@@ -112,9 +112,10 @@ def ef_decode(words, base, capacity, domain):
 
 
 # ---------------------------------------------------------------------------
-# attention (B7 flash forward, B9 decode): full materialisation with the
-# kernels' guards.  Float32 arithmetic; f32 products must not run in TF32
-# (torch.backends.cuda.matmul.allow_tf32 False, PyTorch's default).
+# attention (B7 flash forward, B8 its backward, B9 decode): full
+# materialisation with the kernels' guards.  Float32 arithmetic; f32
+# products must not run in TF32 (torch.backends.cuda.matmul.allow_tf32
+# False, PyTorch's default).
 # ---------------------------------------------------------------------------
 
 NEG_INF = float(torch.finfo(torch.float32).min)
@@ -130,16 +131,13 @@ def _masked_softmax_parts(s):
     return p, p.sum(dim=-1), m[..., 0]
 
 
-def flash_attention_fwd(qg, kg, vg, causal=True, window=None, prefix=0):
-    """Grouped GQA attention: q (BKV, G, S, D), k and v (BKV, Sk, D) ->
-    (out (BKV, G, S, D) in q's dtype, lse (BKV, G, S) f32).  Query i sees
-    key j when ``not causal``, or when ``j <= i`` (and ``j > i - window``
-    with a window) or ``j < prefix``.  ``out = acc / max(l, 1e-30)`` (0 on
-    a fully masked row), ``lse = m + log(max(l, 1e-30))``."""
+def _masked_scores(qg, kg, causal, window, prefix):
+    """f32 scores ``(q / sqrt(D)) . k`` (BKV, G, S, Sk), NEG_INF where
+    query i does not see key j: when ``causal``, it sees ``j <= i`` (and
+    ``j > i - window`` with a window) or ``j < prefix``."""
     S, D = qg.shape[2], qg.shape[3]
     Sk = kg.shape[1]
-    scale = 1.0 / math.sqrt(D)
-    qf = qg.float() * scale
+    qf = qg.float() * (1.0 / math.sqrt(D))
     s = torch.einsum("bgsd,btd->bgst", qf, kg.float())
     if causal:
         q_pos = torch.arange(S, device=qg.device)[:, None]
@@ -150,12 +148,46 @@ def flash_attention_fwd(qg, kg, vg, causal=True, window=None, prefix=0):
         if prefix:
             vis |= k_pos < prefix
         s = torch.where(vis, s, NEG_INF)
+    return s
+
+
+def flash_attention_fwd(qg, kg, vg, causal=True, window=None, prefix=0):
+    """Grouped GQA attention: q (BKV, G, S, D), k and v (BKV, Sk, D) ->
+    (out (BKV, G, S, D) in q's dtype, lse (BKV, G, S) f32), masked as
+    :func:`_masked_scores` says.  ``out = acc / max(l, 1e-30)`` (0 on a
+    fully masked row), ``lse = m + log(max(l, 1e-30))``."""
+    s = _masked_scores(qg, kg, causal, window, prefix)
     p, l, m = _masked_softmax_parts(s)
     del s
     out = torch.einsum("bgst,btd->bgsd", p, vg.float())
     out = out / torch.clamp(l, min=1e-30)[..., None]
     lse = m + torch.log(torch.clamp(l, min=1e-30))
     return out.to(qg.dtype), lse
+
+
+def flash_attention_bwd(qg, kg, vg, out, lse, do, causal=True, window=None,
+                        prefix=0):
+    """The flash backward written out (not autograd of the forward), the
+    TPU kernel's arithmetic in f32: ``delta = rowsum(do . out)``,
+    ``p = exp(s - lse)`` with p = 0 where ``s <= NEG_INF / 2`` (a fully
+    masked row gives zero gradients), ``ds = p (dp - delta)`` with
+    ``dp = do . v``; ``dq = ds k / sqrt(D)``, ``dk = ds^T q / sqrt(D)``
+    and ``dv = p^T do``, dk and dv summed over the G query heads of a kv
+    row.  q, out, do (BKV, G, S, D), k and v (BKV, Sk, D), lse (BKV, G, S)
+    f32 -> (dq, dk, dv) in the inputs' dtype."""
+    scale = 1.0 / math.sqrt(qg.shape[3])
+    dof = do.float()
+    delta = (dof * out.float()).sum(-1)
+    s = _masked_scores(qg, kg, causal, window, prefix)
+    p = torch.exp(s - lse[..., None])
+    p = torch.where(s <= NEG_INF / 2, 0.0, p)
+    del s
+    dv = torch.einsum("bgst,bgsd->btd", p, dof)
+    ds = torch.einsum("bgsd,btd->bgst", dof, vg.float())
+    ds = p.mul_(ds.sub_(delta[..., None]))
+    dq = torch.einsum("bgst,btd->bgsd", ds, kg.float()) * scale
+    dk = torch.einsum("bgst,bgsd->btd", ds, qg.float()) * scale
+    return dq.to(qg.dtype), dk.to(kg.dtype), dv.to(vg.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, length, k_scale=None,

@@ -1,16 +1,21 @@
 """Model facade (counterpart of ``repro.models.model``): one object per
-architecture exposing init / hidden / prefill / decode for the server.
+architecture exposing init / loss / prefill / decode for the trainer and
+the server.
 
-The port serves the dense family; the others, and the training loss,
-wait for ``ROADMAP.md`` queue A, item 11.
+The loss computes cross-entropy in SEQUENCE CHUNKS, each checkpointed, so
+the (B, S, vocab) f32 logits never exist whole.  The port trains and
+serves the dense family; the others wait for ``ROADMAP.md`` queue A,
+item 11.3.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.engine import resolve_device
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 
@@ -33,17 +38,19 @@ class Model:
         if self.cfg.family in _NOT_PORTED:
             raise NotImplementedError(
                 f"{self.cfg.name}: {_NOT_PORTED[self.cfg.family]} is not "
-                f"ported yet (ROADMAP.md queue A, item 11)")
+                f"ported yet (ROADMAP.md queue A, item 11.3)")
         if self.cfg.family != "dense":
             raise ValueError(f"unknown family {self.cfg.family!r}")
 
     # ---- parameters -------------------------------------------------------
-    def init(self, seed: int = 0, *, device=None) -> T.Transformer:
+    def init(self, seed: int = 0, *, device=None,
+             trainable: bool = False) -> T.Transformer:
         """Random parameters in ``cfg.param_dtype``, drawn on the device
         (``cuda`` unless the caller names another) from a
-        ``torch.Generator`` seeded with ``seed``."""
+        ``torch.Generator`` seeded with ``seed``; frozen for serving,
+        ``trainable`` for training."""
         gen = torch.Generator(resolve_device(device)).manual_seed(seed)
-        return T.init_transformer(self.cfg, gen, self.tp)
+        return T.init_transformer(self.cfg, gen, self.tp, trainable)
 
     def cast(self, params: T.Transformer) -> T.Transformer:
         """The parameters in ``cfg.compute_dtype``, for serving.  The JAX
@@ -52,13 +59,20 @@ class Model:
         reading the f32 copy at every step."""
         return params.cast(getattr(torch, self.cfg.compute_dtype))
 
-    # ---- forward -------------------------------------------------------------
+    # ---- training forward / loss -----------------------------------------
     def hidden(self, params, batch, *, chunk_q=1024, chunk_k=1024,
-               attn_impl="xla"):
-        with torch.no_grad():
-            return T.forward(params, batch["tokens"], self.cfg,
-                             chunk_q=chunk_q, chunk_k=chunk_k,
-                             attn_impl=attn_impl)
+               attn_impl="xla", remat_policy="full"):
+        """Final hidden states (B, S, d), under autograd when it is on."""
+        return T.forward(params, batch["tokens"], self.cfg, chunk_q=chunk_q,
+                         chunk_k=chunk_k, attn_impl=attn_impl,
+                         remat_policy=remat_policy)
+
+    def loss(self, params, batch, **fwd_kw):
+        """Mean next-token cross-entropy of ``batch["tokens"]`` against
+        ``batch["labels"]`` (-1 masked), a 0-d f32 tensor."""
+        h = self.hidden(params, batch, **fwd_kw)
+        nll, _ = chunked_cross_entropy(h, batch["labels"], self.cfg, params)
+        return nll
 
     # ---- serving -----------------------------------------------------------
     def init_decode_state(self, batch: int, max_len: int,
@@ -85,6 +99,47 @@ class Model:
             return T.prefill(params, batch["tokens"], self.cfg, state,
                              chunk_q=chunk_q, chunk_k=chunk_k,
                              attn_impl=attn_impl)
+
+
+def _chunk_nll(h, lab, head_w, tied):
+    """Summed NLL and count of one chunk: logits (B, c, V) f32."""
+    head = None if head_w is None else {"w": head_w}
+    logits = L.lm_logits(head, h, tied_table=tied).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1,
+                          lab.clamp(min=0).long()[..., None])[..., 0]
+    mask = lab >= 0
+    nll = torch.where(mask, lse - picked, 0.0)
+    return nll.sum(), mask.sum(dtype=torch.int32)
+
+
+def chunked_cross_entropy(hidden, labels, cfg, params, *, chunk: int = 512):
+    """Mean next-token CE without materialising the full logits.
+
+    hidden: (B, S, d), position t predicts labels[t]; labels: (B, S) int,
+    -1 masked.  Chunks of ``chunk`` positions (shrunk to divide S), each
+    checkpointed when ``cfg.remat``, summed in order.  Returns (mean_nll,
+    token count)."""
+    B, S, _ = hidden.shape
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk -= 1
+    tied = params.embedding["table"] if cfg.tie_embeddings else None
+    head_w = params.head["w"] if params.head is not None else None
+    body = _chunk_nll
+    if cfg.remat and torch.is_grad_enabled():
+        def body(*a):
+            return torch.utils.checkpoint.checkpoint(
+                _chunk_nll, *a, use_reentrant=False,
+                preserve_rng_state=False)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.int32, device=hidden.device)
+    for c0 in range(0, S, chunk):
+        nll, n = body(hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk],
+                      head_w, tied)
+        tot = tot + nll
+        cnt = cnt + n
+    return tot / torch.clamp(cnt, min=1), cnt
 
 
 def build(cfg: ModelConfig, tp: int = 1, **kw) -> Model:

@@ -1,8 +1,11 @@
 """Decoder-only transformer, dense family (counterpart of
-``repro.models.transformer``): parameters, KV caches, prefill and decode.
+``repro.models.transformer``): parameters, the training forward, KV
+caches, prefill and decode.
 
 Where the JAX package scans stacked layers, the port keeps an
-``nn.ModuleList`` of :class:`Layer` modules and loops over it.  Caches keep
+``nn.ModuleList`` of :class:`Layer` modules and loops over it; its remat
+(``jax.checkpoint`` of the scan body) is ``torch.utils.checkpoint`` of each
+layer.  Caches keep
 the JAX layouts: :class:`KVCache` (L, B, Smax, KV, hd) in a float dtype,
 :class:`QuantKVCache` (L, B, KV, Smax, hd) int8 codes with (L, B, KV, Smax)
 f32 scales, so that a layer's int8 cache reshapes for free to the B9
@@ -12,9 +15,11 @@ tensors, with the new length), which saves a copy of the cache a step.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.kernels import ops
@@ -39,8 +44,8 @@ class QuantKVCache(NamedTuple):
     length: int
 
 
-def _frozen_dict(tensors: dict) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(t, requires_grad=False)
+def _param_dict(tensors: dict, trainable: bool) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(t, requires_grad=trainable)
                              for k, t in tensors.items()})
 
 
@@ -48,23 +53,26 @@ class Layer(nn.Module):
     """One layer's parameters: ``ln1``, ``attn``, ``ln2``, ``mlp``, each a
     dict of tensors named as in the JAX tree."""
 
-    def __init__(self, tree: dict):
+    def __init__(self, tree: dict, trainable: bool = False):
         super().__init__()
         for name, sub in tree.items():
-            self.add_module(name, _frozen_dict(sub))
+            self.add_module(name, _param_dict(sub, trainable))
 
 
 class Transformer(nn.Module):
     """All parameters of a dense transformer: ``embedding``, ``layers``
     (one :class:`Layer` each), ``final_norm`` and, when the embedding is
-    not tied, ``head``."""
+    not tied, ``head``.  Frozen (``requires_grad`` False) for serving;
+    ``trainable`` for training, where autograd fills each ``.grad``."""
 
-    def __init__(self, tree: dict):
+    def __init__(self, tree: dict, trainable: bool = False):
         super().__init__()
-        self.embedding = _frozen_dict(tree["embedding"])
-        self.layers = nn.ModuleList(Layer(t) for t in tree["layers"])
-        self.final_norm = _frozen_dict(tree["final_norm"])
-        self.head = _frozen_dict(tree["head"]) if "head" in tree else None
+        self.embedding = _param_dict(tree["embedding"], trainable)
+        self.layers = nn.ModuleList(Layer(t, trainable)
+                                    for t in tree["layers"])
+        self.final_norm = _param_dict(tree["final_norm"], trainable)
+        self.head = (_param_dict(tree["head"], trainable) if "head" in tree
+                     else None)
 
     def tree(self) -> dict:
         """The parameters as nested dicts of tensors (layers a list)."""
@@ -76,19 +84,24 @@ class Transformer(nn.Module):
             out["head"] = dict(self.head)
         return out
 
-    def cast(self, dtype: torch.dtype) -> "Transformer":
-        """A copy with every floating parameter cast to ``dtype``."""
-        def conv(t):
-            return t.to(dtype) if t.is_floating_point() else t
+    def map(self, fn) -> "Transformer":
+        """A new frozen Transformer of ``fn(t)`` for every parameter ``t``
+        (detached)."""
+        def sub(d):
+            return {k: fn(v.detach()) for k, v in d.items()}
 
         t = self.tree()
         return Transformer({
-            "embedding": {k: conv(v) for k, v in t["embedding"].items()},
-            "layers": [{n: {k: conv(v) for k, v in sub.items()}
-                        for n, sub in lp.items()} for lp in t["layers"]],
-            "final_norm": {k: conv(v) for k, v in t["final_norm"].items()},
-            **({"head": {k: conv(v) for k, v in t["head"].items()}}
-               if "head" in t else {})})
+            "embedding": sub(t["embedding"]),
+            "layers": [{n: sub(d) for n, d in lp.items()}
+                       for lp in t["layers"]],
+            "final_norm": sub(t["final_norm"]),
+            **({"head": sub(t["head"])} if "head" in t else {})})
+
+    def cast(self, dtype: torch.dtype) -> "Transformer":
+        """A copy with every floating parameter cast to ``dtype``."""
+        return self.map(
+            lambda t: t.to(dtype) if t.is_floating_point() else t)
 
 
 # ---------------------------------------------------------------------------
@@ -128,7 +141,8 @@ def _layer_tree(cfg, gen, tp, dtype):
             "ln2": _norm(gen, d, cfg.norm, dtype), "mlp": mlp}
 
 
-def init_transformer(cfg, gen: torch.Generator, tp: int = 1) -> Transformer:
+def init_transformer(cfg, gen: torch.Generator, tp: int = 1,
+                     trainable: bool = False) -> Transformer:
     """Random parameters in ``cfg.param_dtype`` on ``gen``'s device, by
     the JAX package's init kinds and shapes (vocab padded)."""
     dtype = getattr(torch, cfg.param_dtype)
@@ -142,7 +156,7 @@ def init_transformer(cfg, gen: torch.Generator, tp: int = 1) -> Transformer:
     }
     if not cfg.tie_embeddings:
         tree["head"] = {"w": param((cfg.d_model, V), gen, dtype=dtype)}
-    return Transformer(tree)
+    return Transformer(tree, trainable)
 
 
 # ---------------------------------------------------------------------------
@@ -236,16 +250,43 @@ def apply_layer_decode_quant(lp, x, cfg, kq, ks, vq, vs, cache_len: int):
 # ---------------------------------------------------------------------------
 
 
+REMAT_POLICIES = ("full", "none")
+
+
+def remat_wrap(body, cfg, remat_policy: str = "full"):
+    """The layer's remat policy (counterpart of the JAX ``remat_wrap``):
+      full  -- checkpoint the whole layer: only its input is kept, the
+               layer runs again in the backward (non-reentrant
+               ``torch.utils.checkpoint``)
+      none  -- no remat (only viable for tiny configs and tests)
+    ``cfg.remat`` False means none.  Outside autograd nothing is kept
+    anyway, and the body runs as it is."""
+    if remat_policy == "save_hot":
+        raise NotImplementedError(
+            "remat policy 'save_hot' is not ported yet (ROADMAP.md queue A, "
+            "item 11.1, after optim/compression.py)")
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {remat_policy!r}")
+    if (not cfg.remat or remat_policy == "none"
+            or not torch.is_grad_enabled()):
+        return body
+    return functools.partial(torch.utils.checkpoint.checkpoint, body,
+                             use_reentrant=False, preserve_rng_state=False)
+
+
 def forward(params: Transformer, tokens, cfg, *, chunk_q=1024, chunk_k=1024,
-            attn_impl="xla"):
-    """Prefill-style forward -> final hidden states (B, S, d)."""
+            attn_impl="xla", remat_policy="full"):
+    """Training and prefill-style forward -> final hidden states
+    (B, S, d), differentiable, each layer under ``remat_policy``."""
     cd = getattr(torch, cfg.compute_dtype)
     x = L.embed(params.embedding, tokens, cd)
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    body = remat_wrap(functools.partial(
+        apply_layer, cfg=cfg, positions=positions, chunk_q=chunk_q,
+        chunk_k=chunk_k, attn_impl=attn_impl), cfg, remat_policy)
     for lp in params.layers:
-        x = apply_layer(lp, x, cfg, positions, chunk_q=chunk_q,
-                        chunk_k=chunk_k, attn_impl=attn_impl)
+        x = body(lp, x)
     return L.apply_norm(params.final_norm, x, cfg.norm)
 
 

@@ -9,7 +9,8 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "tools" / "logit_fault_control.py"]
+SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "tools" / "logit_fault_control.py",
+           ROOT / "tools" / "grad_fault_control.py"]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + SCRIPTS
 
 
@@ -44,25 +45,45 @@ def test_port_file_list_is_complete():
                 "models/transformer.py", "models/model.py",
                 "models/convert.py", "configs/registry.py",
                 "configs/qwen2_5_3b.py", "serve/sampling.py",
-                "serve/engine.py"):
+                "serve/engine.py", "kernels/flash_attention_bwd.py",
+                "optim/adamw.py", "data/synthetic.py",
+                "train/train_step.py", "train/checkpoint.py",
+                "train/elastic.py", "train/trainer.py", "launch/train.py"):
         assert mod in names
 
 
 @pytest.mark.parametrize("entry", ["cluster", "driver", "model",
-                                   "decode_state"])
+                                   "decode_state", "train_state", "trainer",
+                                   "launch_train"])
 def test_entry_points_need_cuda_or_an_explicit_cpu(entry, monkeypatch):
     from repro_torch.configs import get_arch
     from repro_torch.core.engine import Cluster
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch.train import main as launch_train
     from repro_torch.models.model import build
+    from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.tpch.driver import TPCHDriver
+    from repro_torch.train.train_step import init_train_state
+    from repro_torch.train.trainer import Trainer, TrainerConfig
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     model = build(get_arch("qwen2.5-3b", smoke=True))
+    data = SyntheticLM(vocab_size=256, seq_len=8, global_batch=2)
+
+    def launch(device=None):
+        argv = ["--arch", "qwen2.5-3b", "--smoke", "--steps", "1",
+                "--batch", "2", "--seq", "8"]
+        return launch_train(argv + (["--device", device] if device else []))
+
     make = {"cluster": lambda **kw: Cluster(8, **kw),
             "driver": lambda **kw: TPCHDriver(0.001, **kw),
             "model": lambda **kw: model.init(0, **kw),
             "decode_state": lambda **kw: model.init_decode_state(
-                2, 8, **kw)}[entry]
+                2, 8, **kw),
+            "train_state": lambda **kw: init_train_state(model, 0, **kw),
+            "trainer": lambda device=None: Trainer(
+                model, data, device, AdamWConfig(), TrainerConfig(steps=1)),
+            "launch_train": launch}[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()
     if entry == "cluster":
@@ -70,3 +91,5 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(entry, monkeypatch):
     if entry == "model":
         p = make(device="cpu")
         assert p.embedding["table"].device == torch.device("cpu")
+    if entry == "trainer":
+        assert make(device="cpu").device == torch.device("cpu")

@@ -82,6 +82,8 @@ def test_group_sum_launch_shape_fits_the_card(num_groups, c):
 def test_cuda_wrappers_reject_cpu_tensors():
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.flash_attention import flash_attention_fwd_cuda
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd_cuda)
     from repro_torch.kernels.grouped_agg import filtered_group_sum_cuda
     from repro_torch.kernels.scan_filter import scan_filter_cuda
 
@@ -98,13 +100,21 @@ def test_cuda_wrappers_reject_cpu_tensors():
                                  torch.zeros((1, 8, 16)),
                                  torch.zeros((1, 8, 16)))
     with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd_cuda(torch.zeros((1, 2, 8, 16)),
+                                 torch.zeros((1, 8, 16)),
+                                 torch.zeros((1, 8, 16)),
+                                 torch.zeros((1, 2, 8, 16)),
+                                 torch.zeros((1, 2, 8)),
+                                 torch.zeros((1, 2, 8, 16)))
+    with pytest.raises(ValueError, match="CUDA"):
         decode_attention_cuda(torch.zeros((1, 2, 16)),
                               torch.zeros((1, 8, 16)),
                               torch.zeros((1, 8, 16)), 4)
     assert ops.launch_counts() == {
         k: 0 for k in ("scan_filter", "filtered_group_sum", "ef_encode",
                        "ef_decode", "mask_fold", "mask_unfold",
-                       "flash_attention_fwd", "decode_attention")}
+                       "flash_attention_fwd", "flash_attention_bwd",
+                       "decode_attention")}
 
 
 def test_use_kernels_false_keeps_the_plain_version():

@@ -71,12 +71,14 @@ FAULTS = {
     },
 }
 SYMBOLS = {"flash_attention": "repro_flash_attention_fwd",
+           "flash_attention_bwd": "repro_flash_attention_bwd",
            "decode_attention": "repro_decode_attention"}
 DECODE_STEPS_C = 4
 
 
-def compile_variant(build, name: str, fault: str, tmp: pathlib.Path):
-    old, new = FAULTS[name][fault]
+def compile_variant(build, name: str, fault: str, tmp: pathlib.Path,
+                    faults=FAULTS):
+    old, new = faults[name][fault]
     src = (build.CSRC / f"{name}.cu").read_text()
     if src.count(old) != 1:
         raise SystemExit(f"{name}/{fault}: the planted text occurs "
