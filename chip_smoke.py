@@ -47,6 +47,27 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
    resident bytes; each kernel's time at its main-path shape beside its
    plain version, a PyTorch library call where one exists, and its bound
    (the codec kernels at the q4_sj and q18_sj shapes).
+6b. The hand plans on the same driver: ``block_topk`` (B4),
+   ``predicate_bitset`` (B5) and ``mbit_encode`` (B6) bit-identical to
+   their plain versions, each twice: B4 over k in {1, 10, 100, 128},
+   ragged N, masked and exhausted blocks, blocks of 1,000 to 12,288; B5
+   over ragged N with the value absent, present in every row and random;
+   B6 over m in {4, 8, 16}, groups 1 to 1,024 and rows that end in half a
+   word.  Then q1, q1_kernel, q6, q4, q18, q15, q15_1factor, q15_approx,
+   q21 and q21_late through ``drv.run(name)``, each against its oracle
+   (q1, q1_kernel, q6 within rtol 2e-4; q4 exactly; q15 and q18 keys
+   exactly, values within rtol 2e-4; q21 keys and counts exactly), no
+   overflow, q15_approx shipping fewer bits than the naive variant.  The
+   counters are set to 0 before each plan: ``block_topk`` once in q15,
+   q15_1factor and q15_approx, ``mbit_encode`` once in q15_approx,
+   ``predicate_bitset`` once in q21 (never in q21_late, which launches the
+   four codec kernels once on its packed request), ``filtered_group_sum``
+   once in q1_kernel, nothing else.  B4-B6 are then held against their
+   plain versions on the plans' own inputs and at the lineitem size (8 x
+   the lineitem rows per node: B4 at k = 100, unmasked and masked by
+   Q15's window; B5; B6 at m = 8).  Times: each plan's warm median, each
+   kernel at its main-path input and at the lineitem size beside its plain
+   version, its bound and (B4) ``torch.topk`` on the (blocks, block) view.
 7. The language model, after the TPC-H phases have
    dropped what they placed on the card:
    a. ``flash_attention_fwd`` (B7) against its plain version computed in
@@ -105,7 +126,7 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
       tokens/s, ``torch.cuda.max_memory_allocated``; B8 at layer 0's
       training input beside its plain version, the backward of
       ``scaled_dot_product_attention`` and its bound.
-9. One ``{"kernels": [...]}`` line (nine kernels), then the last line
+9. One ``{"kernels": [...]}`` line (twelve kernels), then the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or when
@@ -679,6 +700,10 @@ def tpch_phases(args, torch, smi: str):
               f"{b_ms:.4f} ms ({b_by}, {nbytes} B)")
     recorded.clear()
 
+    # -- 6b. the hand plans, kernels B4-B6 ---------------------------------------
+    hand_kernels, hand = hand_plan_phase(args, torch, smi, drv,
+                                         main_launches, zero)
+
     kernels = [
         {"name": "scan_filter", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/scan_filter.cu",
@@ -716,10 +741,371 @@ def tpch_phases(args, torch, smi: str):
             "bound_ms": t4["bound_ms"], "bound_by": t4["bound_by"],
             "library_ms": None, "shape": "q4_sj " + t4["shape"],
             "q18_sj": t18})
-    return kernels, {"queries_ms": query_ms, "gen_s": gen_s,
+    kernels += hand_kernels
+    return kernels, {"queries_ms": query_ms, "hand_plans": hand,
+                     "gen_s": gen_s,
                      "resident_bytes": drv.resident_bytes,
                      "lineitem_bytes": li_bytes, "sf": args.sf,
                      "nodes": NODES}
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: the hand plans through TPCHDriver.run, kernels B4-B6
+# ---------------------------------------------------------------------------
+
+HAND_PLANS = ("q1", "q1_kernel", "q6", "q4", "q18", "q15", "q15_1factor",
+              "q15_approx", "q21", "q21_late")
+HAND_KERNELS = ("block_topk", "predicate_bitset", "mbit_encode")
+
+
+def hold_exact(torch, got, want, what: str):
+    """Bit-identical outputs (f32 compared as bits); fails otherwise."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want, strict=True):
+        bits = (lambda t: t.view(torch.int32) if t.dtype == torch.float32
+                else t)
+        if (g.shape != w.shape or g.dtype != w.dtype
+                or not torch.equal(bits(g), bits(w))):
+            fail(f"{what}: differs from its plain version (or its first "
+                 f"run)")
+
+
+def _quantized(torch, gen, shape):
+    """§3.2.5-like q: 0 <= q <= 2**30 over all magnitudes, a zero group."""
+    q = torch.randint(0, (1 << 30) + 1, shape, generator=gen, device="cuda")
+    q = q >> torch.randint(0, 31, shape, generator=gen, device="cuda")
+    q.view(-1)[:3] = 0
+    return q.to(torch.int32)
+
+
+def check_hand_kernels(torch, ops, ref, gen):
+    """B4-B6 against their plain versions at test shapes, each twice:
+    bit-identical."""
+    n_cases = 0
+    # B4: ties (integer values), ragged N, masked, exhausted blocks (0.2%
+    # unmasked: about 8 rows a block against k up to 128)
+    for k in (1, 10, 100, 128):
+        for rows, n, block, frac in ((1, 100_003, 4096, 1.0),
+                                     (3, 50_001, 4096, 0.3),
+                                     (8, 12_500, 4096, 0.002),
+                                     (2, 9_999, 1000, 0.5),
+                                     (1, 30_000, 12_288, 1.0)):
+            vals = torch.randint(0, 1000, (rows, n), generator=gen,
+                                 device="cuda").float()
+            keys = torch.randint(-(2 ** 31), 2 ** 31 - 1, (rows, n),
+                                 generator=gen, device="cuda",
+                                 dtype=torch.int32)
+            mask = (None if frac == 1.0 else
+                    torch.rand((rows, n), generator=gen, device="cuda")
+                    < frac)
+            got = ops.block_topk(vals, keys, k=k, mask=mask, block=block)
+            what = f"block_topk k={k} {rows}x{n} block={block} frac={frac}"
+            hold_exact(torch, got, ops.block_topk(vals, keys, k=k, mask=mask,
+                                                  block=block), what)
+            hold_exact(torch, got, ref.block_topk(vals, keys, k, mask,
+                                                  block), what)
+            n_cases += 1
+    # B5: ragged N; a value absent, present in every row, and random
+    for n in (1, 31, 32, 33, 1000, 100_003):
+        for rows in (1, 8):
+            col = torch.randint(0, 5, (rows, n), generator=gen,
+                                device="cuda", dtype=torch.int32)
+            for value, c in ((-1, col), (2, col),
+                             (5, torch.full_like(col, 5))):
+                got = ops.predicate_bitset(c, value=value)
+                what = f"predicate_bitset {rows}x{n} value={value}"
+                hold_exact(torch, got, ops.predicate_bitset(c, value=value),
+                           what)
+                hold_exact(torch, got, ref.predicate_bitset(c, value), what)
+                n_cases += 1
+    # B6: m in {4, 8, 16}, groups 1..1024, rows of 125 groups (a half word
+    # where 125 * group * m / 32 is not whole)
+    for m in (4, 8, 16):
+        for group in (1, 2, 3, 4, 32, 100, 1000, 1024):
+            for rows in (1, 64):
+                q = _quantized(torch, gen, (rows, 125 * group))
+                got = ops.mbit_encode(q, m=m, group=group)
+                what = f"mbit_encode m={m} group={group} {tuple(q.shape)}"
+                hold_exact(torch, got, ops.mbit_encode(q, m=m, group=group),
+                           what)
+                hold_exact(torch, got, ref.mbit_encode(q, m, group), what)
+                n_cases += 1
+    torch.cuda.synchronize()
+    print(f"block_topk, predicate_bitset, mbit_encode: bit-identical to "
+          f"their plain versions and repeatable over {n_cases} cases")
+
+
+def hand_plan_phase(args, torch, smi, drv, main_launches, zero):
+    """Phase 6b: B4-B6 against their plain versions (test shapes, the
+    stress size, the plans' own inputs), the ten hand plans through
+    ``drv.run(name)`` against the oracle with their launches, and times.
+    Adds the plans' launches to ``main_launches``; returns the three
+    kernels' entries of the JSON line and a summary."""
+    import numpy as np
+
+    from repro_torch.core.columnar import PackedColumn
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.bitset_pack import predicate_bitset_cuda
+    from repro_torch.kernels.mbit_codec import mbit_encode_cuda
+    from repro_torch.kernels.topk_select import block_topk_cuda
+    from repro_torch.tpch.schema import DEFAULT_PARAMS as DP
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    check_hand_kernels(torch, ops, ref, gen)
+
+    # -- the plans, each with the launches it implies --------------------------
+    expected = {name: dict(zero) for name in HAND_PLANS}
+    expected["q1_kernel"]["filtered_group_sum"] = 1
+    for name in ("q15", "q15_1factor"):
+        expected[name]["block_topk"] = 1
+    expected["q15_approx"].update(block_topk=1, mbit_encode=1)
+    expected["q21"]["predicate_bitset"] = 1
+    q21_wire = drv.ctx.wire_fmt("q21_request")
+    if q21_wire.packed:
+        expected["q21_late"].update(ef_encode=1, ef_decode=1, mask_fold=1,
+                                    mask_unfold=1)
+    recorded = {}
+    originals = {k: getattr(ops, k) for k in HAND_KERNELS}
+
+    def wrap(k, label):
+        def call(*a, **kw):
+            recorded.setdefault((label, k), (a, kw))
+            return originals[k](*a, **kw)
+        return call
+
+    from repro_torch.core.plans import REGISTRY
+
+    t0 = time.perf_counter()
+    by_oracle = {}
+    for name in HAND_PLANS:   # q1_kernel answers q1, q15_* q15, q21_late q21
+        if REGISTRY[name].oracle not in by_oracle:
+            by_oracle[REGISTRY[name].oracle] = drv.oracle(name)
+    oracles = {name: by_oracle[REGISTRY[name].oracle] for name in HAND_PLANS}
+    oracle_s = time.perf_counter() - t0
+    print(f"hand-plan oracles (float64 numpy): {oracle_s:.1f} s")
+    tables = drv.tables
+    for name in HAND_PLANS:
+        for k in HAND_KERNELS:
+            setattr(ops, k, wrap(k, name))
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        out = drv.run(name)
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        for k, fn in originals.items():
+            setattr(ops, k, fn)
+        if got != expected[name]:
+            fail(f"{name} launched {got}, expected {expected[name]}")
+        for k, v in got.items():
+            main_launches[k] += v
+        oracle = oracles[name]
+        if name in ("q1", "q1_kernel", "q6", "q4"):
+            value = out.cpu().numpy().astype(np.float64)
+            want = np.asarray(oracle, np.float64)
+            if value.shape != want.shape or not np.isfinite(value).all():
+                fail(f"{name}: shape {value.shape} / non-finite values")
+            rel = float(np.max(np.abs(value - want)
+                               / np.maximum(np.abs(want), 1e-30)))
+            ok = (np.array_equal(value, want) if name == "q4"
+                  else np.allclose(value, want, rtol=2e-4, atol=0))
+            if not ok:
+                fail(f"{name}: max relative error {rel} vs the oracle")
+            print(f"{name} (hand plan): matches the float64 oracle "
+                  f"({'exactly' if name == 'q4' else f'{rel:.3e}'}); "
+                  f"launches {got}")
+            continue
+        overflow = False
+        if name == "q21_late":
+            out, overflow = out
+        elif isinstance(out, dict):
+            overflow = out.pop("overflow", False)
+        if bool(overflow):
+            fail(f"{name}: an exchange buffer overflowed")
+        if name.startswith("q21"):
+            v, keys, valid = (a.cpu().numpy() for a in out)
+        else:
+            o = {k: (a.cpu().numpy() if isinstance(a, torch.Tensor) else a)
+                 for k, a in out.items()}
+            vk = (("total_revenue", "s_suppkey") if name.startswith("q15")
+                  else ("o_totalprice", "o_orderkey"))
+            v, keys, valid = o[vk[0]], o[vk[1]], o["valid"]
+        ov, ok = oracle
+        n = int(valid.sum())
+        exact = name.startswith("q21")
+        if not (n == min(int(np.isfinite(ov).sum()), len(v)) and n > 0
+                and np.array_equal(keys[:n], ok[:n])
+                and (np.array_equal(v[:n], ov[:n]) if exact
+                     else np.allclose(v[:n], ov[:n], rtol=2e-4, atol=0))):
+            fail(f"{name}: {n} winners; keys or values differ from the "
+                 f"oracle")
+        if name.startswith("q15"):
+            if not np.array_equal(o["s_name_code"][:n], keys[:n]):
+                fail(f"{name}: fetched s_name_code differs from the key")
+        if name == "q18":
+            orders = tables["orders"].columns
+            ck = orders["o_custkey"][keys[:n]]
+            if not (np.array_equal(o["o_custkey"][:n], ck)
+                    and np.array_equal(o["c_name_code"][:n],
+                                       tables["customer"].columns[
+                                           "c_name_code"][ck])):
+                fail("q18: fetched attributes differ from the host tables")
+        extra = ""
+        if name == "q15_approx":
+            st = o["stats"]
+            approx, naive = (float(st.approx_bits_per_node),
+                             float(st.naive_bits_per_node))
+            if not approx < naive:
+                fail(f"q15_approx ships {approx} bits, naive {naive}")
+            extra = (f"; bits per node approx {approx:.0f} vs naive "
+                     f"{naive:.0f}, {int(st.num_candidates)} candidates")
+        tol = ("keys and values exactly" if exact
+               else "keys exactly, values within rtol 2e-4")
+        print(f"{name}: {n} winners, {tol} of the oracle, no overflow"
+              f"{extra}; launches { {k: c for k, c in got.items() if c} }")
+    if {k for _, k in recorded} != set(HAND_KERNELS):
+        fail(f"the hand plans did not reach every new kernel: "
+             f"{sorted(recorded)}")
+
+    # -- B4-B6 on the plans' own inputs, against their plain versions ----------
+    plain = {"block_topk": lambda a, kw: ref.block_topk(
+                 *a, kw["k"], kw.get("mask"), kw.get("block", 4096)),
+             "predicate_bitset": lambda a, kw: ref.predicate_bitset(
+                 *a, kw["value"]),
+             "mbit_encode": lambda a, kw: ref.mbit_encode(*a, kw["m"],
+                                                          kw["group"])}
+    for (label, k), (a, kw) in sorted(recorded.items()):
+        hold_exact(torch, getattr(ops, k)(*a, **kw), plain[k](a, kw),
+                   f"{k} on the {label} input")
+    print(f"B4-B6 bit-identical to their plain versions on the plans' "
+          f"inputs {sorted(recorded)}")
+
+    # -- stress: each kernel at the lineitem size ------------------------------
+    li = drv.placed["lineitem"].columns
+    dec = {c: (li[c].decode() if isinstance(li[c], PackedColumn) else li[c])
+           for c in ("l_extendedprice", "l_returnflag", "l_shipdate")}
+    price = dec["l_extendedprice"].float().contiguous()
+    P, n = price.shape
+    row_keys = torch.arange(P * n, device="cuda",
+                            dtype=torch.int32).reshape(P, n)
+    in_q15 = ((dec["l_shipdate"] >= DP.q15_date_min)
+              & (dec["l_shipdate"] < DP.q15_date_max))
+    flag = dec["l_returnflag"].to(torch.int32).contiguous()
+    q_li = torch.floor(price * (float(1 << 30) / price.max())).to(
+        torch.int32).contiguous()
+    # the paper's group of 1,024, cut to the largest that divides the row
+    group = max(g for g in range(1, 1025) if n % g == 0)
+    stress = {"block_topk": ((price, row_keys), {"k": 100}),
+              "block_topk_masked": ((price, row_keys),
+                                    {"k": 100, "mask": in_q15}),
+              "predicate_bitset": ((flag,), {"value": 1}),
+              "mbit_encode": ((q_li,), {"m": 8, "group": group})}
+    for label, (a, kw) in stress.items():
+        k = label.removesuffix("_masked")
+        hold_exact(torch, getattr(ops, k)(*a, **kw), plain[k](a, kw),
+                   f"{k} at the stress size {tuple(a[0].shape)} {kw.keys()}")
+        hold_exact(torch, getattr(ops, k)(*a, **kw),
+                   getattr(ops, k)(*a, **kw), f"{label} twice")
+    del dec, in_q15
+    torch.cuda.empty_cache()
+    print(f"B4-B6 at the stress size (P={P} x {n} lineitem rows): "
+          f"bit-identical to their plain versions, repeatable")
+
+    # -- times ----------------------------------------------------------------
+    plan_ms = {}
+    for name in HAND_PLANS:
+        times = []
+        for _ in range(args.repeat):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            drv.run(name)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        plan_ms[name] = statistics.median(times)
+        print(f"{name} (hand plan): warm median {plan_ms[name]:.3f} ms over "
+              f"{args.repeat} runs (CUDA events) on {smi}")
+        if args.profile:
+            profile_query(torch, lambda nm=name: drv.run(nm), name)
+        torch.cuda.empty_cache()
+
+    cuda_fn = {"block_topk": block_topk_cuda,
+               "predicate_bitset": predicate_bitset_cuda,
+               "mbit_encode": mbit_encode_cuda}
+
+    def kernel_case(k, a, kw):
+        """Times, bound and library time of one input."""
+        x = a[0]
+        rows_n = x.numel()
+        if k == "block_topk":
+            block, kk = kw.get("block", 4096), kw["k"]
+            nb = -(-x.shape[-1] // block)
+            outs = x.numel() // x.shape[-1] * nb * kk
+            mask = kw.get("mask")
+            # each value (and mask byte) read once, the winners' keys and
+            # the outputs; one compare per value
+            nbytes = rows_n * 4 + (0 if mask is None else rows_n) \
+                + outs * 12
+            ops_ = rows_n
+            pad = (-x.shape[-1]) % block
+            xv = torch.nn.functional.pad(
+                x if mask is None else torch.where(mask, x, float("-inf")),
+                (0, pad), value=float("-inf")).reshape(-1, block)
+            lib = cuda_ms(lambda: torch.topk(xv, kk, dim=1), 20)
+            del xv
+        elif k == "predicate_bitset":
+            nbytes = rows_n * 4 + rows_n // 8
+            ops_ = rows_n
+            lib = None
+        else:
+            m, group = kw["m"], kw["group"]
+            nbytes = rows_n * 4 + rows_n * m // 8 + rows_n // group * 4
+            ops_ = 2 * rows_n
+            lib = None
+        b_ms, b_by = bound(nbytes, ops_)
+        return {"ms": cuda_ms(lambda: cuda_fn[k](*a, **kw), 20),
+                "plain_ms": cuda_ms(lambda: plain[k](a, kw), 3),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+                "bytes": nbytes, "shape": f"{tuple(x.shape)} "
+                f"{ {n: v for n, v in kw.items() if n != 'mask'} }"
+                + (" masked" if kw.get("mask") is not None else "")}
+
+    main_input = {"block_topk": recorded[("q15", "block_topk")],
+                  "predicate_bitset": recorded[("q21", "predicate_bitset")],
+                  "mbit_encode": recorded[("q15_approx", "mbit_encode")]}
+    tpu = {"block_topk": ("src/repro/kernels/topk_select.py:40",
+                          "src/repro/kernels/topk_select.py:block_topk"),
+           "predicate_bitset": (
+               "src/repro/kernels/bitset_pack.py:28",
+               "src/repro/kernels/bitset_pack.py:predicate_bitset"),
+           "mbit_encode": ("src/repro/kernels/mbit_codec.py:51",
+                           "src/repro/kernels/mbit_codec.py:encode")}
+    src = {"block_topk": "topk_select", "predicate_bitset": "bitset_pack",
+           "mbit_encode": "mbit_codec"}
+    kernels = []
+    for k in HAND_KERNELS:
+        main = kernel_case(k, *main_input[k])
+        at_stress = {lbl: kernel_case(k, *stress[lbl])
+                     for lbl in stress if lbl.removesuffix("_masked") == k}
+        for what, t in [("main-path", main), *at_stress.items()]:
+            lib = ("" if t["library_ms"] is None
+                   else f", torch.topk {t['library_ms']:.4f} ms")
+            print(f"{k} at the {what} input {t['shape']}: {t['ms']:.4f} ms, "
+                  f"plain {t['plain_ms']:.3f} ms{lib}, bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {t['bytes']} B)")
+        kernels.append({
+            "name": k, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src[k]}.cu",
+            "replaces": tpu[k][0], "tpu_function": tpu[k][1],
+            "launches": main_launches[k], "max_abs_err": 0.0,
+            **{f: main[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")},
+            "shape": main["shape"], "stress": at_stress})
+    del stress, price, row_keys, flag, q_li
+    recorded.clear()
+    torch.cuda.empty_cache()
+    return kernels, {"plans_ms": plan_ms, "oracle_s": oracle_s}
 
 
 # ---------------------------------------------------------------------------

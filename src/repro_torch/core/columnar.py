@@ -161,11 +161,34 @@ def pack_column(chunks: Sequence[np.ndarray], spec: dict) -> PackedColumn:
         values=values, dtype=spec["dtype"], num_nodes=len(chunks))
 
 
-def decode_columns(columns: Mapping) -> dict:
+class _Decoded(Mapping):
+    """A table's columns with each PackedColumn decoded at its first read
+    and kept: a plan decodes only the columns it touches, as XLA drops the
+    decodes a compiled JAX plan never reads."""
+
+    def __init__(self, columns: Mapping):
+        self._columns = columns
+        self._decoded = {}
+
+    def __getitem__(self, name):
+        if name not in self._decoded:
+            c = self._columns[name]
+            self._decoded[name] = (c.decode() if isinstance(c, PackedColumn)
+                                   else c)
+        return self._decoded[name]
+
+    def __iter__(self):
+        return iter(self._columns)
+
+    def __len__(self):
+        return len(self._columns)
+
+
+def decode_columns(columns: Mapping) -> Mapping:
     """Decode any PackedColumn entries to dense tensors (raw columns pass
-    through) — the entry shim for plans that consume raw columns."""
-    return {n: (c.decode() if isinstance(c, PackedColumn) else c)
-            for n, c in columns.items()}
+    through) — the entry shim for plans that consume raw columns.  Each
+    column is decoded when the plan first reads it."""
+    return _Decoded(columns)
 
 
 @dataclasses.dataclass

@@ -52,12 +52,23 @@ class PlanContext:
     scale_factor: float = 1.0
     backend: str = "xla"      # all-to-all backend: "xla" | "one_factor"
     wire: str = "packed"      # exchange wire format: "packed" | "raw"
+    # hand-plan exchange name -> exchange.WireFormat (tpch.capacities)
+    wires: Mapping[str, object] = dataclasses.field(default_factory=dict)
 
     def part(self, table: str) -> RangePartitioning:
         return self.parts[table]
 
     def cap(self, name: str, default: int = 4096) -> int:
         return int(self.capacities.get(name, default))
+
+    def wire_fmt(self, name: str):
+        """Wire format of the named hand-plan exchange; raw when the
+        context disables packing or no format was derived for it."""
+        from repro_torch.core.exchange import WireFormat  # imports engine
+
+        if self.wire != "packed":
+            return WireFormat.raw()
+        return self.wires.get(name, WireFormat.raw())
 
 
 class Cluster:
@@ -93,7 +104,7 @@ class Cluster:
 
     def context(self, tables: Mapping[str, Table], capacities=None, *,
                 backend: str = "xla", scale_factor: float = 1.0,
-                wire: str = "packed") -> PlanContext:
+                wire: str = "packed", wires=None) -> PlanContext:
         parts = {
             name: RangePartitioning(t.num_rows,
                                     1 if t.replicated else self.num_nodes)
@@ -102,7 +113,8 @@ class Cluster:
         return PlanContext(num_nodes=self.num_nodes, parts=parts,
                            capacities=dict(capacities or {}),
                            device=self.device, scale_factor=scale_factor,
-                           backend=backend, wire=wire)
+                           backend=backend, wire=wire,
+                           wires=dict(wires or {}))
 
     # -- compilation -------------------------------------------------------
     def compile(self, plan: Callable, ctx: PlanContext) -> Callable:
@@ -112,8 +124,9 @@ class Cluster:
 
         Compressed residency: tables may hold PackedColumn entries.  A plan
         that declares ``handles_packed`` (the IR lowering) receives them
-        as-is and scans the packed words directly; every other plan gets a
-        full decode at plan entry."""
+        as-is and scans the packed words directly; every other plan gets
+        its columns decoded at plan entry, each when the plan first reads
+        it (``columnar.decode_columns``)."""
         if getattr(plan, "handles_packed", False):
             def entry(columns):
                 return columns

@@ -22,7 +22,8 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("scan_filter", "grouped_agg", "wire_codec", "flash_attention",
-           "flash_attention_bwd", "decode_attention")
+           "flash_attention_bwd", "decode_attention", "topk_select",
+           "bitset_pack", "mbit_codec")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -16,6 +16,7 @@ import os
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.bitset_pack import predicate_bitset_cuda
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import (
     flash_attention_fwd_cuda,
@@ -24,7 +25,9 @@ from repro_torch.kernels.flash_attention import (
 )
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
 from repro_torch.kernels.grouped_agg import filtered_group_sum_cuda
+from repro_torch.kernels.mbit_codec import mbit_encode_cuda
 from repro_torch.kernels.scan_filter import scan_filter_cuda
+from repro_torch.kernels.topk_select import block_topk_cuda
 from repro_torch.kernels.wire_codec import (
     ef_decode_cuda,
     ef_encode_cuda,
@@ -43,7 +46,10 @@ _WRAPPERS = {"scan_filter": scan_filter_cuda,
              "mask_unfold": mask_unfold_cuda,
              "flash_attention_fwd": flash_attention_fwd_cuda,
              "flash_attention_bwd": flash_attention_bwd_cuda,
-             "decode_attention": decode_attention_cuda}
+             "decode_attention": decode_attention_cuda,
+             "block_topk": block_topk_cuda,
+             "predicate_bitset": predicate_bitset_cuda,
+             "mbit_encode": mbit_encode_cuda}
 
 
 def use_kernels(enable: bool) -> None:
@@ -118,6 +124,38 @@ def mask_unfold(words, *, n):
     if _kernel_path(words):
         return mask_unfold_cuda(words, n)
     return ref.mask_unfold(words, n)
+
+
+def block_topk(values, keys, *, k, mask=None, block=4096):
+    """Per-block top-k of each row: (..., N) f32 values, int32 keys and an
+    optional bool mask -> ((..., ceil(N / block), k) f32, int32 keys);
+    ties to the lowest index, masked rows and pads -inf (pads with key
+    INT32_MAX)."""
+    if _kernel_path(values):
+        return block_topk_cuda(values, keys, k=k, mask=mask, block=block)
+    return ref.block_topk(values, keys, k, mask, block)
+
+
+def predicate_bitset(column, *, value):
+    """Packed bitset of ``column == value``: (..., N) int32 -> (...,
+    ceil(N / 32)) int32 words, each row from bit 0."""
+    if _kernel_path(column):
+        return predicate_bitset_cuda(column, value=value)
+    return ref.predicate_bitset(column, value)
+
+
+def mbit_encode(q, *, m, group):
+    """The §3.2.5 m-bit encoder per row: (..., K) int32 -> (words (...,
+    ceil(K m / 32)) int32, shifts (..., K / group) int32)."""
+    if _kernel_path(q):
+        return mbit_encode_cuda(q, m=m, group=group)
+    return ref.mbit_encode(q, m, group)
+
+
+def mbit_decode_bounds(words, shifts, *, m, group):
+    """Lower and upper bounds (..., G * group) int64 of :func:`mbit_encode`
+    words: plain PyTorch on every device, as in the JAX package."""
+    return ref.mbit_decode_bounds(words, shifts, m, group)
 
 
 def flash_attention_fwd(qg, kg, vg, *, causal=True, window=None, prefix=0):

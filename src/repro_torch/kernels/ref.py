@@ -112,6 +112,101 @@ def ef_decode(words, base, capacity, domain):
 
 
 # ---------------------------------------------------------------------------
+# block top-k (§3.2.3 step 1), predicate bitset (§3.2.2 Alt-2 build side),
+# m-bit partial-sum codec (§3.2.5).  Leading dimensions are rows: each row
+# is padded and packed on its own, from element 0.
+# ---------------------------------------------------------------------------
+
+I32_MAX = 2 ** 31 - 1
+
+
+def block_topk(values, keys, k, mask=None, block: int = 4096):
+    """Per-block top-k by k masked-argmax sweeps: (..., N) f32 values and
+    int32 keys -> ((..., ceil(N / block), k) f32, int32 keys).  Masked rows
+    and pads are -inf, pads carry key INT32_MAX; a sweep takes the first
+    (lowest-index) maximum and sets it to -inf, so a block that runs out
+    of finite rows repeats the key of its row 0."""
+    v = values.to(torch.float32)
+    if mask is not None:
+        v = torch.where(mask, v, float("-inf"))
+    pad = (-v.shape[-1]) % block
+    v = torch.nn.functional.pad(v, (0, pad), value=float("-inf"))
+    kp = torch.nn.functional.pad(keys.to(torch.int32), (0, pad),
+                                 value=I32_MAX)
+    vb = v.reshape(v.shape[:-1] + (-1, block)).clone()
+    kb = kp.reshape(vb.shape)
+    out_v, out_k = [], []
+    for _ in range(k):
+        m, am = vb.max(dim=-1, keepdim=True)   # first occurrence
+        out_v.append(m[..., 0])
+        out_k.append(torch.gather(kb, -1, am)[..., 0])
+        vb.scatter_(-1, am, float("-inf"))
+    return torch.stack(out_v, dim=-1), torch.stack(out_k, dim=-1)
+
+
+def predicate_bitset(column, value):
+    """Packed bitset of ``column == value``: (..., N) -> (...,
+    ceil(N / 32)) int32 words, LSB first, pad bits 0."""
+    bits = column == value
+    pad = (-bits.shape[-1]) % 32
+    if pad:
+        bits = torch.nn.functional.pad(bits, (0, pad))
+    return compression.pack_bitset(bits)
+
+
+def _bit_length(x):
+    """Significant bits of non-negative int64 values (0 for 0), by the
+    kernels' log2-free ladder."""
+    bits = torch.zeros_like(x)
+    for shift in (16, 8, 4, 2, 1):
+        above = x >= (1 << shift)
+        bits = torch.where(above, bits + shift, bits)
+        x = torch.where(above, x >> shift, x)
+    return bits + (x > 0).to(x.dtype)
+
+
+def mbit_codes(q, m, group):
+    """The §3.2.5 codes before packing: per ``group`` consecutive values of
+    a row, ``shift = max(0, bits(max) - m)`` and ``code = q >> shift``.
+    q: (..., K) non-negative int32 (uint32 values < 2**31), K % group == 0.
+    Returns codes (..., K) int32 < 2**m and shifts (..., K / group)
+    int32."""
+    K = q.shape[-1]
+    if K % group:
+        raise ValueError(f"group {group} does not divide {K}")
+    g = compression.as_u32(q).reshape(q.shape[:-1] + (K // group, group))
+    shift = (_bit_length(g.amax(dim=-1)) - m).clamp(min=0)
+    codes = (g >> shift[..., None]).reshape(q.shape)
+    return codes.to(torch.int32), shift.to(torch.int32)
+
+
+def mbit_encode(q, m, group):
+    """:func:`mbit_codes` packed LSB first at m bits, each row from bit 0:
+    (..., K) -> (words (..., ceil(K m / 32)) int32, shifts (..., K /
+    group) int32).  m must divide 32."""
+    if 32 % m:
+        raise ValueError(f"m={m} must divide 32")
+    codes, shifts = mbit_codes(q, m, group)
+    return compression.pack_bits(codes, m), shifts
+
+
+def code_bounds(codes, shifts, group):
+    """Lower and upper bounds of the values behind codes (..., K) under
+    their group shifts (..., K / group): ``code << s`` and ``+ 2**s - 1``,
+    int64 holding the uint32 values."""
+    s = torch.repeat_interleave(shifts.to(torch.int64), group, dim=-1)
+    lower = compression.as_u32(codes) << s
+    return lower, lower + (1 << s) - 1
+
+
+def mbit_decode_bounds(words, shifts, m, group):
+    """Inverse of :func:`mbit_encode` to bounds: (..., W) words and (...,
+    G) shifts -> (lower, upper) (..., G * group) int64."""
+    codes = compression.unpack_bits(words, shifts.shape[-1] * group, m)
+    return code_bounds(codes, shifts, group)
+
+
+# ---------------------------------------------------------------------------
 # attention (B7 flash forward, B8 its backward, B9 decode): full
 # materialisation with the kernels' guards.  Float32 arithmetic; f32
 # products must not run in TF32 (torch.backends.cuda.matmul.allow_tf32

@@ -1,37 +1,37 @@
 """TPC-H driver: generate, place, lower and run queries on the node-stacked
 cluster.
 
-Counterpart of the constructor, ``run_ir``, ``query`` and ``oracle`` of
-``repro.tpch.driver.TPCHDriver``.  The constructor generates the tables
-(packed by default), builds the catalog with each packed column's
-encoding, and places the tables on the device once; ``run_ir`` lowers a
-registered IR query and runs it over the packed residents.  The exchange
-settings (``capacities`` overrides, the all-to-all ``backend``, the
-``wire`` format) are threaded into the plan context.
+Counterpart of the constructor, ``compile``, ``run``, ``run_ir``,
+``query`` and ``oracle`` of ``repro.tpch.driver.TPCHDriver``.  The
+constructor generates the tables (packed by default), builds the catalog
+with each packed column's encoding, derives the hand plans' exchange
+capacities and wire formats (``tpch.capacities``), and places the tables
+on the device once.  ``run(name)`` runs a registered query
+(``core.plans.REGISTRY``): its hand-written plan where it has one, else
+its lowered IR; ``run_ir`` always lowers.  The exchange settings
+(``capacities`` overrides, the all-to-all ``backend``, the ``wire``
+format) are threaded into the plan context.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
+from repro_torch.core import plans
 from repro_torch.core.columnar import PackedColumn, Table
 from repro_torch.core.engine import Cluster
 from repro_torch.query.ir import (
     LoweringError,
     PackedInfo,
     Query,
-    UnknownPlanError,
     build_catalog,
 )
 from repro_torch.query.lower import lower
+from repro_torch.tpch import capacities as tpch_capacities
 from repro_torch.tpch import dbgen, reference
-from repro_torch.tpch.queries import IR_QUERIES
 
-# registry name -> oracle name (q1_kernel answers q1, as the JAX
-# registry's explicit oracle binding says)
-ORACLES = {"q1": "q1", "q1_kernel": "q1", "q4": "q4", "q6": "q6",
-           "q18": "q18"}
 # name prefix -> (oracle, component): the exchange queries and their
 # forced variants; q14_promo answers the promo revenue, component 1 of q14
 ORACLE_PREFIXES = {"q14_promo": ("q14", 1), "q4_sj_": ("q4", None),
@@ -40,20 +40,35 @@ ORACLE_PREFIXES = {"q14_promo": ("q14", 1), "q4_sj_": ("q4", None),
 
 def oracle_binding(name: str) -> tuple:
     """(oracle, component or None) that answers the registered or forced
-    query ``name``."""
-    if name in ORACLES:
-        return ORACLES[name], None
+    query ``name``: the registry's explicit binding first."""
+    entry = plans.REGISTRY.get(name)
+    if entry is not None and entry.oracle is not None:
+        return entry.oracle, None
     for prefix, binding in ORACLE_PREFIXES.items():
         if name.startswith(prefix):
             return binding
     raise LoweringError(f"{name!r} has no oracle binding")
 
 
+def _split_overflow(out):
+    """Surface a plan's exchange-overflow flag instead of leaving it buried
+    in the raw result: hand plans return either a dict with an
+    ``overflow`` entry or a ``(value, overflow)`` pair."""
+    if isinstance(out, dict):
+        return out, bool(out.pop("overflow", False))
+    if (isinstance(out, tuple) and len(out) == 2
+            and isinstance(out[1], torch.Tensor) and out[1].ndim == 0
+            and out[1].dtype == torch.bool):
+        return out[0], bool(out[1])
+    return out, False
+
+
 @dataclasses.dataclass
 class QueryAnswer:
     """Result of :meth:`TPCHDriver.query`: the value, the query that
-    produced it (every answer here comes from a lowered plan), and whether
-    an exchange buffer overflowed (the answer is then incomplete)."""
+    produced it (a lowered plan, or a hand plan for a registered name
+    without IR), and whether an exchange buffer overflowed (the answer is
+    then incomplete)."""
 
     value: object
     source: str
@@ -103,10 +118,15 @@ class TPCHDriver:
                                   for t in self.resident.values())
         self.placed = {n: self.cluster.load(t)
                        for n, t in self.resident.items()}
-        self.ctx = self.cluster.context(self.placed, capacities,
-                                        backend=backend, scale_factor=sf,
-                                        wire=wire)
-        self._compiled = {}   # registry name -> bound plan
+        # §3.2.2-derived capacities for the hand plans; overrides win
+        self.capacities = tpch_capacities.derive(sf, num_nodes)
+        self.capacities.update(capacities or {})
+        self.ctx = self.cluster.context(
+            self.placed, self.capacities, backend=backend, scale_factor=sf,
+            wire=wire,
+            wires=tpch_capacities.wire_formats(self.tables, num_nodes))
+        self._compiled = {}   # registry name -> bound plan (hand or IR)
+        self._lowered = {}    # registry name -> bound lowered IR plan
 
     @staticmethod
     def _host_column(col) -> np.ndarray:
@@ -137,17 +157,37 @@ class TPCHDriver:
 
     @staticmethod
     def _registered(name: str) -> Query:
-        if name not in IR_QUERIES:
-            raise UnknownPlanError(
-                f"unknown query {name!r}; the port lowers "
-                f"{sorted(IR_QUERIES)}")
-        return IR_QUERIES[name]
+        entry = plans.get(name)
+        if entry.ir is None:
+            raise LoweringError(
+                f"{name!r} has no IR definition — only the hand-written "
+                f"plan; run it with run({name!r})")
+        return entry.ir
+
+    # -- physical layer (hand plans / lowered IR by registry name) ---------
+    def compile(self, name: str):
+        """Bound plan of a registered query: its hand-written plan when it
+        has one, else its lowered IR (cached)."""
+        if name not in self._compiled:
+            entry = plans.get(name)
+            if entry.plan is not None:
+                self._compiled[name] = self.cluster.compile(entry.plan,
+                                                            self.ctx)
+            else:
+                self._compiled[name] = self.compile_ir(name)
+        return self._compiled[name]
+
+    def run(self, name: str):
+        """Run a registered query through :meth:`compile`: the plan's raw
+        result (a dict, a tensor, a TopK, or a (value, overflow) pair)."""
+        return self.compile(name)(self.columns())
 
     def compile_ir(self, name: str):
-        """Bound lowered plan of a registered IR query (cached)."""
-        if name not in self._compiled:
-            self._compiled[name] = self.compile_query(self._registered(name))
-        return self._compiled[name]
+        """Bound LOWERED plan of a registered query's IR (cached), even
+        when a hand plan exists."""
+        if name not in self._lowered:
+            self._lowered[name] = self.compile_query(self._registered(name))
+        return self._lowered[name]
 
     def run_ir(self, name: str) -> dict:
         """Run a registered IR query: the plan's dict of device tensors
@@ -160,8 +200,17 @@ class TPCHDriver:
         """Run an IR ``Query`` with literal predicates (or a registered
         name) through the lowering, under ``wire`` and ``backend``
         (default: the driver's).  The answer's value is the plan's
-        ``value`` (a ``GroupAgg`` root) or its dict of top-k fields."""
+        ``value`` (a ``GroupAgg`` root) or its dict of top-k fields.  A
+        registered name without IR runs its hand plan, whose overflow flag
+        is split off the result."""
         source = q if isinstance(q, str) else q.name or "<lowered-ir>"
+        if isinstance(q, str) and plans.get(q).ir is None:
+            if (wire, backend) != (None, None):
+                raise LoweringError(
+                    f"{q!r} is a hand-written plan: its wire and backend "
+                    f"are the driver's")
+            value, overflow = _split_overflow(self.run(q))
+            return QueryAnswer(value, source=source, overflow=overflow)
         if isinstance(q, str) and wire is None and backend is None:
             fn = self.compile_ir(q)
         else:

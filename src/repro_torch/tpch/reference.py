@@ -1,7 +1,7 @@
 """Pure-numpy oracles for the TPC-H queries this port answers.
 
-A copy of the q1, q4, q6, q14 and q18 oracles of ``repro.tpch.reference``
-and of the q18_sj oracle of ``benchmarks/exchange_compression.py``.  They
+A copy of the q1, q4, q6, q14, q15, q18 and q21 oracles of
+``repro.tpch.reference`` and of the q18_sj oracle of ``benchmarks/exchange_compression.py``.  They
 operate on the GLOBAL (unpartitioned) host tables in float64 — the
 correctness baseline every plan must match ("we check the query results
 for correctness", paper §4.1).  Rankings use (value desc, key asc) like
@@ -84,6 +84,51 @@ def q14(t, p=DP):
     return np.array([100.0 * promo_rev / total, promo_rev, total])
 
 
+def q15(t, p=DP, k=1):
+    li = t["lineitem"].columns
+    sup = t["supplier"].columns
+    sel = ((li["l_shipdate"] >= p.q15_date_min)
+           & (li["l_shipdate"] < p.q15_date_max))
+    rev = (li["l_extendedprice"][sel]
+           * (1 - li["l_discount"][sel])).astype(np.float64)
+    total = np.bincount(li["l_suppkey"][sel], weights=rev,
+                        minlength=sup["s_suppkey"].shape[0])
+    return _topk(total, np.arange(total.shape[0]), k)
+
+
+def q21(t, p=DP, k=100):
+    """Composite (order, supplier) keys in int64: no wrap at any scale."""
+    li = t["lineitem"].columns
+    orders = t["orders"].columns
+    sup = t["supplier"].columns
+    num_sup = sup["s_suppkey"].shape[0]
+    delayed = li["l_receiptdate"] > li["l_commitdate"]
+    lo = li["l_orderkey"].astype(np.int64)
+    norders = orders["o_orderkey"].shape[0]
+    cnt_lines = np.bincount(lo, minlength=norders)
+    cnt_delayed = np.bincount(lo[delayed], minlength=norders)
+    comp = lo * num_sup + li["l_suppkey"]
+    uniq, inv, counts = np.unique(comp, return_inverse=True,
+                                  return_counts=True)
+    same_lines = counts[inv]
+    uniq_d, counts_d = np.unique(comp[delayed], return_counts=True)
+    same_delayed_u = np.zeros(len(uniq), np.int64)
+    same_delayed_u[np.searchsorted(uniq, uniq_d)] = counts_d
+    same_delayed = same_delayed_u[inv]
+    status_f = orders["o_orderstatus"][lo] == 0
+    nation_ok = (sup["s_nationkey"] == p.q21_nation)[li["l_suppkey"]]
+    qualify = (
+        delayed
+        & status_f
+        & nation_ok
+        & (cnt_lines[lo] - same_lines > 0)
+        & (cnt_delayed[lo] - same_delayed == 0)
+    )
+    numwait = np.bincount(li["l_suppkey"][qualify], minlength=num_sup)
+    sel = numwait > 0
+    return _topk(numwait[sel].astype(np.float64), np.nonzero(sel)[0], k)
+
+
 def _order_quantity(orders, li):
     """Total quantity per order, float64 (``np.bincount`` adds in input
     order, as ``np.add.at`` does, and is much faster at SF 10)."""
@@ -112,5 +157,5 @@ def q18_sj(t, qty: float = 250.0, segment: int = DP.q3_segment):
     return np.array([sq[sel].sum(), sel.sum()])
 
 
-ALL = {"q1": q1, "q4": q4, "q6": q6, "q14": q14, "q18": q18,
-       "q18_sj": q18_sj}
+ALL = {"q1": q1, "q4": q4, "q6": q6, "q14": q14, "q15": q15, "q18": q18,
+       "q18_sj": q18_sj, "q21": q21}

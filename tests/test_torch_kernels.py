@@ -114,7 +114,8 @@ def test_cuda_wrappers_reject_cpu_tensors():
         k: 0 for k in ("scan_filter", "filtered_group_sum", "ef_encode",
                        "ef_decode", "mask_fold", "mask_unfold",
                        "flash_attention_fwd", "flash_attention_bwd",
-                       "decode_attention")}
+                       "decode_attention", "block_topk", "predicate_bitset",
+                       "mbit_encode")}
 
 
 def test_use_kernels_false_keeps_the_plain_version():
