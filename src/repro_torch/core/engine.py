@@ -142,10 +142,12 @@ class Cluster:
 
     def run(self, plan: Callable, tables: Mapping[str, Table],
             capacities=None, *, backend: str = "xla",
-            scale_factor: float = 1.0, wire: str = "packed"):
-        """Convenience: place, compile, execute."""
+            scale_factor: float = 1.0, wire: str = "packed", wires=None):
+        """Convenience: place, compile, execute.  ``wires`` maps a hand
+        plan's named exchanges to their wire formats
+        (``tpch.capacities.wire_formats``); without it they ship raw."""
         placed = {name: self.load(t) for name, t in tables.items()}
         ctx = self.context(placed, capacities, backend=backend,
-                           scale_factor=scale_factor, wire=wire)
+                           scale_factor=scale_factor, wire=wire, wires=wires)
         fn = self.compile(plan, ctx)
         return fn({name: t.columns for name, t in placed.items()})

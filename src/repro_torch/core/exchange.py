@@ -6,9 +6,10 @@ all-to-all with both backends, the wire format and ``request_reply``).  The
 P nodes are stacked on the leading axis of every tensor, so a collective is
 a tensor operation over that axis:
 
-- ``engine.psum`` and ``allreduce_max/min`` reduce over axis 0 (the
-  latter two, ``broadcast_from`` and ``topk.topk_gather`` have no caller
-  in the port's plans yet); ``allgather`` replicates the
+- ``engine.psum`` and ``allreduce_max/min`` reduce over axis 0
+  (``allreduce_max`` serves ``topk_approx``; ``allreduce_min``,
+  ``broadcast_from`` and ``topk.topk_gather`` have no caller in the
+  port's plans yet); ``allgather`` replicates the
   concatenated per-node operands to every node; ``broadcast_from`` copies
   one node's row to all.
 - ``all_to_all(x)`` takes ``(P_src, P_dst, ...)`` to ``(P_dst, P_src,

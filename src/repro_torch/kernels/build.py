@@ -2,7 +2,10 @@
 
 Each source in ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``; none
-includes PyTorch's headers, so a build takes seconds.  Libraries go to
+includes PyTorch's headers, so a build takes seconds.  The tensor-core
+attention kernels share ``csrc/*.cuh`` and find the driver's
+``cuTensorMapEncodeTiled`` with ``dlopen`` at run time (nothing links
+``-lcuda``).  Libraries go to
 ``build/kernels/`` at the root of the checkout, named by a hash of the
 source and the flags, and are built at first use (or all at once, in
 parallel, by :func:`build_all`).  Nothing is built when a module is
@@ -22,7 +25,8 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("scan_filter", "grouped_agg", "wire_codec", "flash_attention",
-           "flash_attention_bwd", "decode_attention", "topk_select",
+           "flash_attention_bwd", "flash_attention_tc",
+           "flash_attention_bwd_tc", "decode_attention", "topk_select",
            "bitset_pack", "mbit_codec")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -46,9 +50,12 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> tuple:
+    """(source, library path); the library's name hashes the source, the
+    shared headers of ``csrc/`` and the flags."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(
+        NVCC_FLAGS).encode()).hexdigest()[:16]
     return src, BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -20,10 +20,16 @@ from repro_torch.kernels.bitset_pack import predicate_bitset_cuda
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import (
     flash_attention_fwd_cuda,
+    flash_attention_fwd_gpu,
+    flash_attention_fwd_tc_cuda,
     group,
     ungroup,
 )
-from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
+from repro_torch.kernels.flash_attention_bwd import (
+    flash_attention_bwd_cuda,
+    flash_attention_bwd_gpu,
+    flash_attention_bwd_tc_cuda,
+)
 from repro_torch.kernels.grouped_agg import filtered_group_sum_cuda
 from repro_torch.kernels.mbit_codec import mbit_encode_cuda
 from repro_torch.kernels.scan_filter import scan_filter_cuda
@@ -45,7 +51,9 @@ _WRAPPERS = {"scan_filter": scan_filter_cuda,
              "mask_fold": mask_fold_cuda,
              "mask_unfold": mask_unfold_cuda,
              "flash_attention_fwd": flash_attention_fwd_cuda,
+             "flash_attention_fwd_tc": flash_attention_fwd_tc_cuda,
              "flash_attention_bwd": flash_attention_bwd_cuda,
+             "flash_attention_bwd_tc": flash_attention_bwd_tc_cuda,
              "decode_attention": decode_attention_cuda,
              "block_topk": block_topk_cuda,
              "predicate_bitset": predicate_bitset_cuda,
@@ -163,8 +171,8 @@ def flash_attention_fwd(qg, kg, vg, *, causal=True, window=None, prefix=0):
     (BKV, Sk, D) -> (out (BKV, G, S, D) in q's dtype, lse (BKV, G, S)
     f32)."""
     if _kernel_path(qg):
-        return flash_attention_fwd_cuda(qg, kg, vg, causal=causal,
-                                        window=window, prefix=prefix)
+        return flash_attention_fwd_gpu(qg, kg, vg, causal=causal,
+                                       window=window, prefix=prefix)
     return ref.flash_attention_fwd(qg, kg, vg, causal, window, prefix)
 
 
@@ -174,9 +182,9 @@ def flash_attention_bwd(qg, kg, vg, out, lse, do, *, causal=True,
     (BKV, G, S, D), k and v (BKV, Sk, D), lse (BKV, G, S) f32 -> (dq, dk,
     dv) in the inputs' dtype; dk and dv summed over the G query heads."""
     if _kernel_path(qg):
-        return flash_attention_bwd_cuda(qg, kg, vg, out, lse, do,
-                                        causal=causal, window=window,
-                                        prefix=prefix)
+        return flash_attention_bwd_gpu(qg, kg, vg, out, lse, do,
+                                       causal=causal, window=window,
+                                       prefix=prefix)
     return ref.flash_attention_bwd(qg, kg, vg, out, lse, do, causal, window,
                                    prefix)
 

@@ -214,6 +214,8 @@ def mbit_decode_bounds(words, shifts, m, group):
 # ---------------------------------------------------------------------------
 
 NEG_INF = float(torch.finfo(torch.float32).min)
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 
 
 def _masked_softmax_parts(s):
@@ -246,22 +248,75 @@ def _masked_scores(qg, kg, causal, window, prefix):
     return s
 
 
-def flash_attention_fwd(qg, kg, vg, causal=True, window=None, prefix=0):
+# relative difference that f32 arithmetic summed in another order may put
+# between a kernel's p or ds and the plain version's (measured below
+# 7e-6 on random bf16 inputs); within it of a rounding boundary, either
+# rounding is right
+ROUNDING_EPS = 2.0 ** -16
+
+
+def rounding_slack(x, p_dtype, band=None):
+    """Where ``x`` lies within ``band`` (default ``ROUNDING_EPS |x|``) of a
+    rounding boundary of ``p_dtype``, the distance between the roundings
+    of ``x - band`` and ``x + band``; else 0.  A kernel that rounds the
+    same ``x`` computed in another order may fall anywhere in between."""
+    if band is None:
+        band = ROUNDING_EPS * x.abs()
+    return ((x + band).to(p_dtype).float()
+            - (x - band).to(p_dtype).float())
+
+
+# difference that summing the same f32 terms in another order (the tensor
+# cores' or PyTorch's) may make, in units of roundoff (2^-24) of the sum of
+# the terms' magnitudes; one unit admitted every dq and dk of the
+# qwen2.5-3b training inputs, four leave a margin
+SUM_NOISE_ULPS = 4.0
+
+
+def flash_attention_fwd(qg, kg, vg, causal=True, window=None, prefix=0,
+                        p_dtype=None, slack=False):
     """Grouped GQA attention: q (BKV, G, S, D), k and v (BKV, Sk, D) ->
     (out (BKV, G, S, D) in q's dtype, lse (BKV, G, S) f32), masked as
     :func:`_masked_scores` says.  ``out = acc / max(l, 1e-30)`` (0 on a
-    fully masked row), ``lse = m + log(max(l, 1e-30))``."""
+    fully masked row), ``lse = m + log(max(l, 1e-30))``.
+
+    ``p_dtype`` (bf16 or f16) repeats the tensor-core kernel's rounding:
+    p is taken in base 2 against the integer row max ``M = ceil(max s
+    log2 e)``, ``p = 2^(s log2 e - M)``, and rounded to ``p_dtype`` before
+    ``p v``; l sums the unrounded p and ``lse = M ln 2 + log(max(l,
+    1e-30))``.  With ``slack`` it also returns the bound on what rounding
+    ``p`` on the other side of a boundary moves ``out``
+    (:func:`rounding_slack` through ``|v| / l``)."""
+    if slack and p_dtype is None:
+        raise ValueError("slack needs a p_dtype")
     s = _masked_scores(qg, kg, causal, window, prefix)
-    p, l, m = _masked_softmax_parts(s)
+    if p_dtype is None:
+        p, l, m = _masked_softmax_parts(s)
+        del s
+        out = torch.einsum("bgst,btd->bgsd", p, vg.float())
+        out = out / torch.clamp(l, min=1e-30)[..., None]
+        lse = m + torch.log(torch.clamp(l, min=1e-30))
+        return out.to(qg.dtype), lse
+    m = s.amax(dim=-1, keepdim=True)
+    empty = m <= NEG_INF / 2
+    m = torch.where(empty, 0.0, torch.ceil(m * LOG2E))
+    p = torch.where(s <= NEG_INF / 2, 0.0, torch.exp2(s * LOG2E - m))
     del s
-    out = torch.einsum("bgst,btd->bgsd", p, vg.float())
-    out = out / torch.clamp(l, min=1e-30)[..., None]
-    lse = m + torch.log(torch.clamp(l, min=1e-30))
-    return out.to(qg.dtype), lse
+    l = p.sum(dim=-1)
+    den = torch.clamp(l, min=1e-30)[..., None]
+    out = torch.einsum("bgst,btd->bgsd", p.to(p_dtype).float(),
+                       vg.float()) / den
+    lse = torch.where(empty[..., 0], NEG_INF, m[..., 0] * LN2)
+    lse = lse + torch.log(den[..., 0])
+    if not slack:
+        return out.to(qg.dtype), lse
+    sl = torch.einsum("bgst,btd->bgsd", rounding_slack(p, p_dtype),
+                      vg.float().abs()) / den
+    return out.to(qg.dtype), lse, sl
 
 
 def flash_attention_bwd(qg, kg, vg, out, lse, do, causal=True, window=None,
-                        prefix=0):
+                        prefix=0, p_dtype=None, slack=False):
     """The flash backward written out (not autograd of the forward), the
     TPU kernel's arithmetic in f32: ``delta = rowsum(do . out)``,
     ``p = exp(s - lse)`` with p = 0 where ``s <= NEG_INF / 2`` (a fully
@@ -269,7 +324,19 @@ def flash_attention_bwd(qg, kg, vg, out, lse, do, causal=True, window=None,
     ``dp = do . v``; ``dq = ds k / sqrt(D)``, ``dk = ds^T q / sqrt(D)``
     and ``dv = p^T do``, dk and dv summed over the G query heads of a kv
     row.  q, out, do (BKV, G, S, D), k and v (BKV, Sk, D), lse (BKV, G, S)
-    f32 -> (dq, dk, dv) in the inputs' dtype."""
+    f32 -> (dq, dk, dv) in the inputs' dtype.
+
+    ``p_dtype`` (bf16 or f16) repeats the tensor-core kernel's rounding:
+    p is rounded to ``p_dtype`` before ``p^T do``, and ds (from the
+    unrounded p) before ``ds k`` and ``ds^T q``.  With ``slack`` it also
+    returns, for dq, dk and dv, the bound on what rounding p or ds on the
+    other side of a boundary moves them (:func:`rounding_slack` through
+    ``|k|``, ``|q|`` and ``|do|``).  ds's band adds p times
+    ``SUM_NOISE_ULPS`` units of roundoff of ``|do| . |v| + |do| . |out|``:
+    where dp and delta nearly cancel, another summation order moves ds by
+    far more than ``ROUNDING_EPS`` of itself."""
+    if slack and p_dtype is None:
+        raise ValueError("slack needs a p_dtype")
     scale = 1.0 / math.sqrt(qg.shape[3])
     dof = do.float()
     delta = (dof * out.float()).sum(-1)
@@ -277,12 +344,31 @@ def flash_attention_bwd(qg, kg, vg, out, lse, do, causal=True, window=None,
     p = torch.exp(s - lse[..., None])
     p = torch.where(s <= NEG_INF / 2, 0.0, p)
     del s
-    dv = torch.einsum("bgst,bgsd->btd", p, dof)
+    pr = p if p_dtype is None else p.to(p_dtype).float()
+    dv = torch.einsum("bgst,bgsd->btd", pr, dof)
+    del pr
+    if slack:
+        sl_dv = torch.einsum("bgst,bgsd->btd", rounding_slack(p, p_dtype),
+                             dof.abs())
     ds = torch.einsum("bgsd,btd->bgst", dof, vg.float())
+    if slack:
+        dof_abs = dof.abs()
+        noise = torch.einsum("bgsd,btd->bgst", dof_abs, vg.float().abs())
+        noise += (dof_abs * out.float().abs()).sum(-1)[..., None]
+        band = p * noise.mul_(SUM_NOISE_ULPS * 2.0 ** -24)
+        del noise
     ds = p.mul_(ds.sub_(delta[..., None]))
-    dq = torch.einsum("bgst,btd->bgsd", ds, kg.float()) * scale
-    dk = torch.einsum("bgst,bgsd->btd", ds, qg.float()) * scale
-    return dq.to(qg.dtype), dk.to(kg.dtype), dv.to(vg.dtype)
+    dsr = ds if p_dtype is None else ds.to(p_dtype).float()
+    dq = torch.einsum("bgst,btd->bgsd", dsr, kg.float()) * scale
+    dk = torch.einsum("bgst,bgsd->btd", dsr, qg.float()) * scale
+    grads = (dq.to(qg.dtype), dk.to(kg.dtype), dv.to(vg.dtype))
+    if not slack:
+        return grads
+    del dsr
+    sd = rounding_slack(ds, p_dtype, band.add_(ROUNDING_EPS * ds.abs()))
+    return grads, (torch.einsum("bgst,btd->bgsd", sd, kg.float().abs()) * scale,
+                   torch.einsum("bgst,bgsd->btd", sd, qg.float().abs()) * scale,
+                   sl_dv)
 
 
 def decode_attention(q, k_cache, v_cache, length, k_scale=None,

@@ -165,3 +165,135 @@ def test_decode_plain_ignores_positions_past_length():
     k[:, 23:] = 1e4
     v[:, 23:] = -1e4
     assert torch.equal(ref.decode_attention(q, k, v, 23), a)
+
+
+# -- the tensor-core variant's rounding (p_dtype) and the dispatch ----------
+
+U = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}  # unit roundoff
+
+
+def _online_rounded(q, k, v, p_dtype, block, causal=True, window=None,
+                    prefix=0):
+    """What the tensor-core B7 computes, written as its loop over key
+    tiles: scores summed in float64 (another order than the plain
+    version's f32), the base-2 softmax against the integer running max,
+    earlier tiles rescaled by 2^(m_old - m_new), p rounded to ``p_dtype``
+    before ``p v``."""
+    s = ref._masked_scores(q.double(), k.double(), causal, window,
+                           prefix).float()
+    masked = s <= ref.NEG_INF / 2
+    x = (s * ref.LOG2E).masked_fill(masked, -np.inf)
+    shape = x.shape[:-1]
+    m = torch.full(shape, -np.inf)
+    l = torch.zeros(shape)
+    acc = torch.zeros(*shape, q.shape[-1])
+    for t in range(0, k.shape[1], block):
+        xt = x[..., t:t + block]
+        m_new = torch.maximum(m, torch.ceil(xt.amax(-1)))
+        corr = torch.where(m == -np.inf, 0.0, torch.exp2(m - m_new))
+        m_new0 = torch.where(m_new == -np.inf, 0.0, m_new)
+        p = torch.exp2(xt - m_new0[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bgst,btd->bgsd", p.to(p_dtype).float(), v[:, t:t + block].float())
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+
+@pytest.mark.parametrize("p_dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("mask", list(MASKS))
+def test_flash_plain_rounded_p_within_its_bound_of_pallas(mask, p_dtype):
+    """p_dtype rounds p before p.v: each p moves by at most the unit
+    roundoff u of its type, so out moves by at most u (p . |v|) / l from
+    the Pallas kernel's f32 (plus the f32 tolerance); lse is unchanged."""
+    q, k, v = _grouped(4, 2, 64, 64, 16, seed=11)
+    kw = MASKS[mask]
+    want_o, want_l = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               bq=16, bk=16, interpret=True, **kw)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    got_o, got_l = ref.flash_attention_fwd(tq, tk, tv, p_dtype=p_dtype, **kw)
+    mask_args = (kw["causal"], kw.get("window"), kw.get("prefix", 0))
+    p, l, _ = ref._masked_softmax_parts(ref._masked_scores(tq, tk,
+                                                           *mask_args))
+    bound = U[p_dtype] * torch.einsum("bgst,btd->bgsd", p, tv.abs())
+    bound = bound / torch.clamp(l, min=1e-30)[..., None]
+    err = np.abs(_np(got_o) - np.asarray(want_o))
+    assert (err <= bound.numpy() + 2e-5 * (1 + np.abs(want_o))).all()
+    assert err.max() > 0
+    np.testing.assert_allclose(_np(got_l), np.asarray(want_l), **F32_TOL)
+
+
+def test_flash_plain_p_dtype_none_is_the_f32_arithmetic():
+    q, k, v = (torch.from_numpy(a) for a in _grouped(2, 4, 40, 40, 16, 4))
+    for kw in MASKS.values():
+        a = ref.flash_attention_fwd(q, k, v, **kw)
+        b = ref.flash_attention_fwd(q, k, v, p_dtype=None, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    with pytest.raises(ValueError, match="slack needs a p_dtype"):
+        ref.flash_attention_fwd(q, k, v, slack=True)
+
+
+@pytest.mark.parametrize("p_dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("S,Sk,block,kw", [
+    (96, 96, 16, dict(causal=True)),
+    (80, 130, 64, dict(causal=False)),
+    (129, 77, 64, dict(causal=True, prefix=40)),
+    (37, 37, 16, dict(causal=True, window=9)),
+])
+def test_flash_rounded_p_does_not_depend_on_the_tiling(S, Sk, block, kw,
+                                                       p_dtype):
+    """The tensor-core kernel's loop over key tiles, its scores summed in
+    another order, lies within the kernel checks' bf16 tolerance (2^-8
+    |want| + 1e-5) of the plain version with the same p_dtype, once p's
+    that lie within ROUNDING_EPS of a rounding boundary may round either
+    way (the slack): the integer running max makes the rounding the same
+    whatever the tiling."""
+    q, k, v = (torch.from_numpy(a).to(p_dtype).float()
+               for a in _grouped(4, 4, S, Sk, 64, seed=S + block))
+    got = _online_rounded(q, k, v, p_dtype, block, **kw).to(p_dtype).float()
+    want, _, slack = ref.flash_attention_fwd(q, k, v, p_dtype=p_dtype,
+                                             slack=True, **kw)
+    lim = 2.0 ** -8 * want.abs() + 1e-5 + slack
+    assert ((got - want).abs() <= lim).all()
+    assert float(slack.max()) < 0.1 * float(want.abs().max())
+
+
+def test_dispatch_takes_the_tensor_cores_exactly_for_bf16_f16_and_d64_128_256():
+    from repro_torch.kernels import flash_attention as fa
+
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for d in (8, 16, 32, 64, 96, 128, 192, 256):
+            want = dtype != torch.float32 and d in (64, 128, 256)
+            assert fa.uses_tensor_cores(dtype, d) is want, (dtype, d)
+
+
+@pytest.mark.parametrize("dtype,d,variant", [
+    (torch.bfloat16, 128, "tc"), (torch.float16, 64, "tc"),
+    (torch.bfloat16, 256, "tc"), (torch.float32, 128, "f32"),
+    (torch.bfloat16, 16, "f32"), (torch.float16, 96, "f32")])
+def test_fwd_gpu_dispatch_calls_one_variant(monkeypatch, dtype, d, variant):
+    """``flash_attention_fwd_gpu`` hands the inputs to the variant that
+    ``uses_tensor_cores`` names, and to no other."""
+    from repro_torch.kernels import flash_attention as fa
+
+    calls = []
+    monkeypatch.setattr(fa, "flash_attention_fwd_tc_cuda",
+                        lambda *a, **kw: calls.append("tc"))
+    monkeypatch.setattr(fa, "flash_attention_fwd_cuda",
+                        lambda *a, **kw: calls.append("f32"))
+    q = torch.zeros((2, 2, 8, d), dtype=dtype)
+    k = torch.zeros((2, 8, d), dtype=dtype)
+    fa.flash_attention_fwd_gpu(q, k, k, causal=True)
+    assert calls == [variant]
+
+
+def test_cuda_wrappers_refuse_cpu_tensors_and_other_inputs():
+    from repro_torch.kernels import flash_attention as fa
+
+    q = torch.zeros((2, 2, 8, 64), dtype=torch.bfloat16)
+    k = torch.zeros((2, 8, 64), dtype=torch.bfloat16)
+    for fn in (fa.flash_attention_fwd_cuda, fa.flash_attention_fwd_tc_cuda):
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            fn(q, k, k)
+    assert fa.flash_attention_fwd_tc_cuda.launches == 0
+    assert fa.flash_attention_fwd_cuda.launches == 0

@@ -224,6 +224,40 @@ def test_exchange_settings_do_not_change_the_answer(port_driver, name,
         np.testing.assert_array_equal(g, w)
 
 
+def _run_bytes(fn):
+    from repro_torch.core import exchange
+
+    exchange.reset_wire_bytes()
+    out = _t(fn())
+    return out, exchange.wire_bytes()["all-to-all"]
+
+
+def test_cluster_run_ships_named_exchanges_in_their_wire_format(
+        port_driver):
+    """``Cluster.run(..., wires=...)`` hands a hand plan the wire formats
+    of its named exchanges, as the reference's ``Cluster.run`` does: q21's
+    packed request then ships the bytes and gives the answer of
+    ``TPCHDriver.run``.  Without ``wires`` the exchange falls back to
+    raw, with the same answer and more bytes."""
+    name, d = "q21_late", port_driver
+    plan = plans.PLANS[name]
+    kw = dict(scale_factor=d.sf)
+    want, want_bytes = _run_bytes(lambda: d.run(name))
+    wires = tcap.wire_formats(d.tables, d.cluster.num_nodes)
+    assert wires["q21_request"].kind == "packed"
+    got, got_bytes = _run_bytes(lambda: d.cluster.run(
+        plan, d.resident, d.capacities, wires=wires, **kw))
+    raw, raw_bytes = _run_bytes(lambda: d.cluster.run(
+        plan, d.resident, d.capacities, **kw))
+    for g, r, w in zip(_topk_fields(name, got)[:3],
+                       _topk_fields(name, raw)[:3],
+                       _topk_fields(name, want)[:3]):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(r, w)
+    assert got_bytes == want_bytes > 0
+    assert raw_bytes > want_bytes
+
+
 def test_registry_matches_jax():
     """The same names, oracle bindings and plan/IR presence as the JAX
     registry for every ported query; the rest raise 'not yet ported'."""

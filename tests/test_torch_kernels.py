@@ -81,9 +81,10 @@ def test_group_sum_launch_shape_fits_the_card(num_groups, c):
 
 def test_cuda_wrappers_reject_cpu_tensors():
     from repro_torch.kernels.decode_attention import decode_attention_cuda
-    from repro_torch.kernels.flash_attention import flash_attention_fwd_cuda
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_fwd_cuda, flash_attention_fwd_tc_cuda)
     from repro_torch.kernels.flash_attention_bwd import (
-        flash_attention_bwd_cuda)
+        flash_attention_bwd_cuda, flash_attention_bwd_tc_cuda)
     from repro_torch.kernels.grouped_agg import filtered_group_sum_cuda
     from repro_torch.kernels.scan_filter import scan_filter_cuda
 
@@ -106,6 +107,18 @@ def test_cuda_wrappers_reject_cpu_tensors():
                                  torch.zeros((1, 2, 8, 16)),
                                  torch.zeros((1, 2, 8)),
                                  torch.zeros((1, 2, 8, 16)))
+    bf = dict(dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_fwd_tc_cuda(torch.zeros((1, 2, 8, 64), **bf),
+                                    torch.zeros((1, 8, 64), **bf),
+                                    torch.zeros((1, 8, 64), **bf))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd_tc_cuda(torch.zeros((1, 2, 8, 64), **bf),
+                                    torch.zeros((1, 8, 64), **bf),
+                                    torch.zeros((1, 8, 64), **bf),
+                                    torch.zeros((1, 2, 8, 64), **bf),
+                                    torch.zeros((1, 2, 8)),
+                                    torch.zeros((1, 2, 8, 64), **bf))
     with pytest.raises(ValueError, match="CUDA"):
         decode_attention_cuda(torch.zeros((1, 2, 16)),
                               torch.zeros((1, 8, 16)),
@@ -113,7 +126,8 @@ def test_cuda_wrappers_reject_cpu_tensors():
     assert ops.launch_counts() == {
         k: 0 for k in ("scan_filter", "filtered_group_sum", "ef_encode",
                        "ef_decode", "mask_fold", "mask_unfold",
-                       "flash_attention_fwd", "flash_attention_bwd",
+                       "flash_attention_fwd", "flash_attention_fwd_tc",
+                       "flash_attention_bwd", "flash_attention_bwd_tc",
                        "decode_attention", "block_topk", "predicate_bitset",
                        "mbit_encode")}
 

@@ -9,17 +9,19 @@ Usage (from the root of a checkout, on a machine with an NVIDIA H100):
 largest |logit| against the plain path (its checks (b), (c) and (d)), and
 the int8 cache to rtol ``QUANT_RTOL``, atol ``QUANT_ATOL`` of the bf16
 cache.  This script measures whether those limits can see a faulty kernel.
-It compiles copies of ``csrc/flash_attention.cu`` (B7) and
-``csrc/decode_attention.cu`` (B9), each with one planted fault made by a
-text substitution, into a temporary directory under ``build/kernels/``
-(the sources are not touched), swaps each copy into its wrapper in turn
-and, at chip_smoke.py's shapes and with its weights (seed 0, cast to
-bf16) and random tokens (seed 1):
+It compiles copies of B7's two CUDA variants, ``csrc/flash_attention.cu``
+(f32 CUDA cores) and ``csrc/flash_attention_tc.cu`` (tensor cores, the
+one the bf16 path takes), and of ``csrc/decode_attention.cu`` (B9), each
+with one planted fault made by a text substitution, into a temporary
+directory under ``build/kernels/`` (the sources are not touched), swaps
+each copy into its wrapper in turn and, at chip_smoke.py's shapes and
+with its weights (seed 0, cast to bf16) and random tokens (seed 1):
 
-- B7 and each faulty copy: (b) the 4 x 4,096 prefill's last-position
-  logits against the plain B7; (c) four decode steps on each path's cache,
-  fed the same tokens; (d) a prefill of 4,095 tokens plus one decode step
-  against the full prefill.
+- each B7 variant, sound and with each fault (the f32 CUDA-core variant
+  put on the path in place of the tensor-core one): (b) the 4 x 4,096
+  prefill's last-position logits against the plain B7; (c) four decode
+  steps on each path's cache, fed the same tokens; (d) a prefill of 4,095
+  tokens plus one decode step against the full prefill.
 - B9 and each faulty copy: the int8 cache fed the 512 prompt tokens one a
   step against the bf16 cache fed the same tokens.
 
@@ -62,6 +64,20 @@ FAULTS = {
         "output_zeroed": ("from_f32<T>(acc[i][4 * cc + e] / den)",
                           "from_f32<T>(0.f * acc[i][4 * cc + e])"),
     },
+    "flash_attention_tc": {
+        # causal: the last key tile of each query tile, which holds the
+        # diagonal (every query's up to 64 nearest keys)
+        "diagonal_tile_skipped": (
+            "const int ntiles = (kend + kBN - 1) / kBN;",
+            "const int ntiles = (kend + kBN - 1) / kBN - 1;"),
+        "self_masked": ("mask.sees(pos[h], kp)",
+                        "(mask.sees(pos[h], kp) && kp != pos[h])"),
+        "one_future_key": ("mask.sees(pos[h], kp)",
+                           "(mask.sees(pos[h], kp) || kp == pos[h] + 1)"),
+        "output_zeroed": (
+            "pack2<T>(o[4 * n + 2 * h] / den, o[4 * n + 2 * h + 1] / den)",
+            "pack2<T>(0.f * o[4 * n + 2 * h], 0.f * o[4 * n + 2 * h + 1])"),
+    },
     "decode_attention": {
         "newest_position_dropped": (
             "const int s1 = min(s0 + chunk, length);",
@@ -71,8 +87,14 @@ FAULTS = {
     },
 }
 SYMBOLS = {"flash_attention": "repro_flash_attention_fwd",
+           "flash_attention_tc": "repro_flash_attention_fwd_tc",
            "flash_attention_bwd": "repro_flash_attention_bwd",
+           "flash_attention_bwd_tc": "repro_flash_attention_bwd_tc",
            "decode_attention": "repro_decode_attention"}
+# the f32 CUDA-core variants, put on the bf16 path in place of the
+# tensor-core ones while their faults are read
+F32_VARIANT = {"flash_attention_fwd_gpu": "flash_attention_fwd_cuda",
+               "flash_attention_bwd_gpu": "flash_attention_bwd_cuda"}
 DECODE_STEPS_C = 4
 
 
@@ -86,8 +108,9 @@ def compile_variant(build, name: str, fault: str, tmp: pathlib.Path,
     path = tmp / f"{name}-{fault}.cu"
     path.write_text(src.replace(old, new))
     lib = path.with_suffix(".so")
-    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
-                           str(path)], capture_output=True, text=True)
+    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-I",
+                           str(build.CSRC), "-o", str(lib), str(path)],
+                          capture_output=True, text=True)
     if proc.returncode:
         raise SystemExit(f"nvcc failed for {name}/{fault}:\n{proc.stderr}")
     return lib
@@ -95,20 +118,39 @@ def compile_variant(build, name: str, fault: str, tmp: pathlib.Path,
 
 @contextlib.contextmanager
 def swapped(module, name: str, lib):
-    """Route ``module``'s wrapper to the C entry point of ``lib`` (None:
-    the sound kernel), with the sound entry point's signature."""
+    """Route ``module``'s launches of ``csrc/<name>.cu`` to the C entry
+    point of ``lib`` (None: the sound kernel), with the sound entry
+    point's signature."""
     if lib is None:
         yield
         return
-    sound = module._lib()
+    orig = module._lib
+    sound = orig(name) if name in getattr(module, "_ENTRY", ()) else orig()
     fn = getattr(ctypes.CDLL(str(lib)), SYMBOLS[name])
     fn.argtypes, fn.restype = sound.argtypes, sound.restype
-    orig = module._lib
-    module._lib = lambda: fn
+    module._lib = lambda *source: (
+        fn if not source or source[0] == name else orig(*source))
     try:
         yield
     finally:
         module._lib = orig
+
+
+@contextlib.contextmanager
+def f32_variant(ops, on: bool):
+    """With ``on``, ``ops`` dispatches B7 and B8 to their f32 CUDA-core
+    variants whatever the dtype and head dim."""
+    if not on:
+        yield
+        return
+    saved = {n: getattr(ops, n) for n in F32_VARIANT}
+    for n, f32 in F32_VARIANT.items():
+        setattr(ops, n, getattr(ops, f32))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
 
 
 def main() -> int:
@@ -191,25 +233,35 @@ def run(torch, cs, cfg, build_model, ops, fa, da, libs,
     plain_steps = decode(st)
     ops.use_kernels(True)
     del st
-    readings = {"b7": {}, "b9": {}}
-    for fault in (None, *FAULTS["flash_attention"]):
-        lib = libs.get(("flash_attention", fault))
-        with swapped(fa, "flash_attention", lib):
-            lg, st = prefill(tokens)
-            steps = decode(st)
-            del st
-            _, st = prefill(tokens[:, :-1])
-            ld, _ = model.decode_step(params, st, tokens[:, -1:])
-            del st
-        r = {"b": ratio(lg, plain, cs),
-             "c": max(ratio(a, b, cs) for a, b in zip(steps, plain_steps)),
-             "d": ratio(ld, lg, cs),
-             "b_max_abs": cs._errs(lg, plain)["max"],
-             "argmax_equal_b": bool(torch.equal(lg.argmax(-1),
-                                                plain.argmax(-1)))}
-        readings["b7"][fault or "sound"] = r
-        print(f"B7 {fault or 'sound'}: {r}", flush=True)
-        torch.cuda.empty_cache()
+    readings = {"b7": {}, "b7_tc": {}, "b9": {}}
+    for name, key in (("flash_attention", "b7"),
+                      ("flash_attention_tc", "b7_tc")):
+        for fault in (None, *FAULTS[name]):
+            lib = libs.get((name, fault))
+            with swapped(fa, name, lib), \
+                    f32_variant(ops, name == "flash_attention"):
+                ops.reset_launch_counts()
+                lg, st = prefill(tokens)
+                steps = decode(st)
+                del st
+                _, st = prefill(tokens[:, :-1])
+                ld, _ = model.decode_step(params, st, tokens[:, -1:])
+                del st
+                launched = ops.launch_counts()
+            if not launched[{"b7": "flash_attention_fwd",
+                             "b7_tc": "flash_attention_fwd_tc"}[key]]:
+                raise SystemExit(f"{name}/{fault}: the path did not launch "
+                                 f"this variant: {launched}")
+            r = {"b": ratio(lg, plain, cs),
+                 "c": max(ratio(a, b, cs)
+                          for a, b in zip(steps, plain_steps)),
+                 "d": ratio(ld, lg, cs),
+                 "b_max_abs": cs._errs(lg, plain)["max"],
+                 "argmax_equal_b": bool(torch.equal(lg.argmax(-1),
+                                                    plain.argmax(-1)))}
+            readings[key][fault or "sound"] = r
+            print(f"{key} {fault or 'sound'}: {r}", flush=True)
+            torch.cuda.empty_cache()
 
     # B9: the int8 cache against the bf16 cache fed the same prompt tokens
     n = cs.LM_QUANT_PROMPT
