@@ -50,7 +50,9 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
 6b. The hand plans on the same driver: ``block_topk`` (B4),
    ``predicate_bitset`` (B5) and ``mbit_encode`` (B6) bit-identical to
    their plain versions, each twice: B4 over k in {1, 10, 100, 128},
-   ragged N, masked and exhausted blocks, blocks of 1,000 to 12,288; B5
+   ragged N, masked and exhausted blocks, blocks of 1,000 to 12,288, and
+   on adversarial values (equal blocks, ties straddling the k-th value,
+   mixed -0.0 and +0.0, +-inf, subnormals) with k up to the block; B5
    over ragged N with the value absent, present in every row and random;
    B6 over m in {4, 8, 16}, groups 1 to 1,024 and rows that end in half a
    word.  Then q1, q1_kernel, q6, q4, q18, q15, q15_1factor, q15_approx,
@@ -66,8 +68,10 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
    plain versions on the plans' own inputs and at the lineitem size (8 x
    the lineitem rows per node: B4 at k = 100, unmasked and masked by
    Q15's window; B5; B6 at m = 8).  Times: each plan's warm median, each
-   kernel at its main-path input and at the lineitem size beside its plain
-   version, its bound and (B4) ``torch.topk`` on the (blocks, block) view.
+   kernel at its main-path input and at the lineitem size (device time of
+   a CUDA graph of 20 calls, and an eager loop's time a call beside it)
+   beside its plain version, its bound and (B4) ``torch.topk`` on the
+   (blocks, block) view.
 7. The language model, after the TPC-H phases have
    dropped what they placed on the card:
    a. B7's two CUDA variants.  The f32 CUDA-core ``flash_attention_fwd``
@@ -86,28 +90,44 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
       kernel's p, summed in another order, may round the other way; the
       slack is what that moves the output), lse within 2e-5; its distance
       from the f32 plain version is printed.  ``decode_attention`` (B9)
-      likewise over f32, bf16 and int8 caches, lengths 1, 37, a split
-      boundary and Smax, at (4, 4, 16) x 64, (8, 8, 128) x 4160 and
-      decode_32k's 32,768 positions.  Each twice: identical.
+      likewise over f32, bf16 and int8 caches at (4, 4, 16) x 64,
+      (8, 8, 128) x 4160, (2, 8, 256) x 300, (3, 12, 20) x 200 and
+      decode_32k's 32,768 positions, the length a 0-d int32 on the card at
+      0 (zeros), 1, 37, each boundary of the launch's split (a block of
+      one position, every warp one full tile) and Smax.  Each twice:
+      identical.  Then B9 captured alone in a CUDA graph and replayed at
+      three other lengths, each replay equal to an eager call.
    b. Path (i): qwen2.5-3b at full width (36 layers, d_model 2048, random
       weights from seed 0, cast once to bf16), batch 4: prefill of 4,096
       tokens with ``attn_impl="flash"``, then ``decode_loop`` of 64 greedy
-      tokens through ``make_serve_step(shards=8, k=8)``.  Launches: the
-      tensor-core B7 36 times, the f32 CUDA-core B7 and B9 never.  The same prefill with the plain B7, the plain
-      path's decode steps teacher-forced on the same tokens, and a prefill
-      of 4,095 tokens plus one decode step, each within 0.05 x the largest
-      |logit|; the sharded head equals argmax on every step.
-   c. Path (ii): the int8 cache, 512 prompt tokens fed one a step through
-      the serve step, then 64 greedy tokens: B9 36 x 576 times, B7 never;
-      logits within rtol 0.1, atol 0.15 of the bf16 cache fed the same
-      tokens, the int8 argmax among its top 5 on every row and step.
+      tokens with the sharded head (shards 8, k 8), one captured step
+      replayed as a CUDA graph.  Launches: the tensor-core B7 36 times,
+      the f32 CUDA-core B7 and B9 never.  The same 64 steps run eagerly on
+      a copy of the state, teacher-forced: the same tokens, logits within
+      rtol 2^-8.  The same prefill with the plain B7, the plain path's
+      decode steps teacher-forced on the same tokens, and a prefill of
+      4,095 tokens plus one decode step, each within 0.05 x the largest
+      |logit|; the sharded head equals argmax on every step.  A sampled
+      decode of 8 steps through the graph (its generator registered):
+      every drawn token among its step's top 8.
+   c. Path (ii): the int8 cache, 512 prompt tokens fed one a step
+      (``decode_loop(forced=...)``), then 64 greedy tokens, each loop
+      replayed from one captured graph: B9 36 x 576 times (a replay adds
+      the launches recorded at capture), B7 never; the 64 greedy steps
+      run eagerly on a copy of the state give the same tokens, logits
+      within rtol 2^-8; logits within rtol 0.1, atol 0.15 of the bf16
+      cache fed the same tokens, the int8 argmax among its top 5 on every
+      row and step.
    d. The tensor-core B7 on each of the 36 layers' prefill inputs of path
       (i) within the limit of 7a, and B9 on each layer's input of path
-      (ii)'s last step against its plain version within one bf16 rounding
-      (rtol 2^-8, atol 1e-5).
+      (ii)'s last (eager) step against its plain version within one bf16
+      rounding (rtol 2^-8, atol 1e-5).
    e. Times (CUDA events, medians of warm runs): prefill, time to first
-      token, decode ms a step for both flavours; resident bytes; both B7
-      variants and B9 at their main-path inputs beside their plain
+      token; decode ms a step for both flavours, graph-replayed (the whole
+      loop, and the replays alone) and eager, and the device busy share
+      of a replayed loop (torch.profiler); resident bytes; both B7
+      variants and B9 at their main-path inputs (B9 also at 32,768
+      positions; device time from a graph of calls) beside their plain
       versions, ``scaled_dot_product_attention`` and their bounds.
 8. Training qwen2.5-3b at full width, after the serving phases have
    dropped what they placed on the card:
@@ -200,10 +220,11 @@ def bound(nbytes: float, ops: float, rate: float = F32_OPS_PER_S) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def profile_query(torch, run, name: str, top: int = 6):
+def profile_query(torch, run, name: str, top: int = 6) -> tuple:
     """One warm run of ``run()`` under torch.profiler: device time by
-    kernel, and the device's busy share of the run's wall time (the
-    profiler's own overhead inflates the wall time)."""
+    kernel (kernels replayed from a CUDA graph included), and the device's
+    busy share of the run's wall time (the profiler's own overhead
+    inflates the wall time).  Prints them; returns (busy ms, wall ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -223,6 +244,32 @@ def profile_query(torch, run, name: str, top: int = 6):
           f"wall ({busy / wall_ms:.1%}), {sum(r[1] for r in rows)} kernel "
           f"launches; top: " + "; ".join(
               f"{key[:70]} x{n} {ms:.3f} ms" for ms, n, key in rows[:top]))
+    return busy, wall_ms
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls captured in one CUDA
+    graph and replayed (after a warm-up call): the host's cost of each
+    launch, which eager timing of a short kernel measures instead, is
+    left out."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (3 * iters)
 
 
 def max_abs_diff(a, b) -> int:
@@ -800,6 +847,61 @@ def _quantized(torch, gen, shape):
     return q.to(torch.int32)
 
 
+def _adversarial_values(torch, gen, kind, shape):
+    """B4 inputs that stress the selection: equal blocks, ties straddling
+    the k-th value, mixed -0.0 and +0.0, +-inf, subnormals (random bits
+    under the smallest normal, either sign)."""
+    def pick(choices):
+        c = torch.tensor(choices, device="cuda")
+        return c[torch.randint(0, len(choices), shape, generator=gen,
+                               device="cuda")]
+    if kind == "equal":
+        return torch.full(shape, 3.0, device="cuda")
+    if kind == "ties_at_k":
+        return pick([9.0] + [5.0] * 30 + [1.0] * 8)
+    if kind == "signed_zeros":
+        return pick([0.0, -0.0, -0.0, 0.0, -1.0, 2.0])
+    if kind == "infinities":
+        return pick([float("inf"), float("-inf"), float("-inf"), 1.0, -1.0,
+                     0.0])
+    bits = torch.randint(0, 1 << 23, shape, generator=gen, device="cuda",
+                         dtype=torch.int32)
+    sign = torch.randint(0, 2, shape, generator=gen, device="cuda",
+                         dtype=torch.int32) << 31
+    return (bits | sign).view(torch.float32)
+
+
+def check_topk_adversarial(torch, ops, ref, gen) -> int:
+    """B4 bit-identical to its plain version (and to itself) on the
+    adversarial values of ``_adversarial_values``, masked and not, k from
+    1 to the block (a ragged block of pads), blocks of 33 to 12,288."""
+    n_cases = 0
+    for kind in ("equal", "ties_at_k", "signed_zeros", "infinities",
+                 "subnormals"):
+        for k, rows, n, block, frac in ((1, 2, 9_999, 4096, 0.5),
+                                        (10, 2, 9_999, 4096, 1.0),
+                                        (100, 3, 20_001, 4096, 0.3),
+                                        (33, 2, 77, 33, 0.5),
+                                        (128, 1, 30_000, 12_288, 1.0),
+                                        (12_288, 1, 30_000, 12_288, 0.7)):
+            vals = _adversarial_values(torch, gen, kind, (rows, n))
+            keys = torch.randint(-(2 ** 31), 2 ** 31 - 1, (rows, n),
+                                 generator=gen, device="cuda",
+                                 dtype=torch.int32)
+            mask = (None if frac == 1.0 else
+                    torch.rand((rows, n), generator=gen, device="cuda")
+                    < frac)
+            got = ops.block_topk(vals, keys, k=k, mask=mask, block=block)
+            what = (f"block_topk {kind} k={k} {rows}x{n} block={block} "
+                    f"frac={frac}")
+            hold_exact(torch, got, ops.block_topk(vals, keys, k=k, mask=mask,
+                                                  block=block), what)
+            hold_exact(torch, got, ref.block_topk(vals, keys, k, mask,
+                                                  block), what)
+            n_cases += 1
+    return n_cases
+
+
 def check_hand_kernels(torch, ops, ref, gen):
     """B4-B6 against their plain versions at test shapes, each twice:
     bit-identical."""
@@ -827,6 +929,7 @@ def check_hand_kernels(torch, ops, ref, gen):
             hold_exact(torch, got, ref.block_topk(vals, keys, k, mask,
                                                   block), what)
             n_cases += 1
+    n_cases += check_topk_adversarial(torch, ops, ref, gen)
     # B5: ragged N; a value absent, present in every row, and random
     for n in (1, 31, 32, 33, 1000, 100_003):
         for rows in (1, 8):
@@ -1073,7 +1176,7 @@ def hand_plan_phase(args, torch, smi, drv, main_launches, zero):
             xv = torch.nn.functional.pad(
                 x if mask is None else torch.where(mask, x, float("-inf")),
                 (0, pad), value=float("-inf")).reshape(-1, block)
-            lib = cuda_ms(lambda: torch.topk(xv, kk, dim=1), 20)
+            lib = graph_ms(lambda: torch.topk(xv, kk, dim=1), 20)
             del xv
         elif k == "predicate_bitset":
             nbytes = rows_n * 4 + rows_n // 8
@@ -1085,7 +1188,10 @@ def hand_plan_phase(args, torch, smi, drv, main_launches, zero):
             ops_ = 2 * rows_n
             lib = None
         b_ms, b_by = bound(nbytes, ops_)
-        return {"ms": cuda_ms(lambda: cuda_fn[k](*a, **kw), 20),
+        # device time from a graph of 20 calls; an eager loop of calls
+        # times the wrapper's host cost at the small inputs
+        return {"ms": graph_ms(lambda: cuda_fn[k](*a, **kw), 20),
+                "eager_loop_ms": cuda_ms(lambda: cuda_fn[k](*a, **kw), 20),
                 "plain_ms": cuda_ms(lambda: plain[k](a, kw), 3),
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
                 "bytes": nbytes, "shape": f"{tuple(x.shape)} "
@@ -1112,8 +1218,9 @@ def hand_plan_phase(args, torch, smi, drv, main_launches, zero):
         for what, t in [("main-path", main), *at_stress.items()]:
             lib = ("" if t["library_ms"] is None
                    else f", torch.topk {t['library_ms']:.4f} ms")
-            print(f"{k} at the {what} input {t['shape']}: {t['ms']:.4f} ms, "
-                  f"plain {t['plain_ms']:.3f} ms{lib}, bound "
+            print(f"{k} at the {what} input {t['shape']}: {t['ms']:.4f} ms "
+                  f"(graph of 20 calls; eager loop {t['eager_loop_ms']:.4f} "
+                  f"ms a call), plain {t['plain_ms']:.3f} ms{lib}, bound "
                   f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {t['bytes']} B)")
         kernels.append({
             "name": k, "route": "cuda",
@@ -1121,7 +1228,7 @@ def hand_plan_phase(args, torch, smi, drv, main_launches, zero):
             "replaces": tpu[k][0], "tpu_function": tpu[k][1],
             "launches": main_launches[k], "max_abs_err": 0.0,
             **{f: main[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms")},
+                                    "library_ms", "eager_loop_ms")},
             "shape": main["shape"], "stress": at_stress})
     del stress, price, row_keys, flag, q_li
     recorded.clear()
@@ -1138,6 +1245,7 @@ LM_PROMPT = 4096            # prefill tokens a sequence, path (i)
 LM_MAX_LEN = 4160           # cache positions: the prompt + 64 decode steps
 LM_STEPS = 64               # greedy tokens of each path
 LM_QUANT_PROMPT = 512       # prompt fed one token a step, path (ii)
+LM_PROMPT_CHECK = 32        # of them held against eager steps
 LM_SHARDS = 8               # stacked vocab shards of the top-k head
 LM_TOPK = 8
 LM_REPEAT = 3               # warm runs of each timed LM step
@@ -1342,22 +1450,40 @@ def _decode_inputs(torch, gen, bkv, g, smax, d, kind):
     return q.to(dtype), k.to(dtype), v.to(dtype), scales
 
 
-def check_decode(torch, ops, ref, gen):
+def _device_length(torch, n: int):
+    return torch.tensor(n, dtype=torch.int32, device="cuda")
+
+
+def check_decode(torch, ops, ref, da, gen) -> dict:
     """B9 against its plain version (f32, from the same inputs): f32, bf16
-    and int8 caches, lengths 1, 37, split boundaries (64: two splits of
-    32; 65) and Smax, at the CPU tests' shape, the path's (8, 8, 128) x 4160
-    and decode_32k's 32,768 positions (splits of 256); twice identical."""
-    shapes = [(4, 4, 64, 16, (1, 37, 48, 64)),
-              (8, 8, LM_MAX_LEN, 128, (1, 37, 64, 65, LM_MAX_LEN)),
-              (8, 8, 32768, 128, (32767, 32768))]
-    worst = {}
-    for bkv, g, smax, d, lengths in shapes:
+    and int8 caches at the CPU tests' shape, the path's (8, 8, 128) x
+    4160, D = 256, D = 20 with G = 12, 20 kv rows (more clusters than run
+    at once) and decode_32k's 32,768 positions; the length a 0-d int32 on the card at 0, 1, 37, each split
+    boundary of the launch (a block of 1 position, of one full tile a
+    warp) and Smax; each call twice identical.  Then B9 captured alone in
+    a CUDA graph at one length and replayed at three others, each replay
+    equal to an eager call at that length.  Returns the launch
+    configurations."""
+    shapes = [(4, 4, 64, 16), (8, 8, LM_MAX_LEN, 128), (2, 8, 300, 256),
+              (3, 12, 200, 20), (20, 8, 600, 128), (8, 8, 32768, 128)]
+    worst, configs, n_cases = {}, {}, 0
+    for bkv, g, smax, d in shapes:
         for kind in ("f32", "bf16", "int8"):
             q, k, v, sc = _decode_inputs(torch, gen, bkv, g, smax, d, kind)
+            cfg = []
+            da.decode_attention_cuda(q, k, v, _device_length(torch, 1), **sc,
+                                     config=cfg)
+            cl, warps = cfg[0], cfg[1]
+            configs[f"{kind} ({bkv}, {g}, {d}) x {smax}"] = cfg
+            tile = cl * warps * 32     # every warp one full tile
+            lengths = sorted({n for n in (0, 1, 37, cl - 1, cl, cl + 1, tile,
+                                          tile + 1, smax - 1, smax)
+                              if 0 <= n <= smax})
             for length in lengths:
-                out = ops.decode_attention(q, k, v, length, **sc)
-                again = ops.decode_attention(q, k, v, length, **sc)
-                want = ref.decode_attention(q.float(), k, v, length,
+                lt = _device_length(torch, length)
+                out = ops.decode_attention(q, k, v, lt, **sc)
+                again = ops.decode_attention(q, k, v, lt, **sc)
+                want = ref.decode_attention(q.float(), k, v, lt,
                                             sc.get("k_scale"),
                                             sc.get("v_scale"))
                 torch.cuda.synchronize()
@@ -1370,13 +1496,38 @@ def check_decode(torch, ops, ref, gen):
                 if not torch.allclose(out.float(), want, **tol):
                     fail(f"{what}: differs from the plain version by "
                          f"{_errs(out, want)}")
+                if length == 0 and out.any():
+                    fail(f"{what}: length 0 does not give zeros")
                 worst[kind] = max(worst.get(kind, 0.0),
                                   _errs(out, want)["max"])
+                n_cases += 1
             del q, k, v, sc
     print(f"decode_attention: f32/bf16/int8 caches within the plain version "
-          f"(f32 {F32_TOL}; bf16 out rtol 2^-8 atol 1e-5) at (4,4,16) x 64, "
-          f"(8,8,128) x {LM_MAX_LEN} and x 32768, lengths 1..Smax, "
-          f"repeatable; max abs err {worst}")
+          f"(f32 {F32_TOL}; bf16 out rtol 2^-8 atol 1e-5) over {n_cases} "
+          f"(shape, length) cases, lengths 0..Smax on the card, repeatable; "
+          f"max abs err {worst}; launch configurations [cluster, warps, "
+          f"stages, shared bytes] {configs}")
+    # captured once, replayed at other lengths: the grid does not depend
+    # on the length
+    q, k, v, sc = _decode_inputs(torch, gen, 8, 8, LM_MAX_LEN, 128, "int8")
+    lt = _device_length(torch, 5)
+    da.decode_attention_cuda(q, k, v, lt, **sc)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_out = da.decode_attention_cuda(q, k, v, lt, **sc)
+    for length in (576, 1, LM_MAX_LEN):
+        lt.fill_(length)
+        graph.replay()
+        eager = da.decode_attention_cuda(q, k, v, lt, **sc)
+        torch.cuda.synchronize()
+        if not torch.equal(g_out, eager):
+            fail(f"decode_attention replayed from a graph at length {length} "
+                 f"differs from an eager call")
+    del graph, g_out
+    print(f"decode_attention captured in a CUDA graph at length 5, replayed "
+          f"at 576, 1 and {LM_MAX_LEN}: each equal to an eager call")
+    return configs
 
 
 def _recording(obj, name, store):
@@ -1393,17 +1544,64 @@ def _recording(obj, name, store):
     return orig
 
 
-def _recording_logits(model, store: list):
-    """Keep every decode step's logits of ``model`` (an instance
-    attribute shadows the method until deleted)."""
-    orig = model.decode_step
+def _replay_vs_eager(torch, model, params, state, toks, logits, head,
+                     what: str, fed=None) -> float:
+    """The graph-replayed decode steps (their tokens ``toks``, logits
+    ``logits``) against the same steps run eagerly from ``state``, a copy
+    of the state they started from, fed ``toks`` (a greedy loop) or
+    ``fed`` (a prompt: the tokens as they were before the loop):
+    identical tokens, logits within one bf16 rounding (rtol 2^-8).
+    Returns the largest absolute logit difference."""
+    fed = toks if fed is None else fed
+    worst = 0.0
+    for t, want in enumerate(logits):
+        lg, state = model.decode_step(params, state, fed[:, t:t + 1])
+        if not torch.equal(head(lg), toks[:, t + 1]):
+            fail(f"{what} step {t}: the eager step chose other tokens than "
+                 f"the replayed graph")
+        if not torch.allclose(want.float(), lg.float(), rtol=BF16_ULP,
+                              atol=0.0):
+            fail(f"{what} step {t}: the replayed logits differ from the "
+                 f"eager step's by {_errs(want, lg)} (rtol 2^-8)")
+        worst = max(worst, _errs(want, lg)["max"])
+    return worst
 
-    def step(params, state, token):
-        logits, state = orig(params, state, token)
-        store.append(logits)
-        return logits, state
 
-    model.decode_step = step
+SAMPLED_STEPS = 8
+
+
+def _sampled_decode(torch, model, params, state, first) -> dict:
+    """A sampled decode (``greedy=False``) through the graph-replayed
+    decode_loop, its generator registered with the graph: every drawn
+    token among the top k of its step's logits.  The same steps run
+    eagerly on a copy of the state from a generator with the same seed
+    are compared token for token (reported, not required)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import decode_loop, make_head
+
+    eager_state = T.copy_cache(state)
+    logits = []
+    toks, _ = decode_loop(model, params, state, first, SAMPLED_STEPS,
+                          shards=LM_SHARDS, k=LM_TOPK, greedy=False,
+                          generator=torch.Generator(device="cuda")
+                          .manual_seed(5), logits_out=logits)
+    for t, lg in enumerate(logits):
+        top = torch.topk(lg.float(), LM_TOPK, dim=-1).indices
+        if not bool((top == toks[:, t + 1, None]).any(-1).all()):
+            fail(f"sampled decode step {t}: a drawn token is outside the "
+                 f"step's top {LM_TOPK}")
+    head = make_head(model, shards=LM_SHARDS, k=LM_TOPK, greedy=False,
+                     generator=torch.Generator(device="cuda").manual_seed(5))
+    tok, same = first, 0
+    for t in range(SAMPLED_STEPS):
+        lg, eager_state = model.decode_step(params, eager_state, tok[:, None])
+        tok = head(lg)
+        same += int(torch.equal(tok, toks[:, t + 1]))
+    print(f"sampled decode ({SAMPLED_STEPS} steps, replayed, generator "
+          f"registered with the graph): every drawn token among its step's "
+          f"top {LM_TOPK}; the eager steps from the same seed drew the same "
+          f"tokens on {same}/{SAMPLED_STEPS} steps")
+    return {"steps": SAMPLED_STEPS, "eager_same_tokens": same}
 
 
 def _events_ms(torch, fn, repeat: int):
@@ -1448,9 +1646,10 @@ def lm_phases(args, torch, smi: str):
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as T
     from repro_torch.models.model import build
     from repro_torch.serve import sampling
-    from repro_torch.serve.engine import decode_loop, make_serve_step
+    from repro_torch.serve.engine import decode_loop
 
     # f32 references in full f32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1458,7 +1657,7 @@ def lm_phases(args, torch, smi: str):
     gen = torch.Generator(device="cuda").manual_seed(1)
     b7_old_err = check_flash(torch, fa, ref, gen)
     b7_tc_check = check_flash_tc(torch, fa, ref, gen)
-    check_decode(torch, ops, ref, gen)
+    b9_configs = check_decode(torch, ops, ref, da, gen)
     torch.cuda.empty_cache()
 
     # -- the model at full width, random weights from seed 0 ------------------
@@ -1495,37 +1694,46 @@ def lm_phases(args, torch, smi: str):
     cache_bytes = sum(t.numel() * t.element_size() for t in state0[:2])
     flash_in, logits_k = [], []
     orig_fa = _recording(ops, "flash_attention_fwd", flash_in)
-    _recording_logits(model, logits_k)
     ops.reset_launch_counts()
     logits0, st = model.prefill(params, {"tokens": tokens}, state0,
                                 attn_impl="flash")
     first = torch.argmax(logits0, dim=-1)
+    st_eager, st_sampled = T.copy_cache(st), T.copy_cache(st)
     gen_toks, st = decode_loop(model, params, st, first, LM_STEPS,
-                               shards=LM_SHARDS, k=LM_TOPK)
+                               shards=LM_SHARDS, k=LM_TOPK,
+                               logits_out=logits_k)
     torch.cuda.synchronize()
     got = ops.launch_counts()
     ops.flash_attention_fwd = orig_fa
-    del model.decode_step
     want = {**zero, "flash_attention_fwd_tc": cfg.n_layers}
     if got != want:
         fail(f"path (i) launched {got}, expected {want}")
     fa_launches = got["flash_attention_fwd_tc"]
     fa_old_launches = got["flash_attention_fwd"]
-    if st.length != LM_MAX_LEN or gen_toks.shape != (B, LM_STEPS + 1):
-        fail(f"path (i): cache length {st.length}, tokens "
-             f"{tuple(gen_toks.shape)}")
+    if (int(st.length) != LM_MAX_LEN or st.host_length.n != LM_MAX_LEN
+            or gen_toks.shape != (B, LM_STEPS + 1)):
+        fail(f"path (i): cache length {int(st.length)} (host "
+             f"{st.host_length.n}), tokens {tuple(gen_toks.shape)}")
     if not all(torch.isfinite(x.float()).all() for x in [logits0, *logits_k]):
         fail("path (i): non-finite logits")
-    # (e) the sharded greedy head equals argmax of the full logits
+    # the sharded greedy head equals argmax of the full logits
     if not torch.equal(head(logits0), first):
         fail("path (i): the sharded head differs from argmax on the prefill")
     for t, lg in enumerate(logits_k):
         a = torch.argmax(lg, dim=-1)
         if not (torch.equal(head(lg), a) and torch.equal(a, gen_toks[:, t + 1])):
             fail(f"path (i) step {t}: the sharded head differs from argmax")
+    e_replay_i = _replay_vs_eager(torch, model, params, st_eager, gen_toks,
+                                  logits_k, head, "path (i)")
+    del st_eager
+    sampled = _sampled_decode(torch, model, params, st_sampled, first)
+    del st_sampled
     print(f"path (i): prefill {B} x {LM_PROMPT} tokens + {LM_STEPS} greedy "
-          f"steps (shards {LM_SHARDS}, k {LM_TOPK}); launches {got}; the "
-          f"sharded head equals argmax of the full logits on every step")
+          f"steps replayed from one captured CUDA graph (shards {LM_SHARDS}, "
+          f"k {LM_TOPK}); launches {got}; the sharded head equals argmax of "
+          f"the full logits on every step; the same steps run eagerly on a "
+          f"copy of the state chose the same tokens, logits within rtol 2^-8 "
+          f"(max abs difference {e_replay_i})")
     # (b) + (c): the plain B7, then the same decode steps teacher-forced
     ops.use_kernels(False)
     lp0, stp = model.prefill(params, {"tokens": tokens},
@@ -1561,37 +1769,67 @@ def lm_phases(args, torch, smi: str):
     mq = build(cfg, cache_quant=True)
     sq = mq.init_decode_state(B, LM_MAX_LEN)
     qcache_bytes = sum(t.numel() * t.element_size() for t in sq[:4])
-    step = make_serve_step(mq, shards=LM_SHARDS, k=LM_TOPK)
-    # the last step's calls, one a layer
-    dec_in, logits_q = collections.deque(maxlen=cfg.n_layers), []
-    orig_da = _recording(ops, "decode_attention", dec_in)
-    _recording_logits(mq, logits_q)
+    n_steps = LM_QUANT_PROMPT + LM_STEPS
+    logits_q = []
+    # for the eager check of the prompt: the state and tokens before it
+    sq_start = T.copy_cache(sq)
+    fed_prompt = tokens[:, :LM_QUANT_PROMPT].clone()
     ops.reset_launch_counts()
-    for t in range(LM_QUANT_PROMPT):
-        nxt, sq = step(params, sq, tokens[:, t])
-    sq_prompt = sq
-    q_toks, sq = decode_loop(mq, params, sq, nxt, LM_STEPS,
-                             shards=LM_SHARDS, k=LM_TOPK)
+    # the prompt fed one token a step (teacher-forced), then greedy steps,
+    # each loop one captured graph replayed
+    prompt, sq = decode_loop(mq, params, sq, tokens[:, 0], LM_QUANT_PROMPT,
+                             shards=LM_SHARDS, k=LM_TOPK,
+                             forced=tokens[:, 1:LM_QUANT_PROMPT],
+                             logits_out=logits_q)
+    sq_prompt, sq_eager = T.copy_cache(sq), T.copy_cache(sq)
+    q_toks, sq = decode_loop(mq, params, sq, prompt[:, -1], LM_STEPS,
+                             shards=LM_SHARDS, k=LM_TOPK, logits_out=logits_q)
     torch.cuda.synchronize()
     got = ops.launch_counts()
-    ops.decode_attention = orig_da
-    del mq.decode_step
-    n_steps = LM_QUANT_PROMPT + LM_STEPS
     want = {**zero, "decode_attention": cfg.n_layers * n_steps}
     if got != want:
         fail(f"path (ii) launched {got}, expected {want}")
     da_launches = got["decode_attention"]
+    if int(sq.length) != n_steps or sq.host_length.n != n_steps:
+        fail(f"path (ii): cache length {int(sq.length)} (host "
+             f"{sq.host_length.n}), expected {n_steps}")
+    if not torch.equal(tokens[:, :LM_QUANT_PROMPT], fed_prompt):
+        fail("path (ii): decode_loop wrote into the prompt it was fed")
+    # the first prompt steps (the warm-up, the captured step and replays)
+    # against eager steps from a copy of the state before the prompt, fed
+    # the prompt as it was before the loop: a fault in decode_loop's feed
+    # of forced tokens shows here, where the int8-vs-bf16 check below,
+    # both of whose sides decode_loop feeds, cannot see it
+    e_replay_prompt = _replay_vs_eager(
+        torch, mq, params, sq_start, prompt, logits_q[:LM_PROMPT_CHECK],
+        head, "path (ii) prompt", fed=fed_prompt)
+    del sq_start
+    # the replayed greedy steps against the same steps eagerly, on a copy
+    # of the state after the prompt; the last eager step's B9 inputs, one
+    # call a layer, are kept for (d) and (e)
+    dec_in = collections.deque(maxlen=cfg.n_layers)
+    orig_da = _recording(ops, "decode_attention", dec_in)
+    e_replay_ii = _replay_vs_eager(torch, mq, params, sq_eager, q_toks,
+                                   logits_q[LM_QUANT_PROMPT:], head,
+                                   "path (ii)")
+    ops.decode_attention = orig_da
+    del sq_eager
     fed = torch.cat([tokens[:, :LM_QUANT_PROMPT], q_toks[:, :LM_STEPS]], 1)
-    # the bf16-cache path fed the same tokens
+    # the bf16-cache path fed the same tokens, through graphs as well
     mf = build(cfg)
     sf = mf.init_decode_state(B, LM_MAX_LEN)
+    logits_f = []
+    _, sf = decode_loop(mf, params, sf, fed[:, 0], LM_QUANT_PROMPT,
+                        shards=LM_SHARDS, k=LM_TOPK,
+                        forced=fed[:, 1:LM_QUANT_PROMPT], logits_out=logits_f)
+    sf_prompt = T.copy_cache(sf)
+    _, sf = decode_loop(mf, params, sf, fed[:, LM_QUANT_PROMPT], LM_STEPS,
+                        shards=LM_SHARDS, k=LM_TOPK,
+                        forced=fed[:, LM_QUANT_PROMPT + 1:], logits_out=logits_f)
     worst = {"max": 0.0, "mean": 0.0, "ref_max": 0.0}
     over, in_top5 = 0.0, True
     for t in range(n_steps):
-        lf, sf = mf.decode_step(params, sf, fed[:, t:t + 1])
-        if t == LM_QUANT_PROMPT - 1:
-            sf_prompt = sf
-        lq = logits_q[t].float()
+        lf, lq = logits_f[t], logits_q[t].float()
         if not torch.isfinite(lq).all():
             fail(f"path (ii) step {t}: non-finite logits")
         e = _errs(lq, lf)
@@ -1607,11 +1845,16 @@ def lm_phases(args, torch, smi: str):
     if not in_top5:
         fail("path (ii): an int8 argmax outside the bf16 path's top 5")
     print(f"path (ii): {LM_QUANT_PROMPT} prompt tokens one a step + "
-          f"{LM_STEPS} greedy steps over the int8 cache; launches {got}; "
-          f"logits vs the bf16 cache fed the same tokens: worst {worst} "
-          f"(rtol {QUANT_RTOL}, atol {QUANT_ATOL}); int8 argmax in the bf16 "
-          f"top 5 on every row and step")
-    del logits_q, logits_k
+          f"{LM_STEPS} greedy steps over the int8 cache, each loop replayed "
+          f"from one captured CUDA graph; launches {got}; the greedy steps "
+          f"run eagerly on a copy of the state chose the same tokens, logits "
+          f"within rtol 2^-8 (max abs difference {e_replay_ii}), and so did "
+          f"the first {LM_PROMPT_CHECK} prompt steps run eagerly from a copy "
+          f"of the state before the prompt ({e_replay_prompt}); logits vs "
+          f"the bf16 cache fed the same tokens: worst {worst} (rtol "
+          f"{QUANT_RTOL}, atol {QUANT_ATOL}); int8 argmax in the bf16 top 5 "
+          f"on every row and step")
+    del logits_q, logits_k, logits_f
     torch.cuda.empty_cache()
 
     # -- times ----------------------------------------------------------------
@@ -1631,26 +1874,57 @@ def lm_phases(args, torch, smi: str):
     times["prefill_tokens_per_s"] = B * LM_PROMPT / pre_ms * 1e3
     times["ttft_ms"] = ttft
 
-    def loop(m, s, tok):
-        return lambda: decode_loop(m, params, s, tok, LM_STEPS,
+    def rewind(s, n):
+        """The same positions again: both counts back to the prompt's
+        ``n``."""
+        T.set_length(s, n)
+        return s
+
+    def replayed(m, s, n, tok, steps=LM_STEPS):
+        return lambda: decode_loop(m, params, rewind(s, n), tok, steps,
                                    shards=LM_SHARDS, k=LM_TOPK)
+
+    def eager(m, s, n, tok):
+        def run():
+            st_, t_ = rewind(s, n), tok
+            for _ in range(LM_STEPS):
+                lg, st_ = m.decode_step(params, st_, t_[:, None])
+                t_ = head(lg)
+            return t_
+        return run
 
     for name, m, s, tok in (
             ("bf16_at_4096", model, st_after, first_t),
             ("bf16_at_512", mf, sf_prompt, fed[:, LM_QUANT_PROMPT]),
             ("int8_at_512", mq, sq_prompt, fed[:, LM_QUANT_PROMPT])):
-        ms, _ = _events_ms(torch, loop(m, s, tok), LM_REPEAT)
+        n = s.host_length.n
+        ms, _ = _events_ms(torch, replayed(m, s, n, tok), LM_REPEAT)
+        ms2, _ = _events_ms(torch, replayed(m, s, n, tok, 2), 1)
         times[f"decode_{name}_ms_per_step"] = ms / LM_STEPS
         times[f"decode_{name}_tokens_per_s"] = B * LM_STEPS / ms * 1e3
+        times[f"decode_{name}_replay_ms_per_step"] = (ms - ms2) / (
+            LM_STEPS - 2)
+        if name != "bf16_at_512":    # eager beside the two main paths
+            ms_eager, _ = _events_ms(torch, eager(m, s, n, tok), 1)
+            times[f"decode_{name}_eager_ms_per_step"] = ms_eager / LM_STEPS
+        busy, wall = profile_query(torch, replayed(m, s, n, tok),
+                                   f"decode {name} x{LM_STEPS} replayed")
+        times[f"decode_{name}_busy_ms"] = busy
+        times[f"decode_{name}_profiled_wall_ms"] = wall
+        times[f"decode_{name}_busy_share"] = busy / wall
     print(f"qwen2.5-3b times (CUDA events, median of {LM_REPEAT} warm runs, "
-          f"batch {B}) on {smi}: {times}")
+          f"batch {B}; decode ms a step: a whole {LM_STEPS}-step decode_loop "
+          f"(warm-up, capture, replays) / {LM_STEPS}; replay: (the "
+          f"{LM_STEPS}-step loop - one 2-step loop) / {LM_STEPS - 2}; eager: "
+          f"one run of {LM_STEPS} eager steps; busy share: device time of the "
+          f"profiled {LM_STEPS}-step loop over its wall time) on {smi}: "
+          f"{times}")
     if args.profile:
         profile_query(torch, lambda: model.prefill(
             params, {"tokens": tokens}, st_t, attn_impl="flash"), "prefill")
-        profile_query(torch, loop(model, st_after, first_t),
-                      "decode bf16 cache x64 (lengths 4097-4160)")
-        profile_query(torch, loop(mq, sq_prompt, fed[:, LM_QUANT_PROMPT]),
-                      "decode int8 cache x64 (lengths 513-576)")
+        profile_query(torch, eager(mq, sq_prompt, LM_QUANT_PROMPT,
+                                   fed[:, LM_QUANT_PROMPT]),
+                      "decode int8 cache x64 eager (lengths 513-576)")
     resident = {"params_bf16": param_bytes, "params_f32_master": f32_bytes,
                 "kv_cache_bf16": cache_bytes, "kv_cache_int8": qcache_bytes}
     print(f"resident bytes: {resident}")
@@ -1715,35 +1989,61 @@ def lm_phases(args, torch, smi: str):
                    f"decode_attention on layer {i}'s last int8 step input")
         b9_err = max(b9_err, _errs(out, want)["max"])
     (qd, kq, vq, length), kwd = dec_in[-1]
-    b9_ms = cuda_ms(lambda: da.decode_attention_cuda(qd, kq, vq, length,
-                                                     **kwd), 50)
+    n = int(length)
+    # device time from a graph of 50 calls (an eager loop of calls times
+    # the wrapper's host cost), and the eager loop beside it
+    b9_ms = graph_ms(lambda: da.decode_attention_cuda(qd, kq, vq, length,
+                                                      **kwd), 50)
+    b9_eager = cuda_ms(lambda: da.decode_attention_cuda(qd, kq, vq, length,
+                                                        **kwd), 50)
     b9_plain = cuda_ms(lambda: ref.decode_attention(
         qd, kq, vq, length, kwd["k_scale"], kwd["v_scale"]), 10)
     bkv, g, d = qd.shape
-    b9_bytes = (bkv * length * (2 * d * kq.element_size() + 8)
+    b9_bytes = (bkv * n * (2 * d * kq.element_size() + 8)
                 + 2 * qd.numel() * qd.element_size())
-    b9_bound, b9_by = bound(b9_bytes, 4 * bkv * g * length * d,
-                            BF16_OPS_PER_S)
+    b9_bound, b9_by = bound(b9_bytes, 4 * bkv * g * n * d, BF16_OPS_PER_S)
     # the same function over a bf16 cache holding the dequantised values
     kb = (kq.float() * kwd["k_scale"][..., None]).to(torch.bfloat16)
     vb = (vq.float() * kwd["v_scale"][..., None]).to(torch.bfloat16)
-    b9b_ms = cuda_ms(lambda: da.decode_attention_cuda(qd, kb, vb, length),
-                     50)
+    b9b_ms = graph_ms(lambda: da.decode_attention_cuda(qd, kb, vb, length),
+                      50)
     b9b_plain = cuda_ms(lambda: ref.decode_attention(qd, kb, vb, length), 10)
     qs = qd.reshape(B, bkv // B * g, 1, d)
-    ks4, vs4 = (t.reshape(B, bkv // B, -1, d)[:, :, :length]
-                for t in (kb, vb))
-    b9b_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+    ks4, vs4 = (t.reshape(B, bkv // B, -1, d)[:, :, :n] for t in (kb, vb))
+    b9b_lib = graph_ms(lambda: F.scaled_dot_product_attention(
         qs, ks4, vs4, enable_gqa=True), 50)
-    b9b_bytes = bkv * length * 2 * d * 2 + 2 * qd.numel() * qd.element_size()
-    b9b_bound, _ = bound(b9b_bytes, 4 * bkv * g * length * d, BF16_OPS_PER_S)
+    b9b_bytes = bkv * n * 2 * d * 2 + 2 * qd.numel() * qd.element_size()
+    b9b_bound, _ = bound(b9b_bytes, 4 * bkv * g * n * d, BF16_OPS_PER_S)
     print(f"decode_attention at the last int8 step's input q "
-          f"{tuple(qd.shape)}, cache {tuple(kq.shape)}, length {length}: "
-          f"{b9_ms:.4f} ms, plain {b9_plain:.4f} ms, bound {b9_bound:.5f} ms "
+          f"{tuple(qd.shape)}, cache {tuple(kq.shape)}, length {n}: "
+          f"{b9_ms:.4f} ms (graph of 50 calls; {b9_eager:.4f} ms a call in "
+          f"an eager loop), plain {b9_plain:.4f} ms, bound {b9_bound:.5f} ms "
           f"({b9_by}, {b9_bytes} B); bf16 cache: {b9b_ms:.4f} ms, plain "
           f"{b9b_plain:.4f} ms, sdpa {b9b_lib:.4f} ms, bound "
           f"{b9b_bound:.5f} ms; max abs err over the {len(dec_in)} layers' "
           f"inputs {b9_err:.3e} (rtol 2^-8, atol 1e-5)")
+    del kb, vb, ks4, vs4
+    # decode_32k's length: 32,768 positions of 8 kv rows
+    at_32k = {}
+    for kind in ("int8", "bf16"):
+        q, k, v, sc = _decode_inputs(torch, gen, 8, 8, 32768, 128, kind)
+        lt = _device_length(torch, 32768)
+        t = graph_ms(lambda: da.decode_attention_cuda(q, k, v, lt, **sc), 20)
+        nbytes = (8 * 32768 * (2 * 128 * k.element_size() + (8 if sc else 0))
+                  + 2 * q.numel() * q.element_size())
+        b_ms, b_by = bound(nbytes, 4 * 8 * 8 * 32768 * 128, BF16_OPS_PER_S)
+        lib = None
+        if kind == "bf16":
+            q4, k4, v4 = (q.reshape(4, 16, 1, 128),
+                          k.reshape(4, 2, 32768, 128),
+                          v.reshape(4, 2, 32768, 128))
+            lib = graph_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, enable_gqa=True), 20)
+        at_32k[kind] = {"ms": t, "bound_ms": b_ms, "bound_by": b_by,
+                        "share_of_bound": b_ms / t, "library_ms": lib}
+        del q, k, v, sc
+    print(f"decode_attention at decode_32k's 32,768 positions, q (8, 8, 128) "
+          f"bf16 (graph of 20 calls): {at_32k}")
 
     shape = f"q {tuple(qg.shape)} bf16 causal (layer 0 of the prefill)"
     kernels = [
@@ -1778,16 +2078,22 @@ def lm_phases(args, torch, smi: str):
                          "decode_attention",
          "launches": da_launches, "max_abs_err": b9_err, "ms": b9_ms,
          "plain_ms": b9_plain, "bound_ms": b9_bound, "bound_by": b9_by,
-         "library_ms": None,
+         "library_ms": None, "eager_loop_ms": b9_eager,
          "shape": f"q {tuple(qd.shape)} bf16, int8 cache "
-                  f"{tuple(kq.shape)}, length {length}",
+                  f"{tuple(kq.shape)}, length {n}",
          "bf16_cache": {"ms": b9b_ms, "plain_ms": b9b_plain,
-                        "library_ms": b9b_lib, "bound_ms": b9b_bound}},
+                        "library_ms": b9b_lib, "bound_ms": b9b_bound},
+         "at_32k": at_32k, "configs": b9_configs},
     ]
     summary = {**times, "resident_bytes": resident, "params": n_params,
                "batch": B, "prompt": LM_PROMPT, "max_len": LM_MAX_LEN,
                "logit_errs": {"b": e_b, "c": e_c, "d": e_d,
-                              "int8_vs_bf16": worst}}
+                              "int8_vs_bf16": worst,
+                              "replayed_vs_eager_i": e_replay_i,
+                              "replayed_vs_eager_ii": e_replay_ii,
+                              "replayed_vs_eager_ii_prompt":
+                                  e_replay_prompt},
+               "sampled": sampled}
     return kernels, summary
 
 
@@ -2273,11 +2579,18 @@ def main(argv=None) -> int:
                                        "Function properties for")):
                 print(f"  ptxas {name}: {line.strip()}")
 
+    phase_s = {"build": time.perf_counter() - t0}
+    t0 = time.perf_counter()
     tpch_kernels, tpch = tpch_phases(args, torch, smi)
     torch.cuda.empty_cache()
+    phase_s["tpch"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     lm_kernels, lm = lm_phases(args, torch, smi)
     torch.cuda.empty_cache()
+    phase_s["lm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     b8_kernels, train_launches, train = train_phases(args, torch, smi)
+    phase_s["train"] = time.perf_counter() - t0
     for k in lm_kernels:
         if k["name"].startswith("flash_attention_fwd"):
             k["launches_by_path"] = {"prefill": k["launches"],
@@ -2290,6 +2603,7 @@ def main(argv=None) -> int:
             fail(f"{k['name']} was never launched on the main path")
         if not k.get("main_path", True) and k["launches"]:
             fail(f"{k['name']} was launched on the main path")
+    summary["phase_s"] = phase_s
     summary["total_s"] = time.perf_counter() - t_start
     print(json.dumps(summary))
     print(json.dumps({"kernels": kernels}))

@@ -4,13 +4,16 @@ Replaces the TPU kernel ``repro/kernels/decode_attention.py:decode_attention``
 with the hand-written CUDA kernel ``csrc/decode_attention.cu``: q (BKV, G, D)
 f32 or bf16 against caches (BKV, Smax, D), f32, bf16 or int8 with
 (BKV, Smax) f32 scales dequantised in the kernel, positions >= ``length``
-masked; out (BKV, G, D) in q's dtype.
+masked; out (BKV, G, D) in q's dtype.  ``length`` is a 0-d int32 tensor on
+the device, read by the kernel (the TPU kernel reads it from SMEM), so a
+launch captured in a CUDA graph stays right as the length changes.
 
 Bound on the H100: bytes, the ``length`` cache positions of k and v (codes
-and scales) plus q and out.  Design: the positions are cut into splits
-(:func:`split_size`), one one-warp block per (split, BKV row), each keeping
-an online softmax; a second launch merges the partials in split order, so
-the result repeats bit for bit (see the source).  The plain PyTorch version is
+and scales) plus q and out.  Design: one launch; a cluster of blocks per
+BKV row splits the positions on the device, each block's eight warps stream
+their share through a cp.async ring and keep an online softmax, and the
+partials merge in a fixed order through distributed shared memory, so the
+result repeats bit for bit (see the source).  The plain PyTorch version is
 ``kernels.ref.decode_attention``; dispatch is in ``kernels.ops``.
 """
 from __future__ import annotations
@@ -23,35 +26,48 @@ import torch
 
 from repro_torch.kernels import build
 
-TARGET_BLOCKS = 8 * 132    # one-warp blocks: about 8 on each SM of an H100
 MAX_HEAD_DIM = 256
 Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CACHE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 3}
-
-
-def split_size(length: int, bkv: int) -> int:
-    """Cache positions per block of the first pass: a multiple of 32 (a
-    tile), at least one tile, and about TARGET_BLOCKS blocks in all."""
-    per = -(-length // max(1, -(-TARGET_BLOCKS // bkv)))
-    return max(32, -(-per // 32) * 32)
 
 
 @functools.cache
 def _lib():
     """The kernel's C entry point, its signature set once."""
     fn = build.library("decode_attention").repro_decode_attention
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
-        ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+def _copy_bytes(row_bytes: int, *tensors) -> int:
+    """The widest cp.async (16, 8 or 4 bytes) that divides a cache row and
+    every cache's address."""
+    return next(b for b in (16, 8, 4) if row_bytes % b == 0
+                and all(t.data_ptr() % b == 0 for t in tensors))
+
+
+def check_length(length, device) -> None:
+    """``length`` must be a 0-d int32 tensor on ``device``: the kernel
+    reads it there, and nothing reads it on the host."""
+    if not (isinstance(length, torch.Tensor) and length.dim() == 0
+            and length.dtype == torch.int32 and length.device == device):
+        raise ValueError(
+            f"length must be a 0-d int32 tensor on {device}, got "
+            + (f"{tuple(length.shape)} {length.dtype} on {length.device}"
+               if isinstance(length, torch.Tensor) else type(length).__name__))
+
+
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
-                          v_cache: torch.Tensor, length: int, *,
-                          k_scale=None, v_scale=None) -> torch.Tensor:
-    """Launch the CUDA kernel (two launches: partials, then their merge).
-    q (BKV, G, D); caches (BKV, Smax, D), one dtype; scales (BKV, Smax) f32
-    or both None; all contiguous on one CUDA device.  Returns (BKV, G, D)."""
+                          v_cache: torch.Tensor, length: torch.Tensor, *,
+                          k_scale=None, v_scale=None,
+                          config: list | None = None) -> torch.Tensor:
+    """Launch the CUDA kernel (one launch).  q (BKV, G, D); caches
+    (BKV, Smax, D), one dtype; scales (BKV, Smax) f32 or both None; all
+    contiguous on one CUDA device; ``length`` a 0-d int32 tensor there.
+    Returns (BKV, G, D).  ``config``, a list, receives the launch's
+    [cluster size, warps a block, ring stages, shared bytes a block]."""
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_cuda needs CUDA tensors, got "
                          f"{q.device}")
@@ -86,35 +102,32 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
             raise ValueError(f"a tensor is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError("q, the caches and the scales must be contiguous")
+    check_length(length, q.device)
     if D % 4 or not 0 < D <= MAX_HEAD_DIM:
         raise ValueError(f"head dim must be a multiple of 4 up to "
                          f"{MAX_HEAD_DIM}, got {D}")
     if not BKV <= 65535:
         raise ValueError(f"needs BKV <= 65535, got {BKV}")
-    for t in tensors[:3]:
-        if t.data_ptr() % (4 * t.element_size()):
-            raise ValueError("q and the caches must be aligned to 4 elements")
-    n = min(max(int(length), 0), Smax)
-    chunk = split_size(n, BKV)
-    nsplit = -(-n // chunk)
+    for t in tensors:
+        if t.data_ptr() % 4 or (t is q and t.data_ptr() % (4 * t.element_size())):
+            raise ValueError("q must be aligned to 4 elements, the caches "
+                             "and scales to 4 bytes")
+    cp = _copy_bytes(D * k_cache.element_size(), k_cache, v_cache)
     out = torch.empty_like(q)
-    part_m = torch.empty((BKV, nsplit, G), dtype=torch.float32,
-                         device=q.device)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((BKV, nsplit, G, D), dtype=torch.float32,
-                           device=q.device)
+    info = (ctypes.c_int * 4)()
     with torch.cuda.device(q.device):
         err = _lib()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                      k_scale.data_ptr() if quant else None,
                      v_scale.data_ptr() if quant else None,
-                     part_m.data_ptr(), part_l.data_ptr(),
-                     part_acc.data_ptr(), out.data_ptr(), Q_DTYPES[q.dtype],
-                     CACHE_DTYPES[k_cache.dtype], BKV, G, Smax, D, n, chunk,
-                     nsplit, 1.0 / math.sqrt(D),
+                     length.data_ptr(), out.data_ptr(), Q_DTYPES[q.dtype],
+                     CACHE_DTYPES[k_cache.dtype], BKV, G, Smax, D, cp,
+                     1.0 / math.sqrt(D), info,
                      torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")
+    if config is not None:
+        config[:] = list(info)
     decode_attention_cuda.launches += 1
     return out
 

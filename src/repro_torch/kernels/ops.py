@@ -84,6 +84,13 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
+def add_launch_counts(counts: dict) -> None:
+    """Add ``counts`` (name -> launches) to the counters: the launches a
+    replayed CUDA graph makes without a Python call (``serve.engine``)."""
+    for name, n in counts.items():
+        _WRAPPERS[name].launches += n
+
+
 def filtered_group_sum(measures, groups, pred, *, cutoff, num_groups):
     """Per-node ``sum(measures[n])`` by group over rows with
     ``pred[n] <= cutoff``: (P, N, C), (P, N), (P, N) -> (P, G, C) f32."""
@@ -227,8 +234,8 @@ def flash_attention(q, k, v, *, causal=True, window=None, prefix=0):
 def decode_attention(q, k_cache, v_cache, length, *, k_scale=None,
                      v_scale=None):
     """One-token attention: q (BKV, G, D) against caches (BKV, Smax, D),
-    float or int8 with (BKV, Smax) f32 scales; positions >= ``length``
-    masked -> (BKV, G, D) in q's dtype."""
+    float or int8 with (BKV, Smax) f32 scales; positions >= ``length`` (a
+    0-d int32 tensor on q's device) masked -> (BKV, G, D) in q's dtype."""
     if _kernel_path(q):
         return decode_attention_cuda(q, k_cache, v_cache, length,
                                      k_scale=k_scale, v_scale=v_scale)

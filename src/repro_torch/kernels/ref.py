@@ -375,8 +375,9 @@ def decode_attention(q, k_cache, v_cache, length, k_scale=None,
                      v_scale=None):
     """One-token grouped attention: q (BKV, G, D) against caches
     (BKV, Smax, D), float or int8 with (BKV, Smax) f32 scales (then
-    k = codes * k_scale); positions >= ``length`` are masked.  Returns
-    (BKV, G, D) in q's dtype, ``acc / max(l, 1e-30)``."""
+    k = codes * k_scale); positions >= ``length`` (a 0-d int32 tensor on
+    q's device, compared there: nothing reads it on the host) are
+    masked.  Returns (BKV, G, D) in q's dtype, ``acc / max(l, 1e-30)``."""
     D = q.shape[-1]
     Smax = k_cache.shape[1]
     scale = 1.0 / math.sqrt(D)
@@ -386,7 +387,7 @@ def decode_attention(q, k_cache, v_cache, length, k_scale=None,
         vf = vf * v_scale[..., None]
     s = torch.einsum("bgd,bsd->bgs", q.float() * scale, kf)
     pos = torch.arange(Smax, device=q.device)
-    s = torch.where(pos < int(length), s, NEG_INF)
+    s = torch.where(pos < length, s, NEG_INF)
     p, l, _ = _masked_softmax_parts(s)
     out = torch.einsum("bgs,bsd->bgd", p, vf)
     return (out / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)

@@ -2,16 +2,19 @@
 
 Replaces the TPU kernel ``repro/kernels/topk_select.py:block_topk`` with the
 hand-written CUDA kernel ``csrc/topk_select.cu``.  Each row of ``values``
-is cut into blocks of ``block`` elements; per block, k masked-argmax sweeps
-emit the k largest values and their keys, ties to the lowest index (see
-``kernels.ref.block_topk`` for the exact semantics).  Leading dimensions
-are rows, so one launch covers every node of the node-stacked cluster.
+is cut into blocks of ``block`` elements; per block, the k largest values
+and their keys in the order k masked-argmax sweeps emit them, ties to the
+lowest index (see ``kernels.ref.block_topk`` for the exact semantics).
+Leading dimensions are rows, so one launch covers every node of the
+node-stacked cluster.
 
 Bound on the H100: bytes for the plans' small k — each value, key and mask
 byte read once, ``rows * num_blocks * k * 8`` bytes written.  Design: one
-thread block per (row, block), the values in shared memory, a register
-best per thread and one block reduction per sweep (see the source).  The
-plain PyTorch version is ``kernels.ref.block_topk``; dispatch is in
+thread block per (row, block), the block staged in shared memory as
+order-preserving integer keys, a radix select of the k-th largest key (at
+most four histogram passes, whatever k is), a compaction in index order
+and a bitonic sort of the k candidates (see the source).  The plain
+PyTorch version is ``kernels.ref.block_topk``; dispatch is in
 ``kernels.ops``.
 """
 from __future__ import annotations
@@ -23,7 +26,8 @@ import torch
 
 from repro_torch.kernels import build
 
-MAX_BLOCK = 12288       # 48 KB of f32 in shared memory
+MAX_BLOCK = 12288       # 48 KB of keys in shared memory (+ 128 KB of
+                        # candidates at k = block)
 
 
 @functools.cache

@@ -186,12 +186,13 @@ def attention(q, k, v, mask: AttnMask, *, impl: str = "xla",
     return chunked_attention(q, k, v, mask, chunk_q=chunk_q, chunk_k=chunk_k)
 
 
-def decode_attention(q, k_cache, v_cache, cache_len: int, *, window=None,
+def decode_attention(q, k_cache, v_cache, cache_len, *, window=None,
                      prefix: int = 0):
     """Single-token attention against a float cache, plain.
 
     q: (B, 1, H, D); caches: (B, Smax, KV, D); cache_len: number of valid
-    cache positions (the new token already written at cache_len - 1)."""
+    cache positions (the new token already written at cache_len - 1), a
+    0-d int tensor on the device, compared there."""
     D = q.shape[-1]
     Smax = k_cache.shape[1]
     scale = 1.0 / np.sqrt(D)

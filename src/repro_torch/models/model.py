@@ -87,7 +87,7 @@ class Model:
 
     def decode_step(self, params, state, token):
         """token (B, 1) -> (logits (B, padded vocab), state); the state's
-        tensors are updated in place."""
+        tensors, its device ``length`` included, are updated in place."""
         with torch.no_grad():
             return T.decode_step(params, state, token, self.cfg)
 

@@ -9,9 +9,15 @@ layer.  Caches keep
 the JAX layouts: :class:`KVCache` (L, B, Smax, KV, hd) in a float dtype,
 :class:`QuantKVCache` (L, B, KV, Smax, hd) int8 codes with (L, B, KV, Smax)
 f32 scales, so that a layer's int8 cache reshapes for free to the B9
-kernel's (B*KV, Smax, hd).  The JAX functions return new caches; the port
-writes the new positions in place (the returned cache holds the same
-tensors, with the new length), which saves a copy of the cache a step.
+kernel's (B*KV, Smax, hd).  A cache's ``length`` is a 0-d int32 tensor on
+its device, as in the reference: the rope position, the cache writes and
+the attention mask read it there, so a decode step launches the same
+kernels at every length and replays as one CUDA graph
+(``serve.engine.decode_loop``).  The JAX functions return new caches; the
+port writes the new positions and advances the length in place (the
+returned cache holds the same tensors), which saves a copy of the cache a
+step.  ``host_length`` (:class:`HostLength`) is the host's count of the
+same positions, so the capacity check reads nothing from the device.
 """
 from __future__ import annotations
 
@@ -27,10 +33,27 @@ from repro_torch.models import layers as L
 from repro_torch.models.params import param
 
 
+class HostLength:
+    """A cache's count of valid positions on the host, beside its device
+    ``length``.  Like ``length`` it is one mutable object, shared by every
+    tuple ``_replace`` makes of the cache, and a step advances both in
+    place, so no tuple of a cache holds a count its device length
+    disagrees with."""
+
+    __slots__ = ("n",)
+
+    def __init__(self, n: int = 0):
+        self.n = n
+
+    def __repr__(self) -> str:
+        return f"HostLength({self.n})"
+
+
 class KVCache(NamedTuple):
-    k: torch.Tensor    # (L, B, Smax, KV, hd)
+    k: torch.Tensor          # (L, B, Smax, KV, hd)
     v: torch.Tensor
-    length: int        # valid positions
+    length: torch.Tensor     # 0-d int32 on the device: valid positions
+    host_length: HostLength  # the same count on the host
 
 
 class QuantKVCache(NamedTuple):
@@ -41,7 +64,8 @@ class QuantKVCache(NamedTuple):
     v: torch.Tensor
     k_scale: torch.Tensor  # (L, B, KV, Smax) f32
     v_scale: torch.Tensor
-    length: int
+    length: torch.Tensor   # 0-d int32 on the device
+    host_length: HostLength
 
 
 def _param_dict(tensors: dict, trainable: bool) -> nn.ParameterDict:
@@ -183,22 +207,23 @@ def apply_layer(lp, x, cfg, positions, *, chunk_q=1024, chunk_k=1024,
     return _mlp_block(lp, x, cfg)
 
 
-def _position(pos: int, device) -> torch.Tensor:
-    """(1, 1) int32 position, filled on the device (no host copy, which
-    would wait for the device's queue)."""
-    return torch.full((1, 1), pos, dtype=torch.int32, device=device)
+def _position(cache_len: torch.Tensor) -> torch.Tensor:
+    """The new token's (1, 1) int32 position, cache_len - 1, computed on
+    the device."""
+    return (cache_len - 1).view(1, 1)
 
 
-def apply_layer_decode(lp, x, cfg, k_cache, v_cache, cache_len: int):
+def apply_layer_decode(lp, x, cfg, k_cache, v_cache, cache_len):
     """One-token decode step of one layer against a float cache.
 
     x: (B, 1, d); caches: (B, Smax, KV, hd), the new position written in
-    place at cache_len - 1."""
-    positions = _position(cache_len - 1, x.device)
+    place at cache_len - 1 (cache_len a 0-d int32 tensor on the device)."""
+    positions = _position(cache_len)
     h = L.apply_norm(lp.ln1, x, cfg.norm)
     q, k, v = L.qkv(lp.attn, h, cfg, positions)
-    k_cache[:, cache_len - 1] = k[:, 0]
-    v_cache[:, cache_len - 1] = v[:, 0]
+    idx = positions.view(1).long()
+    k_cache.index_copy_(1, idx, k.to(k_cache.dtype))
+    v_cache.index_copy_(1, idx, v.to(v_cache.dtype))
     o = L.decode_attention(q, k_cache, v_cache, cache_len,
                            window=cfg.attn_window, prefix=0)
     x = x + L.attn_out(lp.attn, o)
@@ -216,22 +241,23 @@ def _quantize_kv(x):
     return q.to(torch.int8), amax / 127.0
 
 
-def apply_layer_decode_quant(lp, x, cfg, kq, ks, vq, vs, cache_len: int):
+def apply_layer_decode_quant(lp, x, cfg, kq, ks, vq, vs, cache_len):
     """Decode layer against the int8 cache through the B9 kernel.
 
     kq, vq: (B, KV, Smax, hd) int8; ks, vs: (B, KV, Smax) f32; the new
-    position is quantised and written in place at cache_len - 1."""
+    position is quantised and written in place at cache_len - 1 (a 0-d
+    int32 tensor on the device, which B9 reads there)."""
     assert cfg.attn_window is None, "quant decode kernel: no window support"
-    positions = _position(cache_len - 1, x.device)
+    positions = _position(cache_len)
     h = L.apply_norm(lp.ln1, x, cfg.norm)
     q, k, v = L.qkv(lp.attn, h, cfg, positions)
-    idx = cache_len - 1
+    idx = positions.view(1).long()
     nk, nks = _quantize_kv(k)
     nv, nvs = _quantize_kv(v)
-    kq[:, :, idx] = nk[:, :, 0]
-    vq[:, :, idx] = nv[:, :, 0]
-    ks[:, :, idx] = nks[:, :, 0]
-    vs[:, :, idx] = nvs[:, :, 0]
+    kq.index_copy_(2, idx, nk)
+    vq.index_copy_(2, idx, nv)
+    ks.index_copy_(2, idx, nks)
+    vs.index_copy_(2, idx, nvs)
     B, KV, Smax, hd = kq.shape
     H = q.shape[2]
     G = H // KV
@@ -295,12 +321,17 @@ def logits_from_hidden(params: Transformer, hidden, cfg):
     return L.lm_logits(params.head, hidden, tied_table=tied)
 
 
+def _zero_length(device) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
 def init_cache(cfg, batch: int, max_len: int, device, tp: int = 1,
                dtype=torch.bfloat16) -> KVCache:
     _, KV = cfg.padded_heads(tp)
     shape = (cfg.n_layers, batch, max_len, KV, cfg.resolved_head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device), 0)
+                   torch.zeros(shape, dtype=dtype, device=device),
+                   _zero_length(device), HostLength())
 
 
 def init_quant_cache(cfg, batch: int, max_len: int, device,
@@ -311,37 +342,62 @@ def init_quant_cache(cfg, batch: int, max_len: int, device,
         torch.zeros(shape, dtype=torch.int8, device=device),
         torch.zeros(shape, dtype=torch.int8, device=device),
         torch.zeros(shape[:-1], dtype=torch.float32, device=device),
-        torch.zeros(shape[:-1], dtype=torch.float32, device=device), 0)
+        torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+        _zero_length(device), HostLength())
+
+
+def capacity(cache) -> int:
+    """Positions the cache has room for."""
+    return cache.k.shape[3 if isinstance(cache, QuantKVCache) else 2]
+
+
+def copy_cache(cache):
+    """A copy whose tensors and counts are its own: steps on the copy
+    leave the original as it was."""
+    return cache._replace(
+        host_length=HostLength(cache.host_length.n),
+        **{f: getattr(cache, f).clone() for f in cache._fields
+           if isinstance(getattr(cache, f), torch.Tensor)})
+
+
+def set_length(cache, n: int) -> None:
+    """Set both counts of the cache to ``n`` positions (the device's by
+    a fill: nothing is read back)."""
+    cache.length.fill_(n)
+    cache.host_length.n = n
 
 
 def decode_step(params: Transformer, cache, token, cfg):
-    """One decode step: token (B, 1) -> (logits (B, vocab), cache with the
-    new position written and length + 1).  The cache flavour picks the
-    attention: plain over a float cache, the B9 kernel over int8."""
+    """One decode step: token (B, 1) -> (logits (B, vocab), cache).  The
+    cache's lengths, on the device and on the host, advance in place, the
+    new position is written at length - 1, and nothing is read back from
+    the device, so the step can be captured in a CUDA graph.  The cache flavour picks the attention:
+    plain over a float cache, the B9 kernel over int8."""
+    if cache.host_length.n >= capacity(cache):
+        raise ValueError(f"the cache holds {cache.host_length.n} positions, "
+                         f"all it has room for")
     cd = getattr(torch, cfg.compute_dtype)
     x = L.embed(params.embedding, token, cd)
-    new_len = cache.length + 1
-    if new_len > cache.k.shape[3 if isinstance(cache, QuantKVCache) else 2]:
-        raise ValueError(f"the cache holds {cache.length} positions, all "
-                         f"it has room for")
+    cache.length.add_(1)
+    cache.host_length.n += 1
     for i, lp in enumerate(params.layers):
         if isinstance(cache, QuantKVCache):
             x = apply_layer_decode_quant(lp, x, cfg, cache.k[i],
                                          cache.k_scale[i], cache.v[i],
-                                         cache.v_scale[i], new_len)
+                                         cache.v_scale[i], cache.length)
         else:
             x = apply_layer_decode(lp, x, cfg, cache.k[i], cache.v[i],
-                                   new_len)
+                                   cache.length)
     h = L.apply_norm(params.final_norm, x, cfg.norm)
     logits = logits_from_hidden(params, h, cfg)
-    return logits[:, 0], cache._replace(length=new_len)
+    return logits[:, 0], cache
 
 
 def prefill(params: Transformer, tokens, cfg, cache: KVCache, *,
             chunk_q=1024, chunk_k=1024, attn_impl="xla"):
     """Run the prompt (B, S), write its keys and values into the float
-    cache (positions 0 .. S - 1, in place), return (last-position logits
-    (B, vocab), the cache with length S)."""
+    cache (positions 0 .. S - 1, in place) and set its length to S, return
+    (last-position logits (B, vocab), the cache)."""
     if not isinstance(cache, KVCache):
         raise TypeError("prefill fills a float KVCache; an int8 cache takes "
                         "its prompt one token a step through decode_step")
@@ -362,6 +418,7 @@ def prefill(params: Transformer, tokens, cfg, cache: KVCache, *,
                         chunk_k=chunk_k)
         x = x + L.attn_out(lp.attn, o)
         x = _mlp_block(lp, x, cfg)
+    set_length(cache, S)
     h = L.apply_norm(params.final_norm, x[:, -1:], cfg.norm)
     logits = logits_from_hidden(params, h, cfg)
-    return logits[:, 0], cache._replace(length=S)
+    return logits[:, 0], cache

@@ -119,11 +119,12 @@ def test_group_ungroup_round_trip():
     assert torch.equal(kg[1 * 2 + 1], k[1, :, 1])
 
 
-@pytest.mark.parametrize("length", [1, 37, 48, 64])
+@pytest.mark.parametrize("length", [0, 1, 37, 48, 64])
 @pytest.mark.parametrize("cache", ["f32", "bf16", "int8"])
 def test_decode_plain_matches_pallas(cache, length):
-    """Lengths: one position, a ragged one, a block boundary of the Pallas
-    kernel (bs = 16) and the whole cache."""
+    """Lengths: none (zeros), one position, a ragged one, a block boundary
+    of the Pallas kernel (bs = 16) and the whole cache; the length a 0-d
+    int32 tensor, as the cache holds it."""
     rng = np.random.default_rng(length)
     BKV, G, D, Smax = 4, 4, 16, 64
     q = rng.normal(size=(BKV, G, D)).astype(np.float32)
@@ -149,7 +150,9 @@ def test_decode_plain_matches_pallas(cache, length):
         tol = F32_TOL if cache == "f32" else BF16_TOL
     want = jax_decode(jq, jk, jv, jnp.int32(length), bs=16, interpret=True,
                       **scales)
-    got = ops.decode_attention(tq, tk, tv, length, **tscales)
+    got = ops.decode_attention(tq, tk, tv,
+                               torch.tensor(length, dtype=torch.int32),
+                               **tscales)
     assert got.dtype == tq.dtype
     np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), **tol)
     assert ops.launch_counts()["decode_attention"] == 0
@@ -161,10 +164,28 @@ def test_decode_plain_ignores_positions_past_length():
     q = torch.from_numpy(rng.normal(size=(2, 4, 8)).astype(np.float32))
     k = torch.from_numpy(rng.normal(size=(2, 40, 8)).astype(np.float32))
     v = torch.from_numpy(rng.normal(size=(2, 40, 8)).astype(np.float32))
-    a = ref.decode_attention(q, k, v, 23)
+    length = torch.tensor(23, dtype=torch.int32)
+    a = ref.decode_attention(q, k, v, length)
     k[:, 23:] = 1e4
     v[:, 23:] = -1e4
-    assert torch.equal(ref.decode_attention(q, k, v, 23), a)
+    assert torch.equal(ref.decode_attention(q, k, v, length), a)
+
+
+def test_decode_length_must_be_a_device_int32_scalar():
+    """The kernel reads ``length`` on the device: the CUDA wrapper takes
+    only a 0-d int32 tensor there (a host int, another dtype or shape is
+    refused), and refuses CPU tensors outright."""
+    from repro_torch.kernels import decode_attention as da
+
+    da.check_length(torch.tensor(5, dtype=torch.int32), torch.device("cpu"))
+    for bad in (5, torch.tensor(5), torch.tensor([5], dtype=torch.int32)):
+        with pytest.raises(ValueError, match="0-d int32"):
+            da.check_length(bad, torch.device("cpu"))
+    q = torch.zeros((2, 4, 8))
+    k = torch.zeros((2, 16, 8))
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        da.decode_attention_cuda(q, k, k, torch.tensor(3, dtype=torch.int32))
+    assert da.decode_attention_cuda.launches == 0
 
 
 # -- the tensor-core variant's rounding (p_dtype) and the dispatch ----------

@@ -190,7 +190,8 @@ def test_hidden_and_prefill_match_jax(jax_params, dtype, attn_impl):
     got_l, got_c = tm.prefill(tp, {"tokens": torch.from_numpy(toks)},
                               tm.init_decode_state(2, 40, torch.float32,
                                                    device="cpu"), **kw)
-    assert got_l.shape == (2, tcfg.padded_vocab()) and got_c.length == 32
+    assert got_l.shape == (2, tcfg.padded_vocab())
+    assert int(got_c.length) == got_c.host_length.n == 32
     _close(got_l, want_l, tol)
     _close(got_c.k, want_c.k, tol)
     _close(got_c.v, want_c.v, tol)
@@ -215,7 +216,8 @@ def test_decode_steps_match_jax(jax_params, dtype, quant):
         want, js = jm.decode_step(jp, js, jnp.asarray(toks[:, t:t + 1]))
         got, ts = tm.decode_step(tp, ts, torch.from_numpy(toks[:, t:t + 1]))
         _close(got, want, tol)
-    assert ts.length == int(js.length) == 6
+    assert ts.length.dtype == torch.int32 and ts.length.dim() == 0
+    assert int(ts.length) == int(js.length) == ts.host_length.n == 6
     if quant:
         # f32: the same codes.  bf16: k is rounded to bf16 twice (the
         # projection, then the rope), at places XLA and PyTorch choose
@@ -228,6 +230,101 @@ def test_decode_steps_match_jax(jax_params, dtype, quant):
         assert diff.max() <= (0 if dtype == "f32" else 3)
         _close(ts.k_scale, js.k_scale, dict(rtol=1e-4, atol=1e-6)
                if dtype == "f32" else dict(rtol=2 ** -6, atol=1e-6))
+
+
+_HOST_READS = ("item", "__int__", "__index__", "__bool__", "tolist")
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16cache", "int8"])
+def test_decode_step_reads_nothing_from_the_device(jax_params, monkeypatch,
+                                                   quant):
+    """A serve step (decode step and the sharded head) with every way of
+    reading a tensor on the host patched to raise: the precondition for
+    capturing the step in a CUDA graph, shown without a card.  The length
+    advances in place."""
+    _, tcfg, _ = _cfgs("f32")
+    tm, tp = build(tcfg, cache_quant=quant), params_from_jax(jax_params)
+    st = tm.init_decode_state(2, 8, torch.float32, device="cpu")
+    length = st.length
+    step = make_serve_step(tm, shards=8, k=4)
+    tok = torch.tensor([3, 5])
+
+    def refuse(*a, **kw):
+        raise AssertionError("a tensor was read on the host")
+
+    with monkeypatch.context() as m:
+        for name in _HOST_READS:
+            m.setattr(torch.Tensor, name, refuse)
+        nxt, st = step(tp, st, tok)
+        nxt, st = step(tp, st, nxt)
+    assert st.length is length and int(length) == st.host_length.n == 2
+    assert nxt.shape == (2,)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16cache", "int8"])
+def test_capacity_check_raises_at_smax(jax_params, quant):
+    """decode_step raises once the cache is full, from the host count; the
+    decode loop refuses steps that would overrun it before taking any."""
+    _, tcfg, _ = _cfgs("f32")
+    tm, tp = build(tcfg, cache_quant=quant), params_from_jax(jax_params)
+    st = tm.init_decode_state(2, 3, torch.float32, device="cpu")
+    tok = torch.tensor([[1], [2]])
+    for _ in range(3):
+        _, st = tm.decode_step(tp, st, tok)
+    with pytest.raises(ValueError, match="all it has room for"):
+        tm.decode_step(tp, st, tok)
+    assert int(st.length) == st.host_length.n == 3
+    st = tm.init_decode_state(2, 3, torch.float32, device="cpu")
+    with pytest.raises(ValueError, match="overrun"):
+        decode_loop(tm, tp, st, tok[:, 0], 4, shards=1)
+    assert int(st.length) == st.host_length.n == 0
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16cache", "int8"])
+def test_stale_state_keeps_one_count(jax_params, quant):
+    """Steps on a tuple of the cache that a later step has made stale
+    advance the same counts as steps on the newest: the host count never
+    disagrees with the device length, and both checks still refuse to
+    overrun Smax."""
+    _, tcfg, _ = _cfgs("f32")
+    tm, tp = build(tcfg, cache_quant=quant), params_from_jax(jax_params)
+    stale = tm.init_decode_state(2, 3, torch.float32, device="cpu")
+    tok = torch.tensor([[1], [2]])
+    for n in range(1, 4):
+        _, fresh = tm.decode_step(tp, stale, tok)
+        assert (int(stale.length) == stale.host_length.n == n
+                == int(fresh.length) == fresh.host_length.n)
+    with pytest.raises(ValueError, match="all it has room for"):
+        tm.decode_step(tp, stale, tok)
+    with pytest.raises(ValueError, match="overrun"):
+        decode_loop(tm, tp, stale, tok[:, 0], 1, shards=1)
+    copy = T.copy_cache(stale)
+    T.set_length(copy, 1)
+    assert int(stale.length) == stale.host_length.n == 3
+    assert int(copy.length) == copy.host_length.n == 1
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16cache", "int8"])
+def test_decode_loop_forced_matches_decode_steps(jax_params, quant):
+    """decode_loop with ``forced`` tokens and ``logits_out`` against the
+    same decode steps one by one on a copy of the state: the same logits
+    each step and the same tokens."""
+    _, tcfg, _ = _cfgs("f32")
+    tm, tp = build(tcfg, cache_quant=quant), params_from_jax(jax_params)
+    st = tm.init_decode_state(2, 12, torch.float32, device="cpu")
+    fed = torch.from_numpy(_tokens((2, 6), 4, tcfg.vocab_size)).long()
+    want_st = T.copy_cache(st)
+    logits = []
+    got, st = decode_loop(tm, tp, st, fed[:, 0], 6, shards=4,
+                          forced=fed[:, 1:], logits_out=logits)
+    assert len(logits) == 6 and int(st.length) == st.host_length.n == 6
+    for t in range(6):
+        want, want_st = tm.decode_step(tp, want_st, fed[:, t:t + 1])
+        assert torch.equal(logits[t], want)
+        assert torch.equal(got[:, t + 1], want.argmax(-1))
+    assert torch.equal(got[:, 0], fed[:, 0])
+    with pytest.raises(ValueError, match="forced"):
+        decode_loop(tm, tp, st, fed[:, 0], 3, shards=4, forced=fed)
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16cache", "int8"])
@@ -362,7 +459,7 @@ def test_slice_greedy_tokens_match_jax(jax_params, dtype, shards):
                             device="cpu"),
                         attn_impl="flash")
     got, ts = decode_loop(tm, tp, ts, tl.argmax(-1), steps, shards=shards)
-    assert ts.length == 16 + steps
+    assert int(ts.length) == ts.host_length.n == 16 + steps
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -376,9 +473,9 @@ def test_sampling_serve_step_draws_from_the_topk(jax_params):
     st = tm.init_decode_state(2, 8, torch.float32, device="cpu")
     tok = torch.tensor([1, 2])
     for _ in range(4):
-        # the step's logits: decode_step from the same state (the serve
-        # step then writes the same position again)
-        logits, _ = tm.decode_step(tp, st, tok[:, None])
+        # the step's logits: decode_step on a copy of the state (a step
+        # advances the state's length in place)
+        logits, _ = tm.decode_step(tp, T.copy_cache(st), tok[:, None])
         nxt, st = step(tp, st, tok)
         top = torch.topk(logits, 3).indices
         assert all(int(nxt[b]) in top[b].tolist() for b in range(2))

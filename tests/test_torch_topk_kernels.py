@@ -81,6 +81,61 @@ def test_block_topk_bit_identical_to_jax(n, k, block, masked):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+def _adversarial(kind: str, n: int, rng) -> np.ndarray:
+    """Values that stress the selection's ties and its key order."""
+    if kind == "ties_at_k":       # a few 9s, then ties at the k-th value
+        v = np.where(rng.random(n) < 0.1, 9.0, 5.0)
+        v[rng.random(n) < 0.2] = 3.0
+    elif kind == "all_equal":
+        v = np.full(n, 7.0)
+    elif kind == "signed_zeros":  # -0.0 and +0.0 tie: index order decides
+        v = rng.choice([-0.0, 0.0, 0.0, -0.0, -1.5, 2.5], n)
+    elif kind == "infinities":    # -inf values are not finite ones
+        v = rng.choice([np.inf, -np.inf, 1.0, -2.0, 0.0], n,
+                       p=[0.1, 0.4, 0.2, 0.2, 0.1])
+    else:                         # "exhausted": few finite values a block
+        v = rng.integers(-5, 5, n).astype(np.float64)
+    return v.astype(np.float32)
+
+
+@pytest.mark.parametrize("kind,n,k,block,masked", [
+    ("ties_at_k", 300, 10, 64, False), ("ties_at_k", 300, 40, 64, True),
+    ("all_equal", 100, 5, 32, False), ("all_equal", 100, 32, 32, True),
+    ("signed_zeros", 200, 8, 64, False), ("signed_zeros", 200, 16, 32, True),
+    ("infinities", 150, 12, 32, False), ("infinities", 150, 32, 32, True),
+    ("exhausted", 256, 20, 64, True)])
+def test_block_topk_adversarial_blocks_match_jax(kind, n, k, block, masked):
+    """Heavy ties at the k-th value, all-equal blocks, mixed -0.0 and
+    +0.0, +-inf, k = block (a ragged last block of pads) and masked blocks
+    that run out of finite values: keys identical to the Pallas kernel's
+    and ref's, values equal (-0.0 == +0.0).  Subnormals stay out: XLA on
+    the CPU flushes them; the card compares them (chip_smoke phase 6b)."""
+    rng = np.random.default_rng(len(kind) * 1000 + n + k)
+    v = _adversarial(kind, n, rng)
+    keys = (np.arange(n) * 7 + 1).astype(np.int32)
+    m = (rng.random(n) < (0.05 if kind == "exhausted" else 0.5)
+         if masked else None)
+    got = ops.block_topk(torch.from_numpy(v), torch.from_numpy(keys), k=k,
+                         mask=None if m is None else torch.from_numpy(m),
+                         block=block)
+    jm = None if m is None else jnp.asarray(m)
+    for want in (jts.block_topk(jnp.asarray(v), jnp.asarray(keys), k, jm,
+                                block=block, interpret=True),
+                 jref.block_topk(jnp.asarray(v), jnp.asarray(keys), k, jm,
+                                 block)):
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    if kind in ("infinities", "exhausted") and masked:
+        # past a block's finite values: -inf with the key of element 0
+        first = keys[::block][:got[1].shape[0]]
+        tail = torch.isneginf(got[0])
+        assert tail.any()
+        assert torch.equal(got[1][tail],
+                           torch.from_numpy(first)[:, None].expand_as(
+                               got[1])[tail])
+
+
 def test_block_topk_rows_are_independent():
     """Node-stacked (L, N): each row equals the 1-D result of that row."""
     rng = np.random.default_rng(5)

@@ -80,8 +80,8 @@ FAULTS = {
     },
     "decode_attention": {
         "newest_position_dropped": (
-            "const int s1 = min(s0 + chunk, length);",
-            "const int s1 = min(s0 + chunk, length - 1);"),
+            "const int length = min(max(*a.length, 0), a.Smax);",
+            "const int length = min(max(*a.length - 1, 0), a.Smax);"),
         "output_zeroed": ("from_f32<TQ>(A / fmaxf(L, 1e-30f))",
                           "from_f32<TQ>(0.f * A)"),
     },
