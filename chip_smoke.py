@@ -14,16 +14,26 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
 3. Kernels against their plain PyTorch versions on the card:
    ``scan_filter`` bit-identical over widths {1, 2, 4, 6, 12, 21, 30}, both
    ``negate`` values and ragged row counts; ``filtered_group_sum`` at Q1's
-   shape (8 nodes x the lineitem rows per node, G = 6, C = 6) and at
-   G = 512, C = 64 with ragged N, within rtol 1e-5 of the plain version in
-   float64 (f32 sums in another order), and bit-identical from run to run.
-   The wire codec (``ef_encode``, ``ef_decode``, ``mask_fold``,
-   ``mask_unfold``) bit-identical to its plain version at the CPU tests'
-   shapes (low-bit widths l = 0..17, empty, full and duplicate-key rows),
-   on node-stacked rows, and at the three SF 10 exchange shapes (q4_sj:
-   64 rows x 8,388,608 slots, l = 17; q18_sj: 131,072, l = 14;
-   q14_promo_request: 262,144, l = 14); fold/unfold at ragged widths; the
-   same inputs twice give identical words.
+   shape (8 nodes x the lineitem rows per node, G = 6, C = 6) and on both
+   of its variants (registers: (6, 6), (1, 1), (8, 8), (9, 7), (64, 1);
+   shared slabs: (64, 64), (512, 6), (512, 64), (65, 1), (1, 9)), with N
+   not a multiple of 4, groups outside [0, G) and no row passing, within
+   rtol 1e-5 of the plain version in float64 (f32 sums in another order),
+   and bit-identical from run to run.  The wire codec (``ef_encode``,
+   ``ef_decode``, ``mask_fold``, ``mask_unfold``) bit-identical to its
+   plain version at the CPU tests' shapes (low-bit widths l = 0..17,
+   empty, full and duplicate-key rows), on node-stacked rows, and at the
+   three SF 10 exchange shapes (q4_sj: 64 rows x 8,388,608 slots, l = 17;
+   q18_sj: 131,072, l = 14; q14_promo_request: 262,144, l = 14);
+   fold/unfold at ragged widths; then on adversarial inputs: capacities
+   1, 31, 33, 1,023, 1,025, 4,096, 65,552 and 1,000,003 (rows on and off
+   16-byte boundaries, so both the 16-byte and the scalar variants run,
+   the aligned ones also from misaligned copies) by l in {0, 1, 2, 4, 7,
+   8, 14, 16, 17}, with the top keys' high part at 15 (upper bits past
+   ceil(cap / 32) words), keys below base and past base + domain
+   (clipped), runs of equal keys across the kernels' tile boundaries and
+   masks that are no prefix.  The same inputs twice give identical
+   words.
 4. Queries: ``TPCHDriver(sf, num_nodes=8, device="cuda")`` generates the
    packed TPC-H tables and places them on the card; q6, q1 and q1_kernel
    run through ``run_ir`` and must match the float64 oracle within rtol
@@ -46,7 +56,8 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
 6. Times: warm median of each query (CUDA events), generation seconds and
    resident bytes; each kernel's time at its main-path shape beside its
    plain version, a PyTorch library call where one exists, and its bound
-   (the codec kernels at the q4_sj and q18_sj shapes).
+   (the codec kernels at the q4_sj and q18_sj inputs, with the share of
+   ``ef_decode`` that its per-row marker pass ``ef_zeros`` takes).
 6b. The hand plans on the same driver: ``block_topk`` (B4),
    ``predicate_bitset`` (B5) and ``mbit_encode`` (B6) bit-identical to
    their plain versions, each twice: B4 over k in {1, 10, 100, 128},
@@ -405,14 +416,132 @@ def check_wire_codec(torch, compression, ops, ref, gen):
           "ragged widths {8,32,33,97,256,4099,131077}, repeatable")
 
 
-def check_group_sum(torch, ops, ref, gen, n, num_groups, c, cutoff):
+# Adversarial codec inputs: capacities whose rows start on no 16-byte
+# boundary (scalar variants) and on one (16-byte variants), domains of a
+# power of two for l = 0, 1, 2, 4, 7, 8, 14, 16, 17 (a power of two puts
+# the top key's high part at 15), each with every kind of
+# adversarial_buckets
+CODEC_CAPS = (1, 31, 33, 1023, 1025, 4096, 65552, 1_000_003)
+CODEC_DOMAINS = (16, 32, 64, 256, 2048, 4096, 2 ** 18, 2 ** 20, 2 ** 21)
+CODEC_KINDS = ("top", "clip", "dups", "holes")
+
+
+def adversarial_buckets(torch, gen, rows, cap, domain, kind):
+    """Key buckets on the card, ascending over each row's valid slots,
+    row r's keys based at r * domain; row 0 is full, the others hold a
+    random count.  Kinds: "top" (the last 40 valid keys at the top of the
+    domain: high part 15, so the upper bits spill past ceil(cap / 32)
+    words), "clip" (keys from base - domain to base + 2 domain, clipped by
+    the encoder), "dups" (runs of 61 equal keys, so runs straddle every
+    tile boundary of the kernels), "holes" (a random mask, no prefix: the
+    encoder and fold/unfold must not assume one)."""
+    r = torch.arange(rows, device="cuda")
+    j = torch.arange(cap, device="cuda")
+    count = torch.randint(1, cap + 1, (rows,), generator=gen, device="cuda")
+    count[0] = cap
+    mask = j < count[:, None]
+    lo, hi = (-domain, 2 * domain) if kind == "clip" else (0, domain)
+    offs = torch.randint(lo, hi, (rows, cap), generator=gen, device="cuda")
+    if kind == "dups":
+        offs = torch.clamp((j // 61) * max(1, domain // (cap // 61 + 1)),
+                           max=domain - 1).expand(rows, cap)
+    offs = torch.sort(offs, dim=1).values
+    if kind == "top":
+        offs = torch.where(j >= count[:, None] - 40, domain - 1, offs)
+    if kind == "holes":
+        mask = torch.rand((rows, cap), generator=gen, device="cuda") < 0.5
+    base = r * domain
+    keys = torch.where(mask, offs + base[:, None], 0).to(torch.int32)
+    return keys, mask, base
+
+
+def _misaligned(torch, t):
+    """A contiguous copy of int32 or bool ``t`` whose data starts 4 bytes
+    past a 16-byte boundary (the kernels' scalar variants)."""
+    skip = 4 // t.element_size()
+    flat = torch.empty(t.numel() + skip, dtype=t.dtype, device=t.device)
+    return flat[skip:].view(t.shape).copy_(t)
+
+
+def check_codec_adversarial(torch, compression, ops, ref, gen):
+    """B3's four kernels against their plain versions on CODEC_CAPS x
+    CODEC_DOMAINS x CODEC_KINDS, the 16-byte-ready inputs also as
+    misaligned copies: words, keys and masks bit-identical, every input
+    encoded twice with the same words; ef_decode on every well-formed row
+    (all but "holes").  Returns the cases run and how many took each
+    variant."""
+    from repro_torch.kernels import wire_codec as wc
+
+    cases, variants = 0, collections.Counter()
+    for cap in CODEC_CAPS:
+        rows = 3 if cap > 100_000 else 5
+        domains = CODEC_DOMAINS if cap < 100_000 else (256, 2 ** 21)
+        for domain in domains:
+            for kind in CODEC_KINDS:
+                keys, mask, base = adversarial_buckets(torch, gen, rows, cap,
+                                                       domain, kind)
+                inputs = [(keys, mask)]
+                if wc.vector_rows(cap, keys, mask):
+                    inputs.append((_misaligned(torch, keys),
+                                   _misaligned(torch, mask)))
+                want = ref.ef_encode(keys, mask, base, domain)
+                what = f"cap={cap} domain={domain} {kind}"
+                for k, m in inputs:
+                    variants["encode 16-byte" if wc.vector_rows(cap, k, m)
+                             else "encode scalar"] += 1
+                    words = ops.ef_encode(k, m, base, domain=domain)
+                    again = ops.ef_encode(k, m, base, domain=domain)
+                    folded = ops.mask_fold(m)
+                    torch.cuda.synchronize()
+                    if not torch.equal(words, want):
+                        fail(f"ef_encode {what} differs from its plain "
+                             f"version")
+                    if not torch.equal(words, again):
+                        fail(f"ef_encode {what} not repeatable")
+                    if not torch.equal(folded, ref.mask_fold(m)):
+                        fail(f"mask_fold {what} differs from its plain "
+                             f"version")
+                    variants["fold 16-byte" if wc.vector_rows(cap, m)
+                             else "fold scalar"] += 1
+                back = ops.mask_unfold(folded, n=cap)
+                variants["decode and unfold 16-byte" if cap % 16 == 0
+                         else "decode and unfold scalar"] += 1
+                torch.cuda.synchronize()
+                if not torch.equal(back, mask):
+                    fail(f"mask_unfold {what} does not recover the mask")
+                cases += 1
+                if kind == "holes":
+                    # EF decodes the i-th upper bit into slot i: these
+                    # words are no valid row, which no decoder defines
+                    continue
+                dk, dm = ops.ef_decode(words, base, capacity=cap,
+                                       domain=domain)
+                wk, wm = ref.ef_decode(want, base, cap, domain)
+                torch.cuda.synchronize()
+                if not (torch.equal(dk, wk) and torch.equal(dm, wm)):
+                    fail(f"ef_decode {what} differs from its plain version")
+                # a clipped key decodes clipped
+                if kind != "clip" and not (torch.equal(dk, keys)
+                                           and torch.equal(dm, mask)):
+                    fail(f"ef_decode {what} does not recover the keys")
+    return cases, dict(variants)
+
+
+def check_group_sum(torch, ops, ref, gen, n, num_groups, c, cutoff, *,
+                    outside=False, none_pass=False):
     """B2 against the plain version in float64: rtol 1e-5, and identical
-    from run to run.  Returns (max_abs_err, inputs)."""
+    from run to run.  ``outside`` draws groups from [-2, G + 2) (rows
+    outside [0, G) are dropped), ``none_pass`` predicates that no row
+    passes (the sums are exactly 0).  Returns (max_abs_err, inputs)."""
+    from repro_torch.kernels.grouped_agg import uses_registers
+
     measures = torch.rand((NODES, n, c), generator=gen, device="cuda")
-    groups = torch.randint(0, num_groups, (NODES, n), generator=gen,
-                           device="cuda", dtype=torch.int32)
-    pred = torch.randint(0, 2 * cutoff, (NODES, n), generator=gen,
-                         device="cuda", dtype=torch.int32)
+    lo, hi = (-2, num_groups + 2) if outside else (0, num_groups)
+    groups = torch.randint(lo, hi, (NODES, n), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    lo, hi = (cutoff + 1, 2 * cutoff + 1) if none_pass else (0, 2 * cutoff)
+    pred = torch.randint(lo, hi, (NODES, n), generator=gen, device="cuda",
+                         dtype=torch.int32)
     got = ops.filtered_group_sum(measures, groups, pred, cutoff=cutoff,
                                  num_groups=num_groups)
     again = ops.filtered_group_sum(measures, groups, pred, cutoff=cutoff,
@@ -427,8 +556,13 @@ def check_group_sum(torch, ops, ref, gen, n, num_groups, c, cutoff):
     if rel > 1e-5:
         fail(f"filtered_group_sum G={num_groups} C={c} N={n}: max relative "
              f"error {rel} > 1e-5")
-    print(f"filtered_group_sum P={NODES} N={n} G={num_groups} C={c}: max "
-          f"relative error {rel:.3e} (rtol 1e-5), repeatable")
+    path = ("registers" if uses_registers(num_groups, c) else "slabs") + (
+        ", 16-byte loads" if uses_registers(num_groups, c) and n % 4 == 0
+        else "")
+    print(f"filtered_group_sum P={NODES} N={n} G={num_groups} C={c} "
+          f"({path}{'; groups outside [0, G)' if outside else ''}"
+          f"{'; no row passes' if none_pass else ''}): max relative error "
+          f"{rel:.3e} (rtol 1e-5), repeatable")
     return float(err.max()), (measures, groups, pred)
 
 
@@ -451,8 +585,27 @@ def tpch_phases(args, torch, smi: str):
     cutoff = DP.q1_shipdate_max
     fgs_err, fgs_inputs = check_group_sum(torch, ops, ref, gen,
                                           rows_per_node, 6, 6, cutoff)
-    check_group_sum(torch, ops, ref, gen, 50_001, 512, 64, cutoff)
+    # both variants and the register variant's bounds on G * C; N not a
+    # multiple of 4; groups outside [0, G); no row passing
+    for n, g, c, kw in ((50_001, 512, 64, {}), (50_003, 6, 6, {}),
+                        (4_099, 1, 1, {}), (65_536, 8, 8, {"outside": True}),
+                        (30_001, 9, 7, {}), (30_000, 64, 1, {}),
+                        (30_000, 65, 1, {}), (30_000, 1, 9, {}),
+                        (4_097, 64, 64, {"outside": True}),
+                        (50_001, 512, 6, {"outside": True}),
+                        (50_000, 6, 6, {"none_pass": True}),
+                        (50_001, 6, 6, {"none_pass": True})):
+        check_group_sum(torch, ops, ref, gen, n, g, c, cutoff, **kw)
     check_wire_codec(torch, compression, ops, ref, gen)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    n_cases, variants = check_codec_adversarial(torch, compression, ops,
+                                                ref, gen)
+    print(f"codec kernels: bit-identical to the plain version on {n_cases} "
+          f"adversarial inputs (capacities {CODEC_CAPS}, domains "
+          f"{CODEC_DOMAINS}, kinds {CODEC_KINDS}), each encoded twice "
+          f"alike; variants run {variants} ({time.perf_counter() - t0:.1f} "
+          f"s)")
     torch.cuda.empty_cache()
 
     # -- 4. queries through the port's main path --------------------------------
@@ -756,16 +909,23 @@ def tpch_phases(args, torch, smi: str):
     for (label, k), (a, kw) in sorted(recorded.items()):
         fn, plain, nbytes = codec_case(k, a, kw)
         b_ms, b_by = bound(nbytes, 10 * a[0].numel())
-        codec_times[(label, k)] = {
+        t = codec_times[(label, k)] = {
             "ms": cuda_ms(fn, iters),
             "plain_ms": cuda_ms(plain, 3),
             "bound_ms": b_ms, "bound_by": b_by,
             "shape": f"{tuple(a[0].shape)} {dict(kw)}"}
         torch.cuda.empty_cache()
-        print(f"{k} at the {label} input {codec_times[(label, k)]['shape']}: "
-              f"{codec_times[(label, k)]['ms']:.4f} ms, plain "
-              f"{codec_times[(label, k)]['plain_ms']:.3f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}, {nbytes} B)")
+        print(f"{k} at the {label} input {t['shape']}: {t['ms']:.4f} ms "
+              f"({t['ms'] / b_ms:.2f}x the bound), plain "
+              f"{t['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by}, "
+              f"{nbytes} B)")
+        if k == "ef_decode":
+            # the per-row marker pass, the first of ef_decode's launches
+            zeros_ms = cuda_ms(lambda: wc.ef_zeros_cuda(
+                a[0], capacity=kw["capacity"], domain=kw["domain"]), iters)
+            t["ef_zeros_ms"] = zeros_ms
+            print(f"ef_zeros at the {label} input: {zeros_ms:.4f} ms, "
+                  f"{zeros_ms / t['ms']:.1%} of ef_decode")
     recorded.clear()
 
     # -- 6b. the hand plans, kernels B4-B6 ---------------------------------------

@@ -50,7 +50,8 @@ def test_scan_filter_bit_identical_to_pallas_and_xla(width, negate):
 
 
 @pytest.mark.parametrize("num_groups,c", [(6, 6), (6, 64), (512, 6),
-                                          (512, 64)])
+                                          (512, 64), (1, 1), (8, 8),
+                                          (9, 7), (65, 1)])
 def test_filtered_group_sum_matches_pallas(num_groups, c):
     rng = np.random.default_rng(num_groups + c)
     nodes, n, cutoff = 2, 3001, 500
@@ -68,6 +69,19 @@ def test_filtered_group_sum_matches_pallas(num_groups, c):
         # f32 sums in another order than the Pallas grid's
         np.testing.assert_allclose(got[p].numpy(), want, rtol=1e-5)
     assert ops.launch_counts()["filtered_group_sum"] == 0
+
+
+@pytest.mark.parametrize("num_groups,c,want", [
+    (6, 6, True), (1, 1, True), (8, 8, True), (64, 1, True), (9, 7, True),
+    (1, 8, True), (65, 1, False), (1, 9, False), (8, 9, False),
+    (7, 9, False), (64, 64, False), (512, 6, False)])
+def test_group_sum_variant_choice(num_groups, c, want):
+    """The register variant takes C <= 8 and G * C <= 64 (Q1: 6 x 6); the
+    shared-slab variant the rest.  The choice is a function of (G, C)
+    alone, so it is the same on every input of a plan."""
+    from repro_torch.kernels.grouped_agg import uses_registers
+
+    assert uses_registers(num_groups, c) is want
 
 
 @pytest.mark.parametrize("num_groups,c", [(6, 6), (512, 64), (1, 1)])

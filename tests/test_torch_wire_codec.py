@@ -27,10 +27,12 @@ def _u32(t: torch.Tensor) -> np.ndarray:
     return t.numpy().astype(np.int32).view(np.uint32)
 
 
-def _synth_buckets(cap, domain, rows=4, seed=0):
+def _synth_buckets(cap, domain, rows=4, seed=0, top=False):
     """Sorted per-destination buckets: row 0 empty, row 1 full, row 2 with
     every key repeated (duplicates), the rest random fills; row d's keys
-    lie in [d * domain, (d + 1) * domain)."""
+    lie in [d * domain, (d + 1) * domain).  ``top`` puts the last 20 keys
+    of each row at the top of the domain (high part 15 where the domain is
+    a power of two)."""
     rng = np.random.default_rng(seed)
     buckets = np.zeros((rows, cap), np.int32)
     mask = np.zeros((rows, cap), bool)
@@ -41,15 +43,21 @@ def _synth_buckets(cap, domain, rows=4, seed=0):
         if d == 2:
             keys = np.sort(np.repeat(keys[:max(1, count // 3)], 3)[:count])
             count = len(keys)
+        if top:
+            keys[-20:] = domain - 1
         buckets[d, :count] = keys + d * domain
         mask[d, :count] = True
     return buckets, mask
 
 
 # the JAX package's parity shapes (l = 0, 1, 4, 8), then the SF 0.01 and
-# SF 10 exchange domains whose low parts straddle words: l = 7, 14, 17
+# SF 10 exchange domains whose low parts straddle words: l = 7, 14, 17;
+# then capacities of one slot, under a word and one past a 1,024-slot
+# tile at l = 2 and 16 (widths that divide 32)
 CODEC_SHAPES = [(8, 16), (33, 32), (64, 250), (100, 1000), (96, 4096),
-                (257, 1875), (300, 187500), (64, 1875000)]
+                (257, 1875), (300, 187500), (64, 1875000),
+                (1, 64), (1, 2 ** 20), (31, 64), (31, 2 ** 20), (1025, 64),
+                (1025, 2 ** 20)]
 
 
 @pytest.mark.parametrize("cap,domain", CODEC_SHAPES)
@@ -114,6 +122,34 @@ def test_ef_codec_node_stacked_rows(cap, domain):
                                   mask.transpose(1, 0, 2))
 
 
+@pytest.mark.parametrize("cap,domain", [(31, 64), (31, 2 ** 20),
+                                        (1020, 16), (1055, 2 ** 20)])
+def test_ef_codec_top_keys_spill_past_the_last_slot(cap, domain):
+    """Keys at the top of a power-of-two domain have high part 15, so the
+    full row's last upper bit lies in a word past ceil(cap / 32): the
+    upper words the kernels write beyond the slots' own."""
+    buckets, mask = _synth_buckets(cap, domain, seed=cap, top=True)
+    rows = buckets.shape[0]
+    l, uw, _ = jc.ef_params(cap, domain)
+    spill = (cap - 1 + 15) // 32
+    assert (domain - 1) >> l == 15 and jc.bitset_words(cap) <= spill < uw
+    jb, jm = jnp.asarray(buckets), jnp.asarray(mask)
+    base = torch.arange(rows, dtype=torch.int64) * domain
+    words = ops.ef_encode(torch.from_numpy(buckets), torch.from_numpy(mask),
+                          base, domain=domain)
+    assert _u32(words)[1, spill] >> ((cap - 1 + 15) & 31) & 1
+    for name, w in {
+            "ref": jops._ef_encode(jb, jm, domain=domain, impl="ref"),
+            "xla": jops._ef_encode(jb, jm, domain=domain, impl="xla"),
+            "pallas": jwc.ef_encode(jb, jm, domain, use_pallas=True,
+                                    interpret=True)}.items():
+        np.testing.assert_array_equal(_u32(words), np.asarray(w),
+                                      err_msg=name)
+    keys, got = ops.ef_decode(words, base, capacity=cap, domain=domain)
+    np.testing.assert_array_equal(got.numpy(), mask)
+    np.testing.assert_array_equal(keys.numpy(), np.where(mask, buckets, 0))
+
+
 def test_ef_encode_clips_out_of_domain_offsets():
     """Offsets outside [0, domain) are clipped, as the reference clips
     them (the verifier's rules depend on it)."""
@@ -162,6 +198,23 @@ def test_codec_wrappers_refuse_cpu_tensors():
         ef_encode_cuda(torch.zeros((2, 40), dtype=torch.int32),
                        torch.zeros((2, 40), dtype=torch.bool),
                        torch.zeros(2, dtype=torch.int64), domain=100)
+
+
+@pytest.mark.parametrize("dtype", [torch.bool, torch.int32])
+@pytest.mark.parametrize("cols,offset,want", [
+    (4096, 0, True), (4096, 1, False), (4096, 16, True), (4100, 0, False),
+    (1, 0, False), (1024, 3, False), (1040, 0, True)])
+def test_vector_rows_needs_whole_16_byte_rows(dtype, cols, offset, want):
+    """The codec wrappers take a kernel's 16-byte variant only where every
+    row of 16-slot units starts on 16 bytes: ``cols`` a multiple of 16,
+    from a tensor that starts on 16 bytes (``offset`` elements past a
+    fresh allocation)."""
+    from repro_torch.kernels.wire_codec import vector_rows
+
+    flat = torch.zeros(2 * cols + 16, dtype=dtype)
+    assert flat.data_ptr() % 16 == 0
+    t = flat[offset:offset + 2 * cols].view(2, cols)
+    assert vector_rows(cols, t) is want
 
 
 # -- the byte-accurate §3.2.2 model ---------------------------------------
