@@ -12,8 +12,12 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
    from source into ``build/kernels/`` (one ``nvcc`` per source, all in
    parallel); prints the build seconds and the compiler's register report.
 3. Kernels against their plain PyTorch versions on the card:
-   ``scan_filter`` bit-identical over widths {1, 2, 4, 6, 12, 21, 30}, both
-   ``negate`` values and ragged row counts; ``filtered_group_sum`` at Q1's
+   ``scan_filter`` bit-identical and repeatable over every width 1..30 at
+   1, 31, 33 and 1,025 groups a node with P = 1 and 8, bounds inside the
+   codes, below 0, past the top code, crossed (lo > hi), equal and the
+   whole int32 range, rows = padded_rows, ending inside a group and 0,
+   both ``negate`` values, on 16-byte-aligned words and a misaligned copy
+   (both variants); ``filtered_group_sum`` at Q1's
    shape (8 nodes x the lineitem rows per node, G = 6, C = 6) and on both
    of its variants (registers: (6, 6), (1, 1), (8, 8), (9, 7), (64, 1);
    shared slabs: (64, 64), (512, 6), (512, 64), (65, 1), (1, 9)), with N
@@ -39,8 +43,9 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
    run through ``run_ir`` and must match the float64 oracle within rtol
    2e-4.  The launch counters are set to 0 before each query and read
    after it: q6 must launch ``scan_filter`` 3 times, q1 once, q1_kernel
-   ``filtered_group_sum`` once and no scan.  The main-path scans are then
-   held bit-identical against the plain version on the resident words.
+   ``filtered_group_sum`` once and no scan.  The packed scans of q6, q1
+   and q1_kernel's plans are then held bit-identical against the plain
+   version on the resident words, twice.
    Then the exchange queries: q4_sj and q18_sj (packed/xla,
    packed/one_factor, raw/xla), q14_promo (auto: the bitset semi-join),
    q14_promo_request, q4 and q18, each against its oracle (q4 and q4_sj
@@ -57,7 +62,9 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
    resident bytes; each kernel's time at its main-path shape beside its
    plain version, a PyTorch library call where one exists, and its bound
    (the codec kernels at the q4_sj and q18_sj inputs, with the share of
-   ``ef_decode`` that its per-row marker pass ``ef_zeros`` takes).
+   ``ef_decode`` that its per-row marker pass ``ef_zeros`` takes; B1 at
+   q6's ``l_shipdate`` input also as a CUDA graph of 20 calls, and beside
+   the earlier one-warp-a-group kernel's time, ``EARLIER_MS``).
 6b. The hand plans on the same driver: ``block_topk`` (B4),
    ``predicate_bitset`` (B5) and ``mbit_encode`` (B6) bit-identical to
    their plain versions, each twice: B4 over k in {1, 10, 100, 128},
@@ -66,8 +73,12 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
    mixed -0.0 and +0.0, +-inf, subnormals) with k up to the block; B5
    over ragged N with the value absent, present in every row and random;
    B6 over m in {4, 8, 16}, groups 1 to 1,024 and rows that end in half a
-   word.  Then q1, q1_kernel, q6, q4, q18, q15, q15_1factor, q15_approx,
-   q21 and q21_late through ``drv.run(name)``, each against its oracle
+   word, then over m in {1, 2, 4, 8, 16, 32} x groups {1, 2, 3, 4, 5, 32,
+   625, 1,000, 1,024, 4,096} wherever the group divides a row of 375,
+   1,250, 12,500, 12,288 or 30,000 values, as 1-, 2- and 3-D inputs, with
+   all-zero groups and group maxima of 2^31 - 1, 2^m - 1 and 2^m planted
+   (every unit of the kernel runs).  Then q1, q1_kernel, q6, q4, q18,
+   q15, q15_1factor, q15_approx, q21 and q21_late through ``drv.run(name)``, each against its oracle
    (q1, q1_kernel, q6 within rtol 2e-4; q4 exactly; q15 and q18 keys
    exactly, values within rtol 2e-4; q21 keys and counts exactly), no
    overflow, q15_approx shipping fewer bits than the naive variant.  The
@@ -82,7 +93,8 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
    kernel at its main-path input and at the lineitem size (device time of
    a CUDA graph of 20 calls, and an eager loop's time a call beside it)
    beside its plain version, its bound and (B4) ``torch.topk`` on the
-   (blocks, block) view.
+   (blocks, block) view; B6's beside the earlier two-launch kernel's
+   times.
 7. The language model, after the TPC-H phases have
    dropped what they placed on the card:
    a. B7's two CUDA variants.  The f32 CUDA-core ``flash_attention_fwd``
@@ -205,6 +217,15 @@ BF16_OPS_PER_S = 989e12     # tensor cores, dense
 
 NODES = 8
 
+# The redesigned kernels' earlier times on this script's yardsticks, one
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6): B1 (the kernel of one warp
+# a 32-row group, an eager loop of 20 calls at q6's l_shipdate input) and
+# B6 (the two-launch kernel, a CUDA graph of 20 calls at q15_approx's
+# input and at the lineitem stress size).  Printed beside this run's
+# times, never compared.
+EARLIER_MS = {"scan_filter": 0.1867, "mbit_encode": 0.0062,
+              "mbit_encode stress": 0.2771}
+
 
 def cuda_ms(fn, iters: int) -> float:
     """Mean device time of ``fn`` over ``iters`` launches after a warm-up
@@ -296,29 +317,67 @@ def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
+def _misaligned(torch, t):
+    """A contiguous copy of int32 or bool ``t`` whose data starts 4 bytes
+    past a 16-byte boundary (the kernels' scalar variants)."""
+    skip = 4 // t.element_size()
+    flat = torch.empty(t.numel() + skip, dtype=t.dtype, device=t.device)
+    return flat[skip:].view(t.shape).copy_(t)
+
+
+SCAN_GROUPS = (1, 31, 33, 1025)     # 32-row groups a node
+
+
 def check_scan_filter(torch, compression, ops, ref, gen):
-    """B1 against its plain version: bit-identical, ragged rows."""
-    for width in (1, 2, 4, 6, 12, 21, 30):
-        rows = 4099 + 37 * width          # never a multiple of 32
-        padded = -(-rows // 32) * 32
-        codes = torch.randint(0, 1 << width, (NODES, padded),
-                              generator=gen, device="cuda")
-        words = compression.pack_bits(codes, width)
-        lo = int(torch.randint(0, 1 << width, (1,), generator=gen,
-                               device="cuda"))
-        hi = lo + (1 << width) // 3
-        for negate in (False, True):
-            got = ops.scan_filter(words, lo, hi, rows=rows,
-                                  padded_rows=padded, width=width,
-                                  negate=negate)
-            want = ref.scan_filter(words, lo, hi, rows, padded, width,
-                                   negate)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                fail(f"scan_filter width={width} negate={negate} differs "
-                     f"from its plain version")
-    print("scan_filter: bit-identical to the plain version at widths "
-          "{1,2,4,6,12,21,30} x negate {F,T}, ragged rows")
+    """B1 against its plain version, bit-identical and repeatable: every
+    width 1..30 at 1, 31, 33 and 1,025 groups a node, P = 1 and 8; bounds
+    in range, below 0, past the top code, crossed (lo > hi), equal and the
+    whole int32 range; rows = padded_rows, ending inside a group, and 0;
+    both negate values; the words on 16 bytes and as a misaligned copy
+    (the 16-byte and the scalar variant)."""
+    from repro_torch.kernels.scan_filter import vector_loads
+
+    n_cases = 0
+    for width in range(1, 31):
+        top = (1 << width) - 1
+        for nodes in (1, NODES):
+            for groups in SCAN_GROUPS:
+                padded = 32 * groups
+                codes = torch.randint(0, top + 1, (nodes, padded),
+                                      generator=gen, device="cuda")
+                words = compression.pack_bits(codes, width)
+                mis = _misaligned(torch, words)
+                if not vector_loads(words.data_ptr()) or vector_loads(
+                        mis.data_ptr()):
+                    fail("scan_filter inputs do not reach both variants")
+                lo = int(codes[0, 0]) // 2
+                hi = min(lo + (top + 1) // 3, top)
+                inside = padded - 13     # rows end inside the last group
+                for rows, a, b in ((padded, lo, hi), (inside, -5, hi),
+                                   (0, lo, top + 7), (padded, lo + 1, lo),
+                                   (inside, lo, lo),
+                                   (padded, -(2 ** 31), 2 ** 31 - 1)):
+                    for negate in (False, True):
+                        want = ref.scan_filter(words, a, b, rows, padded,
+                                               width, negate)
+                        for w in (words, mis):
+                            for _ in range(2):
+                                got = ops.scan_filter(
+                                    w, a, b, rows=rows, padded_rows=padded,
+                                    width=width, negate=negate)
+                                if not torch.equal(got, want):
+                                    fail(f"scan_filter width={width} "
+                                         f"P={nodes} groups={groups} "
+                                         f"rows={rows} lo={a} hi={b} "
+                                         f"negate={negate} aligned="
+                                         f"{w is words} differs from its "
+                                         f"plain version (or its first run)")
+                        n_cases += 1
+    torch.cuda.synchronize()
+    print(f"scan_filter: bit-identical to the plain version and repeatable "
+          f"over {n_cases} cases (widths 1..30 x groups a node "
+          f"{SCAN_GROUPS} x P in {{1, {NODES}}} x 6 (rows, bounds) x negate), "
+          f"each on 16-byte-aligned words and a misaligned copy")
 
 
 def make_buckets(torch, gen, rows, cap, domain, nodes):
@@ -453,14 +512,6 @@ def adversarial_buckets(torch, gen, rows, cap, domain, kind):
     base = r * domain
     keys = torch.where(mask, offs + base[:, None], 0).to(torch.int32)
     return keys, mask, base
-
-
-def _misaligned(torch, t):
-    """A contiguous copy of int32 or bool ``t`` whose data starts 4 bytes
-    past a 16-byte boundary (the kernels' scalar variants)."""
-    skip = 4 // t.element_size()
-    flat = torch.empty(t.numel() + skip, dtype=t.dtype, device=t.device)
-    return flat[skip:].view(t.shape).copy_(t)
 
 
 def check_codec_adversarial(torch, compression, ops, ref, gen):
@@ -653,22 +704,30 @@ def tpch_phases(args, torch, smi: str):
               f"{rel:.3e}, rtol 2e-4); launches {got}")
 
     # the main-path scans, on the resident words, against the plain version
+    # (twice: repeatable)
     from repro_torch.tpch.queries import IR_QUERIES
 
     scans = drv.compile_ir("q6").plan.scans
-    scan_err = 0
-    for d in scans:
-        col = li.columns[d.column]
-        args_ = (col.words, d.rewrite.lo, d.rewrite.hi)
-        kw = dict(rows=col.rows, padded_rows=col.padded_rows,
-                  width=col.width, negate=d.rewrite.negate)
-        got = ops.scan_filter(*args_, **kw)
-        want = ref.scan_filter(*args_, **kw)
-        scan_err = max(scan_err, int((got.long() - want.long()).abs().max()))
-        if not torch.equal(got, want):
-            fail(f"q6 scan of {d.column} differs from its plain version")
-    print(f"q6 scans {[d.column for d in scans]}: bit-identical to the "
-          f"plain version on the resident words")
+    scan_err, scanned = 0, []
+    for name in expected:
+        for d in drv.compile_ir(name).plan.scans:
+            if d.mode != "packed":
+                continue
+            col = li.columns[d.column]
+            args_ = (col.words, d.rewrite.lo, d.rewrite.hi)
+            kw = dict(rows=col.rows, padded_rows=col.padded_rows,
+                      width=col.width, negate=d.rewrite.negate)
+            got = ops.scan_filter(*args_, **kw)
+            want = ref.scan_filter(*args_, **kw)
+            scan_err = max(scan_err,
+                           int((got.long() - want.long()).abs().max()))
+            if not (torch.equal(got, want)
+                    and torch.equal(ops.scan_filter(*args_, **kw), got)):
+                fail(f"{name} scan of {d.column} differs from its plain "
+                     f"version (or its first run)")
+            scanned.append(f"{name}:{d.column}")
+    print(f"main-path scans {scanned}: bit-identical to the plain version "
+          f"on the resident words, repeatable")
 
     # the exchange queries, each compiled under its wire and backend, and
     # the launches its lowered plan implies
@@ -845,9 +904,17 @@ def tpch_phases(args, torch, smi: str):
     from repro_torch.kernels.grouped_agg import filtered_group_sum_cuda
 
     b1_ms = cuda_ms(lambda: scan_filter_cuda(*sf_args, **sf_kw), iters)
+    b1_graph = graph_ms(lambda: scan_filter_cuda(*sf_args, **sf_kw), iters)
     b1_plain = cuda_ms(lambda: ref.scan_filter(*sf_args, **sf_kw), iters)
     b1_bytes = (ship.words.numel() + NODES * ship.padded_rows // 32) * 4
     b1_bound, b1_by = bound(b1_bytes, 2 * NODES * ship.padded_rows)
+    print(f"scan_filter at q6's l_shipdate input (P={NODES}, "
+          f"{ship.padded_rows} padded rows a node, width {ship.width}): "
+          f"{b1_ms:.4f} ms (eager loop of {iters} calls; a CUDA graph of "
+          f"them {b1_graph:.4f} ms a call), {b1_bound / b1_ms:.1%} of the "
+          f"bound {b1_bound:.4f} ms ({b1_by}, {b1_bytes} B); plain "
+          f"{b1_plain:.3f} ms; the earlier one-warp-a-group kernel "
+          f"{EARLIER_MS['scan_filter']} ms on this yardstick")
 
     measures, groups, pred = fgs_inputs
     n = measures.shape[1]
@@ -1062,6 +1129,62 @@ def check_topk_adversarial(torch, ops, ref, gen) -> int:
     return n_cases
 
 
+MBIT_M = (1, 2, 4, 8, 16, 32)
+MBIT_GROUPS = (1, 2, 3, 4, 5, 32, 625, 1000, 1024, 4096)
+# row lengths: q15_approx's 12,500 and the plan's per-destination 1,250
+# rows, 375 (K m / 32 not whole below m = 32), 30,000 and 12,288
+MBIT_K = (375, 1_250, 12_500, 12_288, 30_000)
+
+
+def _mbit_edges(torch, gen, shape, m, group):
+    """``_quantized`` values with the encoder's edges planted in the first
+    groups: all zeros, a maximum of 2^31 - 1, a maximum of exactly
+    2^m - 1 and of exactly 2^m (where shift_of changes), and ones."""
+    q = _quantized(torch, gen, shape)
+    g = q.view(-1, group)
+    top = 2 ** 31 - 1
+    edges = [0, top]
+    if m < 31:
+        edges += [(1 << m) - 1, 1 << m]
+    edges.append(1)
+    for i, e in enumerate(edges[:g.shape[0]]):
+        g[i] = torch.clamp(g[i], max=e)
+        g[i, -1] = e
+    return q
+
+
+def check_mbit(torch, ops, ref, gen) -> int:
+    """B6 against its plain version, bit-identical and repeatable: m in
+    MBIT_M, every group of MBIT_GROUPS that divides a row length of
+    MBIT_K, as 1-, 2- and 3-D inputs, with the value edges planted; every
+    unit of the kernel runs.  Returns the cases run."""
+    from repro_torch.kernels.mbit_codec import variant
+
+    n_cases, units = 0, set()
+    for m in MBIT_M:
+        for K in MBIT_K:
+            for group in MBIT_GROUPS:
+                if K % group:
+                    continue
+                for shape in ((K,), (7, K), (2, 3, K)):
+                    q = _mbit_edges(torch, gen, shape, m, group)
+                    got = ops.mbit_encode(q, m=m, group=group)
+                    what = f"mbit_encode m={m} group={group} {shape}"
+                    hold_exact(torch, got, ops.mbit_encode(q, m=m,
+                                                           group=group),
+                               what)
+                    hold_exact(torch, got, ref.mbit_encode(q, m, group),
+                               what)
+                    units.add(variant(K, m, group, q.data_ptr()))
+                    n_cases += 1
+    if units != {"thread", "thread16", "warp"}:
+        fail(f"mbit_encode checks ran the units {units} only")
+    print(f"mbit_encode: bit-identical to the plain version and repeatable "
+          f"over {n_cases} cases (m {MBIT_M}, groups {MBIT_GROUPS} where "
+          f"they divide K in {MBIT_K}, 1-3-D, value edges); units {units}")
+    return n_cases
+
+
 def check_hand_kernels(torch, ops, ref, gen):
     """B4-B6 against their plain versions at test shapes, each twice:
     bit-identical."""
@@ -1115,6 +1238,7 @@ def check_hand_kernels(torch, ops, ref, gen):
                            what)
                 hold_exact(torch, got, ref.mbit_encode(q, m, group), what)
                 n_cases += 1
+    n_cases += check_mbit(torch, ops, ref, gen)
     torch.cuda.synchronize()
     print(f"block_topk, predicate_bitset, mbit_encode: bit-identical to "
           f"their plain versions and repeatable over {n_cases} cases")
@@ -1378,10 +1502,16 @@ def hand_plan_phase(args, torch, smi, drv, main_launches, zero):
         for what, t in [("main-path", main), *at_stress.items()]:
             lib = ("" if t["library_ms"] is None
                    else f", torch.topk {t['library_ms']:.4f} ms")
+            earlier = EARLIER_MS.get(k if what == "main-path"
+                                     else f"{what} stress")
+            if earlier is not None:
+                lib += (f"; the earlier two-launch kernel {earlier} ms on "
+                        f"this yardstick")
             print(f"{k} at the {what} input {t['shape']}: {t['ms']:.4f} ms "
                   f"(graph of 20 calls; eager loop {t['eager_loop_ms']:.4f} "
                   f"ms a call), plain {t['plain_ms']:.3f} ms{lib}, bound "
-                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {t['bytes']} B)")
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {t['bytes']} B,"
+                  f" {t['bound_ms'] / t['ms']:.1%} of it)")
         kernels.append({
             "name": k, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src[k]}.cu",

@@ -11,15 +11,20 @@ row: the §3.2.5 plan's per-destination rows at SF 1 over 8 nodes hold
 whose group holds whole words this is JAX ``ops.mbit_encode``.
 
 Bound on the H100: bytes — 4 B read per value, m / 8 B written per code,
-4 B per shift.  Design: a group-max launch (a warp or a thread per group),
-then one thread per output word (see the source).  The plain PyTorch
-version is ``kernels.ref.mbit_encode``; the decoder,
+4 B per shift.  Design: one launch.  Rows are cut into segments of
+:func:`segment` values, whole groups that start on a word boundary, and
+one unit of work takes a segment's maxima, shifts and words: a thread
+where the segment holds at most :data:`THREAD_VALUES` values (with 16-byte
+loads where its rows lie on 16 bytes), else a warp (see the source).
+:func:`variant` picks the unit.  The plain PyTorch version is
+``kernels.ref.mbit_encode``; the decoder,
 ``kernels.ref.mbit_decode_bounds``, stays plain PyTorch on every device.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -32,6 +37,33 @@ def _check_params(K: int, m: int, group: int):
         raise ValueError(f"m={m} must divide 32 (no code straddles a word)")
     if group < 1 or K % group:
         raise ValueError(f"group {group} must divide the row length {K}")
+    if K and segment(m, group) > 2 ** 31 - 1:
+        raise ValueError(f"group {group} too large for the kernel's int32 "
+                         f"offsets within a segment")
+
+
+THREAD_VALUES = 16   # the largest segment one thread takes
+_UNITS = {"warp": 0, "thread": 1, "thread16": 2}
+
+
+def segment(m: int, group: int) -> int:
+    """Values of one unit of work: ``lcm(group, 32 / m)``, whole groups
+    that start on a word boundary (a row's last segment ends at the row's
+    end, which ``group`` dividing K makes a group boundary)."""
+    return math.lcm(group, 32 // m)
+
+
+def variant(K: int, m: int, group: int, data_ptr: int = 0) -> str:
+    """The kernel's unit for rows of K values: ``"thread16"`` (a thread a
+    segment, 16-byte loads: K and the segment multiples of 4 and the data
+    on 16 bytes, so every segment is), ``"thread"`` (a thread a segment of
+    at most THREAD_VALUES values) or ``"warp"`` (a warp a segment)."""
+    L = segment(m, group)
+    if L > THREAD_VALUES:
+        return "warp"
+    if L % 4 == 0 and K % 4 == 0 and data_ptr % 16 == 0:
+        return "thread16"
+    return "thread"
 
 
 @functools.cache
@@ -39,7 +71,7 @@ def _lib():
     """The kernel's C entry point, its signature set once."""
     fn = build.library("mbit_codec").repro_mbit_encode
     fn.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -68,7 +100,9 @@ def mbit_encode_cuda(q: torch.Tensor, *, m: int, group: int) -> tuple:
                          device=q.device)
     with torch.cuda.device(q.device):
         err = _lib()(q.data_ptr(), words.data_ptr(), shifts.data_ptr(), rows,
-                     K, m, group, torch.cuda.current_stream().cuda_stream)
+                     K, m, group, segment(m, group),
+                     _UNITS[variant(K, m, group, q.data_ptr())],
+                     torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"mbit_encode kernel launch failed: CUDA error "
                            f"{err}")

@@ -10,10 +10,15 @@ negated) and writes one validity-bitset word, so the column is never
 expanded to one value per row.
 
 Bound on the H100: bytes — ``P * (words_per_node + padded_rows / 32) * 4``
-bytes over the memory rate.  Design: one warp per 32-row group, lane ``j``
-extracts code ``j`` and ``__ballot_sync`` assembles the word (see the
-source).  The plain PyTorch version, decode-then-compare, is
-``kernels.ref.scan_filter``; dispatch is in ``kernels.ops``.
+bytes over the memory rate.  Design (see the source): the node-stacked
+words are one stream of ``P * groups`` groups; a warp loads 32 consecutive
+groups coalesced into shared memory, each lane builds one group's word
+with the width a template parameter, and a persistent grid loads each
+warp's next tile before it tests the current one.  The kernel has a
+16-byte-load variant and a scalar one: the wrapper takes the 16-byte one
+where :func:`vector_loads` holds.  The plain PyTorch version,
+decode-then-compare, is ``kernels.ref.scan_filter``; dispatch is in
+``kernels.ops``.
 """
 from __future__ import annotations
 
@@ -37,13 +42,23 @@ def check_shape(padded_rows: int, width: int) -> int:
     return padded_rows // 32
 
 
+def vector_loads(data_ptr: int) -> bool:
+    """True where the 16-byte-load variant may run on words starting at
+    ``data_ptr``: the stream starts on 16 bytes.  Nothing else enters: a
+    warp's tile of 32 groups spans ``128 * width`` bytes, a multiple of
+    16 at every width, and any node count or group count leaves every
+    tile on 16 bytes (the ragged last tile is read word by word)."""
+    return data_ptr % 16 == 0
+
+
 @functools.cache
 def _lib():
     """The kernel's C entry point, its signature set once."""
     fn = build.library("scan_filter").repro_scan_filter
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -69,8 +84,6 @@ def scan_filter_cuda(words: torch.Tensor, lo: int, hi: int, *, rows: int,
         raise ValueError("words must be contiguous")
     if not 0 <= rows <= padded_rows:
         raise ValueError(f"rows {rows} outside [0, {padded_rows}]")
-    if not 0 < words.shape[0] <= 65535:
-        raise ValueError(f"1..65535 nodes per launch, got {words.shape[0]}")
     lo, hi = int(lo), int(hi)
     if not (_I32_MIN <= lo <= _I32_MAX and _I32_MIN <= hi <= _I32_MAX):
         raise ValueError(f"code bounds ({lo}, {hi}) outside int32")
@@ -79,6 +92,7 @@ def scan_filter_cuda(words: torch.Tensor, lo: int, hi: int, *, rows: int,
     with torch.cuda.device(words.device):
         err = _lib()(words.data_ptr(), out.data_ptr(), words.shape[0],
                      groups, rows, width, lo, hi, int(bool(negate)),
+                     int(vector_loads(words.data_ptr())),
                      torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"scan_filter kernel launch failed: CUDA error "

@@ -15,7 +15,7 @@ from repro.core import compression as jc
 from repro.kernels.grouped_agg import filtered_group_sum as jax_group_sum
 from repro.kernels.scan_filter import scan_filter_pallas, scan_filter_xla
 from repro_torch.core import compression as tc
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, scan_filter
 from repro_torch.kernels.grouped_agg import launch_shape
 
 
@@ -23,9 +23,35 @@ def _u32(t: torch.Tensor) -> np.ndarray:
     return t.numpy().astype(np.int32).view(np.uint32)
 
 
-@pytest.mark.parametrize("negate", [False, True])
-@pytest.mark.parametrize("width", [1, 2, 4, 6, 12, 21, 30])
-def test_scan_filter_bit_identical_to_pallas_and_xla(width, negate):
+# (width, negate, kind): "random" a range inside the codes; the kernel's
+# edges: bounds below 0, past the top code, crossed (lo > hi), equal, no
+# row valid (rows = 0), and the words as a copy off 16 bytes
+_SCAN_CASES = [pytest.param(w, n, "random", id=f"{w}-{n}")
+               for w in (1, 2, 4, 6, 12, 21, 30) for n in (False, True)] + [
+    pytest.param(w, n, kind, id=f"{w}-{n}-{kind}")
+    for w, n, kind in ((12, False, "lo_below_0"), (30, True, "lo_below_0"),
+                       (5, False, "hi_past_top"), (30, False, "hi_past_top"),
+                       (12, False, "crossed"), (12, True, "crossed"),
+                       (16, False, "equal"), (7, False, "rows_0"),
+                       (7, True, "rows_0"), (13, False, "misaligned"))]
+
+
+def _scan_case(kind, lo, hi, top, rows):
+    """(lo, hi, rows) of a case kind from a random range inside the codes."""
+    return {"lo_below_0": (-7, hi, rows), "hi_past_top": (lo, top + 9, rows),
+            "crossed": (hi, lo - 1, rows), "equal": (lo, lo, rows),
+            "rows_0": (lo, hi, 0)}.get(kind, (lo, hi, rows))
+
+
+def _off16(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of int32 ``t`` starting 4 bytes past the start of
+    a fresh (16-byte-aligned) allocation."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype)
+    return flat[1:].view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("width,negate,kind", _SCAN_CASES)
+def test_scan_filter_bit_identical_to_pallas_and_xla(width, negate, kind):
     rng = np.random.default_rng(width)
     nodes, rows = 2, 1000 + 7 * width     # ragged: not a multiple of 32
     padded = -(-rows // 32) * 32
@@ -34,7 +60,13 @@ def test_scan_filter_bit_identical_to_pallas_and_xla(width, negate):
     codes[:, :4] = (1 << width) - 1       # top codes, bit 29 at w=30
     lo = int(rng.integers(0, 1 << width))
     hi = min(lo + (1 << width) // 3, (1 << width) - 1)
+    lo, hi, rows = _scan_case(kind, lo, hi, (1 << width) - 1, rows)
     words = tc.pack_bits(torch.from_numpy(codes.astype(np.int64)), width)
+    if kind == "misaligned":
+        # the CUDA wrapper's variant choice: 16-byte loads only on 16 bytes
+        assert scan_filter.vector_loads(words.data_ptr())
+        words = _off16(words)
+        assert not scan_filter.vector_loads(words.data_ptr())
     got = ops.scan_filter(words, lo, hi, rows=rows, padded_rows=padded,
                           width=width, negate=negate)
     assert got.shape == (nodes, padded // 32)
@@ -46,6 +78,8 @@ def test_scan_filter_bit_identical_to_pallas_and_xla(width, negate):
         np.testing.assert_array_equal(_u32(got[p]), want)
         np.testing.assert_array_equal(
             want, np.asarray(scan_filter_xla(jw, lo, hi, **kw)))
+    if kind == "rows_0":
+        assert not got.any()
     assert ops.launch_counts()["scan_filter"] == 0
 
 

@@ -25,6 +25,7 @@ from repro.kernels import topk_select as jts
 from repro_torch.core import compression as tc
 from repro_torch.core import topk
 from repro_torch.core import topk_approx as tta
+from repro_torch.kernels import mbit_codec as mbc
 from repro_torch.kernels import ops
 
 
@@ -218,13 +219,39 @@ def _quantized(shape, seed, zero_groups_of=None):
     return q.astype(np.int32)
 
 
-@pytest.mark.parametrize("m,group", [(4, 8), (8, 4), (8, 64), (16, 2),
-                                     (16, 32)])
-def test_mbit_encode_bit_identical_to_jax(m, group):
+def _plant_edges(q, m, group):
+    """The encoder's value edges in the first groups of ``q``: all zeros, a
+    maximum of 2^31 - 1, of exactly 2^m - 1 and of exactly 2^m (where the
+    shift changes), and ones."""
+    g = q.reshape(-1, group)
+    for i, e in enumerate([0, 2 ** 31 - 1, (1 << m) - 1, 1 << m, 1]):
+        g[i] = np.minimum(g[i], e)
+        g[i, -1] = e
+    return q
+
+
+# (m, group, value edges planted, the CUDA kernel's unit for K = 12 group
+# on 16 bytes: a thread a segment of lcm(group, 32 / m) <= 16 values, with
+# 16-byte loads where that segment is a multiple of 4, else a warp)
+@pytest.mark.parametrize("m,group,edges,unit", [
+    pytest.param(4, 8, False, "thread16", id="4-8"),
+    pytest.param(8, 4, False, "thread16", id="8-4"),
+    pytest.param(8, 64, False, "warp", id="8-64"),
+    pytest.param(16, 2, False, "thread", id="16-2"),
+    pytest.param(16, 32, False, "warp", id="16-32"),
+    pytest.param(2, 16, True, "thread16", id="2-16-edges"),
+    pytest.param(2, 32, True, "warp", id="2-32-edges"),
+    pytest.param(16, 2, True, "thread", id="16-2-edges"),
+    pytest.param(16, 4, True, "thread16", id="16-4-edges"),
+    pytest.param(16, 1024, True, "warp", id="16-1024-edges")])
+def test_mbit_encode_bit_identical_to_jax(m, group, edges, unit):
     """Where the JAX kernel's contract holds (group a multiple of 32 / m):
     words and shifts equal the Pallas kernel's and ref's."""
     K = group * 12
     q = _quantized(K, m * 100 + group, zero_groups_of=group)
+    if edges:
+        q = _plant_edges(q, m, group)
+    assert mbc.variant(K, m, group) == unit
     words, shifts = ops.mbit_encode(torch.from_numpy(q), m=m, group=group)
     jq = jnp.asarray(q.view(np.uint32))
     for want_w, want_s in (jmc.encode(jq, m, group, groups_per_block=4,

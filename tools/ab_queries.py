@@ -11,10 +11,13 @@ Runs A, B, B, A on one card: each turn is a fresh process that imports
 into that checkout's ``build/kernels``), generates the TPC-H tables at
 ``--sf`` over 8 stacked nodes, and for each query of QUERIES checks one
 run against the float64 oracle (rtol 2e-4) and takes the median of
-``--repeat`` warm runs (CUDA events).  Prints each turn's medians, then
-for each query both sides' medians and B's mean less A's.  The last line
-is one JSON object of all readings.  It exits non-zero when CUDA is
-unavailable, a turn fails or an answer is off.
+``--repeat`` warm runs (CUDA events), then one more run under
+``torch.profiler``: the device's busy time (the sum of the kernels'
+device time), the run's wall time and the device time of the kernels
+whose name holds ``scan_filter``.  Prints each turn's medians and
+profiles, then for each query both sides' medians and B's mean less A's.
+The last line is one JSON object of all readings.  It exits non-zero when
+CUDA is unavailable, a turn fails or an answer is off.
 """
 from __future__ import annotations
 
@@ -24,10 +27,13 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import time
 
 # name -> (IR builder in repro_torch.tpch.queries and its arguments, wire);
-# q1_kernel runs through TPCHDriver.run_ir
+# q6, q1 and q1_kernel run through TPCHDriver.run_ir
 QUERIES = {
+    "q6": None,
+    "q1": None,
     "q1_kernel": None,
     "q4_sj/packed/xla": ("q4_sj_ir", {}, "packed"),
     "q4_sj/raw/xla": ("q4_sj_ir", {}, "raw"),
@@ -36,8 +42,29 @@ QUERIES = {
 }
 
 
+def profiled(torch, run) -> dict:
+    """One run under torch.profiler: busy, wall and scan_filter ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    return {"busy_ms": sum(ms for _, ms in rows), "wall_ms": wall_ms,
+            "scan_filter_ms": sum(ms for k, ms in rows
+                                  if "scan_filter" in k)}
+
+
 def turn(src: pathlib.Path, sf: float, repeat: int) -> dict:
-    """One side's medians (ms) by query, in this process."""
+    """One side's medians (ms) by query and one profiled run of each, in
+    this process."""
     sys.path.insert(0, str(src / "src"))
     import numpy as np
     import torch
@@ -45,7 +72,7 @@ def turn(src: pathlib.Path, sf: float, repeat: int) -> dict:
     from repro_torch.tpch.driver import TPCHDriver
 
     drv = TPCHDriver(sf, num_nodes=8, device="cuda")
-    medians = {}
+    medians, profiles = {}, {}
     for name, spec in QUERIES.items():
         if spec is None:
             run, oracle_of = (lambda n=name: drv.run_ir(n)), name
@@ -69,7 +96,8 @@ def turn(src: pathlib.Path, sf: float, repeat: int) -> dict:
             end.synchronize()
             times.append(start.elapsed_time(end))
         medians[name] = statistics.median(times)
-    return medians
+        profiles[name] = profiled(torch, run)
+    return {"medians": medians, "profiles": profiles}
 
 
 def main(argv=None) -> int:
@@ -103,14 +131,18 @@ def main(argv=None) -> int:
         if proc.returncode:
             print(proc.stdout + proc.stderr, file=sys.stderr)
             raise SystemExit(f"ab_queries: the turn of {src} failed")
-        medians = json.loads(proc.stdout.strip().splitlines()[-1])
-        readings[side].append(medians)
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        readings[side].append(got)
         print(f"{side.upper()} ({src}): " + ", ".join(
-            f"{k} {v:.3f}" for k, v in medians.items()) + " ms", flush=True)
+            f"{k} {v:.3f}" for k, v in got["medians"].items()) + " ms"
+            + "".join(f"; {k} profiled: busy {p['busy_ms']:.3f} of "
+                      f"{p['wall_ms']:.3f} ms wall, scan_filter "
+                      f"{p['scan_filter_ms']:.3f} ms"
+                      for k, p in got["profiles"].items()), flush=True)
     print(f"on {smi}, sf {args.sf}, medians of {args.repeat} warm runs:")
     for name in QUERIES:
-        a = [m[name] for m in readings["a"]]
-        b = [m[name] for m in readings["b"]]
+        a = [m["medians"][name] for m in readings["a"]]
+        b = [m["medians"][name] for m in readings["b"]]
         print(f"{name}: A {a[0]:.3f}, {a[1]:.3f}; B {b[0]:.3f}, {b[1]:.3f} "
               f"ms; B - A {statistics.mean(b) - statistics.mean(a):+.3f} ms")
     print(json.dumps({"card": smi, "sf": args.sf, "repeat": args.repeat,
