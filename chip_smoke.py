@@ -71,7 +71,10 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
    ragged N, masked and exhausted blocks, blocks of 1,000 to 12,288, and
    on adversarial values (equal blocks, ties straddling the k-th value,
    mixed -0.0 and +0.0, +-inf, subnormals) with k up to the block; B5
-   over ragged N with the value absent, present in every row and random;
+   over N in {1, 4, 31, 32, 33, 1,025, 1,028, 187,500, 7,500,001} with 1
+   and 8 rows and over 70,000 rows of 33 and 36, the value absent,
+   present in every row, random and the int32 extremes, each on its own
+   storage and on a copy 4 bytes past 16 bytes (both variants must run);
    B6 over m in {4, 8, 16}, groups 1 to 1,024 and rows that end in half a
    word, then over m in {1, 2, 4, 8, 16, 32} x groups {1, 2, 3, 4, 5, 32,
    625, 1,000, 1,024, 4,096} wherever the group divides a row of 375,
@@ -93,8 +96,20 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
    kernel at its main-path input and at the lineitem size (device time of
    a CUDA graph of 20 calls, and an eager loop's time a call beside it)
    beside its plain version, its bound and (B4) ``torch.topk`` on the
-   (blocks, block) view; B6's beside the earlier two-launch kernel's
-   times.
+   (blocks, block) view; B5's and B6's beside the earlier kernels' times
+   (``EARLIER_MS``).
+6c. The semi-join hand plans on the same driver: q2, q3, q3_lazy,
+   q3_repl, q5, q11, q13 and q14 through ``drv.run(name)``, each against
+   its oracle (q2, the q3s and q11: keys exactly, values within rtol
+   2e-4; q5 within rtol 2e-4, atol 1e-2; q13 exactly; q14 within rtol
+   2e-4), no overflow.  The counters are set to 0 before each plan:
+   ``predicate_bitset`` once in q3 and in q11; the four codec kernels
+   once for each packed request semi-join (q2, q14, and each of
+   q3_lazy's rounds, whose count is printed), ``ef_encode`` and
+   ``ef_decode`` once for q5's int32-reply request and for each packed
+   owner-routed exchange (q2, q13); nothing else.  B5 is held against its
+   plain version on q3's and q11's inputs; times: each plan's warm
+   median and B5 at those inputs; the phase's seconds.
 7. The language model, after the TPC-H phases have
    dropped what they placed on the card:
    a. B7's two CUDA variants.  The f32 CUDA-core ``flash_attention_fwd``
@@ -191,7 +206,9 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
       of ``scaled_dot_product_attention`` and the bound.
 9. One ``{"kernels": [...]}`` line (fourteen kernels: B7 and B8 once for
    each variant, the f32 CUDA-core ones with ``"main_path": false`` and
-   0 launches), then the last line ``{"ok": true, "device": {...}}``.
+   0 launches; B5's launches those of q21, q3 and q11, its times at q3's
+   and q11's inputs under ``"q3"`` and ``"q11"``), then the last line
+   ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or when
 it is run outside a checkout of the repository.
@@ -219,12 +236,14 @@ NODES = 8
 
 # The redesigned kernels' earlier times on this script's yardsticks, one
 # NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6): B1 (the kernel of one warp
-# a 32-row group, an eager loop of 20 calls at q6's l_shipdate input) and
-# B6 (the two-launch kernel, a CUDA graph of 20 calls at q15_approx's
-# input and at the lineitem stress size).  Printed beside this run's
-# times, never compared.
+# a 32-row group, an eager loop of 20 calls at q6's l_shipdate input), B6
+# (the two-launch kernel, a CUDA graph of 20 calls at q15_approx's input
+# and at the lineitem stress size) and B5 (the kernel of one warp a word,
+# a CUDA graph of 20 calls at q21's input and at the lineitem stress
+# size).  Printed beside this run's times, never compared.
 EARLIER_MS = {"scan_filter": 0.1867, "mbit_encode": 0.0062,
-              "mbit_encode stress": 0.2771}
+              "mbit_encode stress": 0.2771, "predicate_bitset": 0.0017,
+              "predicate_bitset stress": 0.1648}
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -998,6 +1017,13 @@ def tpch_phases(args, torch, smi: str):
     # -- 6b. the hand plans, kernels B4-B6 ---------------------------------------
     hand_kernels, hand = hand_plan_phase(args, torch, smi, drv,
                                          main_launches, zero)
+    # -- 6c. the semi-join hand plans, B5 on q3's and q11's inputs -------------
+    b5_inputs, semijoin = semijoin_plan_phase(args, torch, smi, drv,
+                                              main_launches, zero)
+    for k in hand_kernels:
+        k["launches"] = main_launches[k["name"]]
+        if k["name"] == "predicate_bitset":
+            k.update(b5_inputs)
 
     kernels = [
         {"name": "scan_filter", "route": "cuda",
@@ -1038,6 +1064,7 @@ def tpch_phases(args, torch, smi: str):
             "q18_sj": t18})
     kernels += hand_kernels
     return kernels, {"queries_ms": query_ms, "hand_plans": hand,
+                     "semijoin_plans": semijoin,
                      "gen_s": gen_s,
                      "resident_bytes": drv.resident_bytes,
                      "lineitem_bytes": li_bytes, "sf": args.sf,
@@ -1185,6 +1212,56 @@ def check_mbit(torch, ops, ref, gen) -> int:
     return n_cases
 
 
+# B5's shapes: (rows, N) with N on and off a multiple of 4 (the 16-byte
+# variant and the scalar one), rows above 65,535, q3's 187,500 columns a
+# node and one more than the lineitem's 7,500,000
+B5_SHAPES = tuple((rows, n) for n in (1, 4, 31, 32, 33, 1_025, 1_028,
+                                      187_500, 7_500_001)
+                  for rows in (1, 8)) + ((70_000, 33), (70_000, 36))
+I32_MIN, I32_MAX = -(2 ** 31), 2 ** 31 - 1
+
+
+def _b5_columns(torch, gen, shape):
+    """(label, column, value): the value absent, present in every row,
+    random, and the int32 extremes among extremes."""
+    col = torch.randint(0, 5, shape, generator=gen, device="cuda",
+                        dtype=torch.int32)
+    edges = torch.tensor([I32_MIN, I32_MAX, 0, 1], device="cuda",
+                         dtype=torch.int32)
+    ext = edges[torch.randint(0, 4, shape, generator=gen, device="cuda")]
+    return (("absent", col, -1), ("every", torch.full_like(col, 5), 5),
+            ("random", col, 2), ("int32 min", ext, I32_MIN),
+            ("int32 max", ext, I32_MAX))
+
+
+def check_predicate_bitset(torch, ops, ref, gen) -> int:
+    """B5 bit-identical to its plain version and to itself over
+    ``B5_SHAPES`` x ``_b5_columns``, each on its own storage (16 bytes
+    aligned) and on a copy 4 bytes past it; fails unless both variants
+    ran.  Returns the cases run."""
+    from repro_torch.kernels.bitset_pack import vector_loads
+
+    n_cases, variants = 0, set()
+    for shape in B5_SHAPES:
+        for label, col, value in _b5_columns(torch, gen, shape):
+            for where, c in (("aligned", col),
+                             ("misaligned", _misaligned(torch, col))):
+                got = ops.predicate_bitset(c, value=value)
+                what = f"predicate_bitset {shape} {label} {where}"
+                hold_exact(torch, got, ops.predicate_bitset(c, value=value),
+                           what)
+                hold_exact(torch, got, ref.predicate_bitset(c, value), what)
+                variants.add(vector_loads(shape[-1], c.data_ptr()))
+                n_cases += 1
+    if variants != {True, False}:
+        fail(f"predicate_bitset checks ran the variants {variants} only")
+    print(f"predicate_bitset: bit-identical to the plain version and "
+          f"repeatable over {n_cases} cases (shapes {B5_SHAPES}; absent, "
+          f"every row, random, int32 extremes; aligned and misaligned); "
+          f"both variants ran")
+    return n_cases
+
+
 def check_hand_kernels(torch, ops, ref, gen):
     """B4-B6 against their plain versions at test shapes, each twice:
     bit-identical."""
@@ -1213,19 +1290,7 @@ def check_hand_kernels(torch, ops, ref, gen):
                                                   block), what)
             n_cases += 1
     n_cases += check_topk_adversarial(torch, ops, ref, gen)
-    # B5: ragged N; a value absent, present in every row, and random
-    for n in (1, 31, 32, 33, 1000, 100_003):
-        for rows in (1, 8):
-            col = torch.randint(0, 5, (rows, n), generator=gen,
-                                device="cuda", dtype=torch.int32)
-            for value, c in ((-1, col), (2, col),
-                             (5, torch.full_like(col, 5))):
-                got = ops.predicate_bitset(c, value=value)
-                what = f"predicate_bitset {rows}x{n} value={value}"
-                hold_exact(torch, got, ops.predicate_bitset(c, value=value),
-                           what)
-                hold_exact(torch, got, ref.predicate_bitset(c, value), what)
-                n_cases += 1
+    n_cases += check_predicate_bitset(torch, ops, ref, gen)
     # B6: m in {4, 8, 16}, groups 1..1024, rows of 125 groups (a half word
     # where 125 * group * m / 32 is not whole)
     for m in (4, 8, 16):
@@ -1244,6 +1309,70 @@ def check_hand_kernels(torch, ops, ref, gen):
           f"their plain versions and repeatable over {n_cases} cases")
 
 
+def hand_kernel_fns():
+    """(plain version, CUDA wrapper) of each hand-plan kernel by name; the
+    plain one takes a recorded call's (args, kwargs)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bitset_pack import predicate_bitset_cuda
+    from repro_torch.kernels.mbit_codec import mbit_encode_cuda
+    from repro_torch.kernels.topk_select import block_topk_cuda
+
+    plain = {"block_topk": lambda a, kw: ref.block_topk(
+                 *a, kw["k"], kw.get("mask"), kw.get("block", 4096)),
+             "predicate_bitset": lambda a, kw: ref.predicate_bitset(
+                 *a, kw["value"]),
+             "mbit_encode": lambda a, kw: ref.mbit_encode(*a, kw["m"],
+                                                          kw["group"])}
+    cuda_fn = {"block_topk": block_topk_cuda,
+               "predicate_bitset": predicate_bitset_cuda,
+               "mbit_encode": mbit_encode_cuda}
+    return plain, cuda_fn
+
+
+def hand_kernel_case(torch, k, a, kw):
+    """Times, bound and library time of hand-plan kernel ``k`` on one
+    recorded input."""
+    plain, cuda_fn = hand_kernel_fns()
+    x = a[0]
+    rows_n = x.numel()
+    if k == "block_topk":
+        block, kk = kw.get("block", 4096), kw["k"]
+        nb = -(-x.shape[-1] // block)
+        outs = x.numel() // x.shape[-1] * nb * kk
+        mask = kw.get("mask")
+        # each value (and mask byte) read once, the winners' keys and
+        # the outputs; one compare per value
+        nbytes = rows_n * 4 + (0 if mask is None else rows_n) \
+            + outs * 12
+        ops_ = rows_n
+        pad = (-x.shape[-1]) % block
+        xv = torch.nn.functional.pad(
+            x if mask is None else torch.where(mask, x, float("-inf")),
+            (0, pad), value=float("-inf")).reshape(-1, block)
+        lib = graph_ms(lambda: torch.topk(xv, kk, dim=1), 20)
+        del xv
+    elif k == "predicate_bitset":
+        nbytes = rows_n * 4 + rows_n // x.shape[-1] * (
+            (x.shape[-1] + 31) // 32) * 4
+        ops_ = rows_n
+        lib = None
+    else:
+        m, group = kw["m"], kw["group"]
+        nbytes = rows_n * 4 + rows_n * m // 8 + rows_n // group * 4
+        ops_ = 2 * rows_n
+        lib = None
+    b_ms, b_by = bound(nbytes, ops_)
+    # device time from a graph of 20 calls; an eager loop of calls
+    # times the wrapper's host cost at the small inputs
+    return {"ms": graph_ms(lambda: cuda_fn[k](*a, **kw), 20),
+            "eager_loop_ms": cuda_ms(lambda: cuda_fn[k](*a, **kw), 20),
+            "plain_ms": cuda_ms(lambda: plain[k](a, kw), 3),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "bytes": nbytes, "shape": f"{tuple(x.shape)} "
+            f"{ {n: v for n, v in kw.items() if n != 'mask'} }"
+            + (" masked" if kw.get("mask") is not None else "")}
+
+
 def hand_plan_phase(args, torch, smi, drv, main_launches, zero):
     """Phase 6b: B4-B6 against their plain versions (test shapes, the
     stress size, the plans' own inputs), the ten hand plans through
@@ -1254,9 +1383,6 @@ def hand_plan_phase(args, torch, smi, drv, main_launches, zero):
 
     from repro_torch.core.columnar import PackedColumn
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.bitset_pack import predicate_bitset_cuda
-    from repro_torch.kernels.mbit_codec import mbit_encode_cuda
-    from repro_torch.kernels.topk_select import block_topk_cuda
     from repro_torch.tpch.schema import DEFAULT_PARAMS as DP
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -1376,12 +1502,7 @@ def hand_plan_phase(args, torch, smi, drv, main_launches, zero):
              f"{sorted(recorded)}")
 
     # -- B4-B6 on the plans' own inputs, against their plain versions ----------
-    plain = {"block_topk": lambda a, kw: ref.block_topk(
-                 *a, kw["k"], kw.get("mask"), kw.get("block", 4096)),
-             "predicate_bitset": lambda a, kw: ref.predicate_bitset(
-                 *a, kw["value"]),
-             "mbit_encode": lambda a, kw: ref.mbit_encode(*a, kw["m"],
-                                                          kw["group"])}
+    plain, _ = hand_kernel_fns()
     for (label, k), (a, kw) in sorted(recorded.items()):
         hold_exact(torch, getattr(ops, k)(*a, **kw), plain[k](a, kw),
                    f"{k} on the {label} input")
@@ -1438,50 +1559,6 @@ def hand_plan_phase(args, torch, smi, drv, main_launches, zero):
             profile_query(torch, lambda nm=name: drv.run(nm), name)
         torch.cuda.empty_cache()
 
-    cuda_fn = {"block_topk": block_topk_cuda,
-               "predicate_bitset": predicate_bitset_cuda,
-               "mbit_encode": mbit_encode_cuda}
-
-    def kernel_case(k, a, kw):
-        """Times, bound and library time of one input."""
-        x = a[0]
-        rows_n = x.numel()
-        if k == "block_topk":
-            block, kk = kw.get("block", 4096), kw["k"]
-            nb = -(-x.shape[-1] // block)
-            outs = x.numel() // x.shape[-1] * nb * kk
-            mask = kw.get("mask")
-            # each value (and mask byte) read once, the winners' keys and
-            # the outputs; one compare per value
-            nbytes = rows_n * 4 + (0 if mask is None else rows_n) \
-                + outs * 12
-            ops_ = rows_n
-            pad = (-x.shape[-1]) % block
-            xv = torch.nn.functional.pad(
-                x if mask is None else torch.where(mask, x, float("-inf")),
-                (0, pad), value=float("-inf")).reshape(-1, block)
-            lib = graph_ms(lambda: torch.topk(xv, kk, dim=1), 20)
-            del xv
-        elif k == "predicate_bitset":
-            nbytes = rows_n * 4 + rows_n // 8
-            ops_ = rows_n
-            lib = None
-        else:
-            m, group = kw["m"], kw["group"]
-            nbytes = rows_n * 4 + rows_n * m // 8 + rows_n // group * 4
-            ops_ = 2 * rows_n
-            lib = None
-        b_ms, b_by = bound(nbytes, ops_)
-        # device time from a graph of 20 calls; an eager loop of calls
-        # times the wrapper's host cost at the small inputs
-        return {"ms": graph_ms(lambda: cuda_fn[k](*a, **kw), 20),
-                "eager_loop_ms": cuda_ms(lambda: cuda_fn[k](*a, **kw), 20),
-                "plain_ms": cuda_ms(lambda: plain[k](a, kw), 3),
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
-                "bytes": nbytes, "shape": f"{tuple(x.shape)} "
-                f"{ {n: v for n, v in kw.items() if n != 'mask'} }"
-                + (" masked" if kw.get("mask") is not None else "")}
-
     main_input = {"block_topk": recorded[("q15", "block_topk")],
                   "predicate_bitset": recorded[("q21", "predicate_bitset")],
                   "mbit_encode": recorded[("q15_approx", "mbit_encode")]}
@@ -1496,8 +1573,8 @@ def hand_plan_phase(args, torch, smi, drv, main_launches, zero):
            "mbit_encode": "mbit_codec"}
     kernels = []
     for k in HAND_KERNELS:
-        main = kernel_case(k, *main_input[k])
-        at_stress = {lbl: kernel_case(k, *stress[lbl])
+        main = hand_kernel_case(torch, k, *main_input[k])
+        at_stress = {lbl: hand_kernel_case(torch, k, *stress[lbl])
                      for lbl in stress if lbl.removesuffix("_masked") == k}
         for what, t in [("main-path", main), *at_stress.items()]:
             lib = ("" if t["library_ms"] is None
@@ -1505,8 +1582,8 @@ def hand_plan_phase(args, torch, smi, drv, main_launches, zero):
             earlier = EARLIER_MS.get(k if what == "main-path"
                                      else f"{what} stress")
             if earlier is not None:
-                lib += (f"; the earlier two-launch kernel {earlier} ms on "
-                        f"this yardstick")
+                lib += (f"; the earlier kernel {earlier} ms on this "
+                        f"yardstick")
             print(f"{k} at the {what} input {t['shape']}: {t['ms']:.4f} ms "
                   f"(graph of 20 calls; eager loop {t['eager_loop_ms']:.4f} "
                   f"ms a call), plain {t['plain_ms']:.3f} ms{lib}, bound "
@@ -1524,6 +1601,186 @@ def hand_plan_phase(args, torch, smi, drv, main_launches, zero):
     recorded.clear()
     torch.cuda.empty_cache()
     return kernels, {"plans_ms": plan_ms, "oracle_s": oracle_s}
+
+
+# ---------------------------------------------------------------------------
+# phase 6c: the semi-join hand plans through TPCHDriver.run
+# ---------------------------------------------------------------------------
+
+SEMIJOIN_PLANS = ("q2", "q3", "q3_lazy", "q3_repl", "q5", "q11", "q13",
+                  "q14")
+CODEC = ("ef_encode", "ef_decode", "mask_fold", "mask_unfold")
+
+
+def _semijoin_expected(drv, zero) -> dict:
+    """The launches each semi-join plan implies, but q3_lazy's rounds: a
+    request semi-join on the packed wire runs the four codec kernels once
+    (keys coded, boolean replies folded); q5's request with int32 replies
+    and the owner-routed exchanges of q2 and q13 with 4-byte values (the
+    value rows ride the coded key rows) run ef_encode and ef_decode once;
+    the Alt-2 bitsets of q3 and q11 launch B5 once; nothing else runs a
+    kernel (the one-hot sums of q5 and q13 are matmuls, the masked top-k
+    steps sorts)."""
+    def packed(exchange):
+        return drv.ctx.wire_fmt(exchange).packed
+
+    expected = {name: dict(zero) for name in SEMIJOIN_PLANS}
+    for name, exchange in (("q2", "q2_request"), ("q14", "q14_request")):
+        if packed(exchange):
+            for k in CODEC:
+                expected[name][k] += 1
+    for name, exchange in (("q2", "q2_owner"), ("q5", "q5_request"),
+                           ("q13", "q13_route")):
+        if packed(exchange):
+            expected[name]["ef_encode"] += 1
+            expected[name]["ef_decode"] += 1
+    for name in ("q3", "q11"):
+        expected[name]["predicate_bitset"] = 1
+    return expected
+
+
+def _check_semijoin_answer(np, name, out, oracle) -> str:
+    """Holds one plan's answer to its oracle (fails otherwise); returns a
+    description."""
+    ovf = False
+    if name == "q2":
+        ovf = out.pop("overflow")
+        out = (out["s_acctbal"], out["part_supp_key"], out["valid"])
+    elif name in ("q3_lazy", "q5", "q13", "q14"):
+        out, ovf = out
+    if bool(ovf):
+        fail(f"{name}: an exchange buffer overflowed")
+    if name in ("q5", "q13", "q14"):
+        value = out.cpu().numpy().astype(np.float64)
+        want = np.asarray(oracle, np.float64)
+        if value.shape != want.shape or not np.isfinite(value).all():
+            fail(f"{name}: shape {value.shape} / non-finite values")
+        if name == "q13":
+            ok, tol = np.array_equal(value, want), "exactly"
+        elif name == "q5":
+            ok = np.allclose(value, want, rtol=2e-4, atol=1e-2)
+            tol = "within rtol 2e-4, atol 1e-2"
+        else:
+            ok, tol = np.allclose(value, want, rtol=2e-4), "within rtol 2e-4"
+        if not ok:
+            fail(f"{name}: {value} differs from the oracle {want}")
+        return f"{tol} of the oracle"
+    v, keys, valid = (a.cpu().numpy() for a in out)
+    ov, okeys = oracle
+    n = int(valid.sum())
+    if not (n == min(int(np.isfinite(ov).sum()), len(v)) and n > 0
+            and np.array_equal(keys[:n], okeys[:n])
+            and np.allclose(v[:n], ov[:n], rtol=2e-4, atol=0)):
+        fail(f"{name}: {n} winners; keys or values differ from the oracle")
+    return f"{n} winners, keys exactly, values within rtol 2e-4 of the oracle"
+
+
+def semijoin_plan_phase(args, torch, smi, drv, main_launches, zero):
+    """Phase 6c: the eight semi-join hand plans through ``drv.run(name)``
+    against the oracle with their launches, B5 on q3's and q11's inputs
+    against its plain version, and times.  Adds the plans' launches to
+    ``main_launches``; returns B5's times at those inputs (for its entry
+    of the JSON line) and a summary."""
+    import numpy as np
+
+    from repro_torch.core import semijoin
+    from repro_torch.core.plans import REGISTRY
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    expected = _semijoin_expected(drv, zero)
+    t0 = time.perf_counter()
+    by_oracle = {}
+    for name in SEMIJOIN_PLANS:    # q3_lazy and q3_repl answer q3
+        if REGISTRY[name].oracle not in by_oracle:
+            by_oracle[REGISTRY[name].oracle] = drv.oracle(name)
+    oracle_s = time.perf_counter() - t0
+    print(f"semi-join plan oracles (float64 numpy): {oracle_s:.1f} s")
+
+    recorded = {}
+    kernel, request = ops.predicate_bitset, semijoin.alt1_request
+    rounds = {}
+
+    def b5(*a, **kw):
+        recorded.setdefault(label, (a, kw))
+        return kernel(*a, **kw)
+
+    def counted_request(*a, **kw):
+        rounds[label] = rounds.get(label, 0) + 1
+        return request(*a, **kw)
+
+    for label in SEMIJOIN_PLANS:
+        ops.predicate_bitset, semijoin.alt1_request = b5, counted_request
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        try:
+            out = drv.run(label)
+            torch.cuda.synchronize()
+        finally:
+            ops.predicate_bitset, semijoin.alt1_request = kernel, request
+        got = ops.launch_counts()
+        want = expected[label]
+        if label == "q3_lazy" and drv.ctx.wire_fmt("q3_request").packed:
+            for k in CODEC:      # one packed request a round
+                want[k] = rounds[label]
+        if got != want:
+            fail(f"{label} launched {got}, expected {want}")
+        for k, v in got.items():
+            main_launches[k] += v
+        what = _check_semijoin_answer(
+            np, label, out, by_oracle[REGISTRY[label].oracle])
+        extra = (f"; {rounds[label]} lazy rounds" if label == "q3_lazy"
+                 else "")
+        print(f"{label}: {what}, no overflow{extra}; launches "
+              f"{ {k: c for k, c in got.items() if c} }")
+    del out
+    if sorted(recorded) != ["q11", "q3"]:
+        fail(f"B5 ran on the inputs of {sorted(recorded)}, not q3 and q11")
+
+    # -- B5 on the plans' own inputs, against its plain version ----------------
+    plain, _ = hand_kernel_fns()
+    for label, (a, kw) in sorted(recorded.items()):
+        got = ops.predicate_bitset(*a, **kw)
+        hold_exact(torch, got, plain["predicate_bitset"](a, kw),
+                   f"predicate_bitset on the {label} input")
+        hold_exact(torch, got, ops.predicate_bitset(*a, **kw),
+                   f"predicate_bitset on the {label} input, twice")
+    print("predicate_bitset bit-identical to its plain version on the q3 "
+          "and q11 inputs, repeatable")
+
+    # -- times ----------------------------------------------------------------
+    plan_ms = {}
+    for name in SEMIJOIN_PLANS:
+        times = []
+        for _ in range(args.repeat):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            drv.run(name)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        plan_ms[name] = statistics.median(times)
+        print(f"{name} (hand plan): warm median {plan_ms[name]:.3f} ms over "
+              f"{args.repeat} runs (CUDA events) on {smi}")
+        if args.profile:
+            profile_query(torch, lambda nm=name: drv.run(nm), name)
+        torch.cuda.empty_cache()
+    b5 = {}
+    for label, (a, kw) in sorted(recorded.items()):
+        t = hand_kernel_case(torch, "predicate_bitset", a, kw)
+        print(f"predicate_bitset at the {label} input {t['shape']}: "
+              f"{t['ms']:.4f} ms (graph of 20 calls; eager loop "
+              f"{t['eager_loop_ms']:.4f} ms a call), plain "
+              f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.5f} ms "
+              f"({t['bound_by']}, {t['bytes']} B, "
+              f"{t['bound_ms'] / t['ms']:.1%} of it)")
+        b5[label] = t
+    recorded.clear()
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 6c (semi-join plans): {phase_s:.1f} s")
+    return b5, {"plans_ms": plan_ms, "oracle_s": oracle_s,
+                "lazy_rounds": rounds.get("q3_lazy"), "phase_s": phase_s}
 
 
 # ---------------------------------------------------------------------------

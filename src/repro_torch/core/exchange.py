@@ -2,7 +2,8 @@
 (§3.2.1), on the node-stacked cluster.
 
 Counterpart of ``repro.core.exchange`` (collectives, the personalized
-all-to-all with both backends, the wire format and ``request_reply``).  The
+all-to-all with both backends, the wire format, ``request_reply`` and
+``exchange_by_owner``; ``exchange_vectors_by_owner`` is not ported).  The
 P nodes are stacked on the leading axis of every tensor, so a collective is
 a tensor operation over that axis:
 
@@ -215,7 +216,9 @@ def _bucket_presorted(keys, mask, owner, num_nodes: int, capacity: int):
     """Bucket key-sorted masked keys (P, n) into (P, P_dst, capacity) rows
     with gathers only: after :func:`_sort_by_key` each destination's keys
     are a contiguous run from ``starts[d]``.  Returns (buckets,
-    bucket_mask, (dest_of_key, slot_of_key), overflow)."""
+    bucket_mask, (dest_of_key, slot_of_key), src, overflow); ``src`` is the
+    (P, P_dst, capacity) gather index of the buckets, reusable for aligned
+    payloads."""
     P, n = keys.shape
     dest = torch.where(mask, owner.to(torch.int64), num_nodes)
     counts, starts = _dest_counts(dest, num_nodes)
@@ -228,7 +231,7 @@ def _bucket_presorted(keys, mask, owner, num_nodes: int, capacity: int):
     bucket_mask = s < counts[:, :num_nodes, None].clamp(max=capacity)
     buckets = torch.gather(keys, 1, src.reshape(P, -1)).reshape(src.shape)
     buckets = torch.where(bucket_mask, buckets, 0)
-    return buckets, bucket_mask, (dest, slot_of_key), overflow
+    return buckets, bucket_mask, (dest, slot_of_key), src, overflow
 
 
 def bucket_by_destination(keys, mask, owner, num_nodes: int, capacity: int):
@@ -291,7 +294,7 @@ def request_reply(keys, mask, owner, lookup: Callable, *, capacity: int,
     order = None
     if wf.packed:
         order, keys, mask, owner = _sort_by_key(keys, mask, owner)
-        buckets, bucket_mask, (dest_of_key, slot_of_key), overflow = (
+        buckets, bucket_mask, (dest_of_key, slot_of_key), _, overflow = (
             _bucket_presorted(keys, mask, owner, P, capacity))
         msg = encode_key_buckets(buckets, bucket_mask, wf)
         del buckets, bucket_mask       # the largest temporaries (q4_sj)
@@ -321,3 +324,51 @@ def request_reply(keys, mask, owner, lookup: Callable, *, capacity: int,
     if order is not None:
         out = torch.empty_like(out).scatter_(1, order, out)  # undo the sort
     return out, overflow
+
+
+# ---------------------------------------------------------------------------
+# scatter-to-owner exchange (route values to the node owning their key)
+# ---------------------------------------------------------------------------
+
+
+def exchange_by_owner(keys, values, mask, owner, *, capacity: int,
+                      backend: str = "xla",
+                      wire: Optional[WireFormat] = None):
+    """Route each node's masked (key, value) pairs (P, n) to the owner of
+    the key (a group-by key on a remote join path: paper Q2, Q13).
+
+    On a packed ``wire`` with a 4-byte value type the Elias–Fano key rows
+    (mask folded in) and the value buckets, bit for bit, travel as one
+    word row: one all-to-all instead of three, and each sender's slots
+    arrive sorted by key (callers scatter by the received keys).  Returns
+    (recv_keys, recv_values, recv_mask, overflow); the first three are
+    (P_dst, P_src, capacity): what each node received from each sender."""
+    P = keys.shape[0]
+    wf = wire or WireFormat.raw()
+    if wf.packed and values.element_size() == 4:
+        _, keys, mask, values, owner = _sort_by_key(keys, mask, values,
+                                                    owner)
+        buckets, bucket_mask, _, src, overflow = _bucket_presorted(
+            keys, mask, owner, P, capacity)
+        # the value rows ride the key buckets' gather index
+        vals = torch.gather(values, 1, src.reshape(P, -1)).reshape(src.shape)
+        vals = torch.where(bucket_mask, vals, torch.zeros_like(vals))
+        msg = torch.cat([encode_key_buckets(buckets, bucket_mask, wf),
+                         vals.view(torch.int32)], dim=2)
+        del buckets, bucket_mask, vals
+        recv = all_to_all(msg, backend=backend)
+        recv_keys, recv_mask = decode_key_buckets(
+            recv[..., :-capacity].contiguous(), capacity, wf)
+        recv_vals = recv[..., -capacity:].contiguous().view(values.dtype)
+        recv_vals = torch.where(recv_mask, recv_vals,
+                                torch.zeros_like(recv_vals))
+        return recv_keys, recv_vals, recv_mask, overflow
+    buckets, bucket_mask, _, overflow = bucket_by_destination(
+        keys, mask, owner, P, capacity)
+    # the values take the keys' slots: the bucketing depends on the mask
+    # and the owners only
+    vbuckets = bucket_by_destination(values, mask, owner, P, capacity)[0]
+    recv_keys = all_to_all(buckets, backend=backend)
+    recv_vals = all_to_all(vbuckets, backend=backend)
+    recv_mask = all_to_all(bucket_mask, backend=backend)
+    return recv_keys, recv_vals, recv_mask, overflow

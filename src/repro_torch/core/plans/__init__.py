@@ -12,8 +12,7 @@ Counterpart of ``repro.core.plans``.  Each entry binds, explicitly:
               and ``q21`` by name, not by string munging).
 
 ``PLANS`` is the name -> hand-plan mapping; ``get`` raises a typed
-:class:`UnknownPlanError`, which says so when the JAX package registers a
-query that the port does not have yet.
+:class:`UnknownPlanError` for an unknown name.
 """
 from __future__ import annotations
 
@@ -28,6 +27,16 @@ from repro_torch.core.plans.distributed_topk import (
     q21_late,
 )
 from repro_torch.core.plans.local import q1, q1_kernel, q4, q6, q18
+from repro_torch.core.plans.semijoin_plans import (
+    q2,
+    q3,
+    q3_lazy,
+    q3_repl,
+    q5,
+    q11,
+    q13,
+    q14,
+)
 from repro_torch.query.ir import Query, UnknownPlanError
 from repro_torch.tpch.queries import IR_QUERIES
 
@@ -53,8 +62,16 @@ REGISTRY = {
     for q in (
         _d("q1", "q1", q1),
         _d("q1_kernel", "q1", q1_kernel),
+        _d("q2", "q2", q2),
+        _d("q3", "q3", q3),
+        _d("q3_lazy", "q3", q3_lazy),
+        _d("q3_repl", "q3", q3_repl),
         _d("q4", "q4", q4),
+        _d("q5", "q5", q5),
         _d("q6", "q6", q6),
+        _d("q11", "q11", q11),
+        _d("q13", "q13", q13),
+        _d("q14", "q14", q14),
         # IR-only (no hand plan): the Q14 semi-join shape
         _d("q14_promo", None),
         _d("q15", "q15", q15),
@@ -66,19 +83,12 @@ REGISTRY = {
     )
 }
 
-# registered by the JAX package, not ported yet (its semi-join plans)
-NOT_YET_PORTED = ("q2", "q3", "q3_lazy", "q3_repl", "q5", "q11", "q13",
-                  "q14")
 
 
 def get(name: str) -> QueryDef:
     try:
         return REGISTRY[name]
     except KeyError:
-        if name in NOT_YET_PORTED:
-            raise UnknownPlanError(
-                f"query {name!r} is registered in the JAX package but not "
-                f"yet ported (core/plans/semijoin_plans.py)") from None
         raise UnknownPlanError(
             f"unknown query {name!r}; registered: {sorted(REGISTRY)}"
         ) from None

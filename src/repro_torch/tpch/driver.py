@@ -105,6 +105,14 @@ class TPCHDriver:
                                     for c, col in t.columns.items()},
                                 t.dictionaries, t.replicated)
                        for n, t in self.resident.items()}
+        # q3_repl's remote join attribute, replicated at load time (the
+        # paper's 'repl' variant): one 1-D column on every node
+        seg = self.tables["customer"].columns["c_mktsegment"]
+        self.tables["customer_seg_repl"] = Table(
+            "customer_seg_repl", {"c_mktsegment": seg}, replicated=True)
+        self.resident["customer_seg_repl"] = Table(
+            "customer_seg_repl", {"c_mktsegment": torch.from_numpy(seg)},
+            replicated=True)
         packed_meta = {
             n: {c: PackedInfo(width=col.width, offset=col.offset,
                               values=col.values, dtype=col.dtype)
@@ -226,5 +234,7 @@ class TPCHDriver:
         """Float64 numpy reference for a registered query or a forced
         exchange variant (``q14_promo_request``, ``q4_sj_request``, ...)."""
         oracle, component = oracle_binding(name)
+        if oracle == "q11":
+            kw.setdefault("sf", self.sf)
         out = reference.ALL[oracle](self.tables, **kw)
         return out if component is None else out[component]

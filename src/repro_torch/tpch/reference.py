@@ -1,7 +1,9 @@
 """Pure-numpy oracles for the TPC-H queries this port answers.
 
-A copy of the q1, q4, q6, q14, q15, q18 and q21 oracles of
-``repro.tpch.reference`` and of the q18_sj oracle of ``benchmarks/exchange_compression.py``.  They
+A copy of the q1, q2, q3, q4, q5, q6, q11, q13, q14, q15, q18 and q21
+oracles of ``repro.tpch.reference`` (sums by ``np.bincount``, which adds
+in input order as ``np.add.at`` does and is much faster at SF 10) and of
+the q18_sj oracle of ``benchmarks/exchange_compression.py``.  They
 operate on the GLOBAL (unpartitioned) host tables in float64 — the
 correctness baseline every plan must match ("we check the query results
 for correctness", paper §4.1).  Rankings use (value desc, key asc) like
@@ -46,6 +48,24 @@ def q1(t, p=DP):
     return out  # [sum_qty, sum_base, sum_disc_price, sum_charge, sum_disc, count]
 
 
+def q5(t, p=DP):
+    cust = t["customer"].columns
+    orders = t["orders"].columns
+    li = t["lineitem"].columns
+    sup = t["supplier"].columns
+    o_ok = ((orders["o_orderdate"] >= p.q5_date_min)
+            & (orders["o_orderdate"] < p.q5_date_max))
+    s_nat = sup["s_nationkey"]
+    s_ok = S.nation_region(s_nat) == p.q5_region
+    l_sup_nat = s_nat[li["l_suppkey"]]
+    l_cust = orders["o_custkey"][li["l_orderkey"]]
+    sel = (o_ok[li["l_orderkey"]] & s_ok[li["l_suppkey"]]
+           & (cust["c_nationkey"][l_cust] == l_sup_nat))
+    # revenue per nation (only the region's nations are nonzero)
+    return np.bincount(l_sup_nat[sel], weights=_revenue(li, sel),
+                       minlength=25)
+
+
 def q6(t, p=DP):
     li = t["lineitem"].columns
     sel = (
@@ -59,6 +79,44 @@ def q6(t, p=DP):
     return rev[sel].sum()
 
 
+def q2(t, p=DP, k=100):
+    part = t["part"].columns
+    ps = t["partsupp"].columns
+    sup = t["supplier"].columns
+    psel = ((part["p_size"] == p.q2_size)
+            & (part["p_type"] % S.NUM_BRASS == p.q2_type_finish))
+    s_in_region = S.nation_region(sup["s_nationkey"]) == p.q2_region
+    cand = psel[ps["ps_partkey"]] & s_in_region[ps["ps_suppkey"]]
+    cost = ps["ps_supplycost"].astype(np.float64)
+    mincost = np.full(part["p_partkey"].shape[0], np.inf)
+    np.minimum.at(mincost, ps["ps_partkey"][cand], cost[cand])
+    lowest = mincost[ps["ps_partkey"]]
+    is_min = cand & (cost <= lowest + 1e-6) & (cost >= lowest - 1e-6)
+    # result rows: (acctbal of supplier, composite key part * NS + supp)
+    num_sup = sup["s_suppkey"].shape[0]
+    comp = (ps["ps_partkey"][is_min].astype(np.int64) * num_sup
+            + ps["ps_suppkey"][is_min])
+    bal = sup["s_acctbal"].astype(np.float64)[ps["ps_suppkey"][is_min]]
+    return _topk(bal, comp, k)
+
+
+def _revenue(li, sel):
+    return (li["l_extendedprice"][sel]
+            * (1 - li["l_discount"][sel])).astype(np.float64)
+
+
+def q3(t, p=DP, k=10):
+    cust = t["customer"].columns
+    orders = t["orders"].columns
+    li = t["lineitem"].columns
+    c_ok = cust["c_mktsegment"] == p.q3_segment
+    o_ok = (orders["o_orderdate"] < p.q3_date) & c_ok[orders["o_custkey"]]
+    lsel = (li["l_shipdate"] > p.q3_date) & o_ok[li["l_orderkey"]]
+    rev = np.bincount(li["l_orderkey"][lsel], weights=_revenue(li, lsel),
+                      minlength=orders["o_orderkey"].shape[0])
+    return _topk(rev[rev > 0], orders["o_orderkey"][rev > 0], k)
+
+
 def q4(t, p=DP):
     orders = t["orders"].columns
     li = t["lineitem"].columns
@@ -70,6 +128,29 @@ def q4(t, p=DP):
     sel = o_ok & has_late
     return np.bincount(orders["o_orderpriority"][sel],
                        minlength=5).astype(np.float64)
+
+
+def q11(t, p=DP, sf: float = 1.0, cap: int = 128):
+    ps = t["partsupp"].columns
+    sup = t["supplier"].columns
+    sel = (sup["s_nationkey"] == p.q11_nation)[ps["ps_suppkey"]]
+    value = (ps["ps_supplycost"].astype(np.float64)
+             * ps["ps_availqty"]).astype(np.float64)
+    per_part = np.bincount(ps["ps_partkey"][sel], weights=value[sel],
+                           minlength=t["part"].columns["p_partkey"].shape[0])
+    thresh = per_part.sum() * p.q11_fraction / sf
+    qualified = per_part > thresh
+    return _topk(per_part[qualified], np.nonzero(qualified)[0], cap)
+
+
+def q13(t, p=DP, hist_cap: int = 64):
+    orders = t["orders"].columns
+    cust = t["customer"].columns
+    sel = ~orders["o_comment_special"]
+    counts = np.bincount(orders["o_custkey"][sel],
+                         minlength=cust["c_custkey"].shape[0])
+    counts = np.minimum(counts, hist_cap - 1)
+    return np.bincount(counts, minlength=hist_cap).astype(np.float64)
 
 
 def q14(t, p=DP):
@@ -157,5 +238,6 @@ def q18_sj(t, qty: float = 250.0, segment: int = DP.q3_segment):
     return np.array([sq[sel].sum(), sel.sum()])
 
 
-ALL = {"q1": q1, "q4": q4, "q6": q6, "q14": q14, "q15": q15, "q18": q18,
+ALL = {"q1": q1, "q2": q2, "q3": q3, "q4": q4, "q5": q5, "q6": q6,
+       "q11": q11, "q13": q13, "q14": q14, "q15": q15, "q18": q18,
        "q18_sj": q18_sj, "q21": q21}

@@ -35,6 +35,9 @@ from repro_torch.tpch.schema import DEFAULT_PARAMS as DP
 
 HAND_PLANS = ["q1", "q1_kernel", "q6", "q4", "q18", "q15", "q15_1factor",
               "q15_approx", "q21", "q21_late"]
+# tests/test_torch_semijoin_plans.py holds these against the JAX package
+SEMIJOIN_PLANS = ["q2", "q3", "q3_lazy", "q3_repl", "q5", "q11", "q13",
+                  "q14"]
 Q15_ATTRS = ("s_name_code", "s_address_code", "s_phone_code")
 Q18_ATTRS = ("o_custkey", "o_orderdate", "sum_qty", "c_name_code")
 
@@ -260,20 +263,20 @@ def test_cluster_run_ships_named_exchanges_in_their_wire_format(
 
 def test_registry_matches_jax():
     """The same names, oracle bindings and plan/IR presence as the JAX
-    registry for every ported query; the rest raise 'not yet ported'."""
+    registry for every query, the semi-join plans included: nothing is
+    left refused, and an unknown name raises."""
+    assert set(plans.REGISTRY) == set(JAX_REGISTRY)
     for name, entry in plans.REGISTRY.items():
         ref = JAX_REGISTRY[name]
+        assert plans.get(name) is entry
         assert entry.oracle == ref.oracle, name
         assert (entry.plan is None) == (ref.plan is None), name
         assert (entry.ir is None) == (ref.ir is None), name
-    missing = set(JAX_REGISTRY) - set(plans.REGISTRY)
-    assert missing == set(plans.NOT_YET_PORTED)
-    for name in sorted(missing):
-        with pytest.raises(UnknownPlanError, match="not yet ported"):
-            plans.get(name)
+        if entry.plan is not None:
+            assert entry.plan.__name__ == ref.plan.__name__, name
     with pytest.raises(UnknownPlanError, match="unknown query"):
         plans.get("q99")
-    assert set(plans.PLANS) == set(HAND_PLANS)
+    assert set(plans.PLANS) == set(HAND_PLANS) | set(SEMIJOIN_PLANS)
 
 
 def test_capacities_and_wire_formats_match_jax(tpch_driver, port_driver):
@@ -306,8 +309,11 @@ def test_query_runs_hand_plans_and_splits_overflow(port_driver):
         port_driver.query("q15", wire="raw")
     with pytest.raises(LoweringError, match="no IR definition"):
         port_driver.run_ir("q15")
-    with pytest.raises(UnknownPlanError, match="not yet ported"):
-        port_driver.run("q3")
+    with pytest.raises(UnknownPlanError, match="unknown query"):
+        port_driver.run("q99")
+    ans = port_driver.query("q13")    # a semi-join plan without IR
+    assert ans.source == "q13" and ans.overflow is False
+    assert ans.value.shape == (64,)
     # q1 has both: run() takes the hand plan, run_ir() the lowering
     assert port_driver.compile("q1").plan is tlocal.q1
     assert port_driver.compile_ir("q1").plan.handles_packed

@@ -186,6 +186,44 @@ def test_predicate_bitset_bit_identical_to_jax(n, value):
         np.testing.assert_array_equal(_u32(got), np.asarray(want))
 
 
+@pytest.mark.parametrize("shape", [(3, 70), (2, 3, 37), (4, 64)])
+def test_predicate_bitset_nd_rows_bit_identical_to_jax(shape):
+    """2-D and 3-D columns, N % 4 != 0 and == 0 (the CUDA kernel's scalar
+    and 16-byte variants): every row packed from bit 0, the words of the
+    JAX kernel (the first row) and of its ref (every row)."""
+    rng = np.random.default_rng(sum(shape))
+    col = rng.integers(0, 3, shape).astype(np.int32)
+    got = ops.predicate_bitset(torch.from_numpy(col), value=1)
+    assert got.shape == shape[:-1] + ((shape[-1] + 31) // 32,)
+    rows = col.reshape(-1, shape[-1])
+    words = got.reshape(len(rows), -1)
+    for r, row in enumerate(rows):
+        np.testing.assert_array_equal(
+            _u32(words[r]), np.asarray(jref.predicate_bitset(
+                jnp.asarray(row), 1)))
+    np.testing.assert_array_equal(_u32(words[0]), np.asarray(
+        jbp.predicate_bitset(jnp.asarray(rows[0]), 1, block=64,
+                             interpret=True)))
+
+
+def test_predicate_bitset_vector_loads():
+    """The 16-byte variant's condition: N % 4 == 0 and the column on 16
+    bytes; a copy 4 bytes past them takes the scalar one.  The plain
+    version gives both the same words."""
+    from repro_torch.kernels import bitset_pack
+
+    col = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 3, (8, 64)).astype(np.int32))
+    mis = torch.empty(col.numel() + 1, dtype=torch.int32)[1:].view(8, 64)
+    mis.copy_(col)
+    assert col.data_ptr() % 16 == 0 and mis.data_ptr() % 16 == 4
+    assert bitset_pack.vector_loads(64, col.data_ptr())
+    assert not bitset_pack.vector_loads(64, mis.data_ptr())
+    assert not bitset_pack.vector_loads(63, col.data_ptr())
+    assert torch.equal(ops.predicate_bitset(mis, value=1),
+                       ops.predicate_bitset(col, value=1))
+
+
 def test_predicate_bitset_rows_match_alt2_bitset():
     """Node-stacked (L, n) columns, each row packed from bit 0: the words
     of ``semijoin.alt2_bitset`` per node, bit 31 set included."""

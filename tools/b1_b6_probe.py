@@ -115,19 +115,22 @@ def turn(root: pathlib.Path) -> dict:
     return out
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def run_turns(script: str, turn_fn, doc: str, argv=None) -> int:
+    """The command line of a probe: each checkout in ``argv`` runs
+    ``turn_fn(root)`` in a fresh process of ``script``, in turns."""
+    ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("roots", nargs="*", type=pathlib.Path,
                     help="checkouts, run in this order")
     ap.add_argument("--turn", type=pathlib.Path, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
 
+    name = pathlib.Path(script).stem
     if not torch.cuda.is_available():
-        print("b1_b6_probe: CUDA is not available", file=sys.stderr)
+        print(f"{name}: CUDA is not available", file=sys.stderr)
         return 1
     if args.turn is not None:
-        print(json.dumps(turn(args.turn.resolve())))
+        print(json.dumps(turn_fn(args.turn.resolve())))
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -135,7 +138,7 @@ def main(argv=None) -> int:
     print(smi)
     readings = []
     for root in args.roots or [pathlib.Path(".")]:
-        proc = subprocess.run([sys.executable, __file__, "--turn",
+        proc = subprocess.run([sys.executable, script, "--turn",
                                str(root)], capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr, file=sys.stderr)
@@ -147,6 +150,10 @@ def main(argv=None) -> int:
             for k, v in r.items()))
     print(json.dumps({"card": smi, "readings": readings}))
     return 0
+
+
+def main(argv=None) -> int:
+    return run_turns(__file__, turn, __doc__, argv)
 
 
 if __name__ == "__main__":
