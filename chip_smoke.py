@@ -110,6 +110,34 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
    owner-routed exchange (q2, q13); nothing else.  B5 is held against its
    plain version on q3's and q11's inputs; times: each plan's warm
    median and B5 at those inputs; the phase's seconds.
+6d. Prepared statements on the same driver.  ``scan_filter`` with its
+   bounds as int32 tensors on the card, bit-identical to its plain
+   version over every width 1..30 with (B,) lanes of bounds for B in
+   {1, 2, 8, 64} and 0-d bounds (empty, negative, past the top code,
+   crossed, equal and int32-extreme ranges in every run), rows ending
+   inside the last group, both ``negate`` values, on its own storage
+   and on a copy 4 bytes past 16 bytes (both variants).  Then q1, q6
+   and q14_promo (``auto`` and ``alt="request"``) from
+   ``PARAM_QUERIES``, each prepared once and executed at its default
+   binding and 8 ``random_binding`` draws (a fixed generator), each
+   answer against ``oracle_params`` + the oracle (rtol 2e-4; q14_promo
+   also atol 1e-2), no overflow; ``execute_batch`` of the 8 draws, each
+   lane byte-equal to its scalar execute (q1's lanes, the batched lane
+   mask product, against the oracle, their distance from the executes
+   printed).  Launches, the counters set to 0 before each call: an
+   execute runs ``scan_filter`` once a packed scan and the four codec
+   kernels once a packed request semi-join, nothing else; an
+   ``execute_batch`` the same scans whatever B is, the codec once a
+   lane.  One lowering per shape and per batched specialization
+   (``compile_events``).  q14_promo's request exchange at the capacity
+   the literal one-month query derives: the one-month lane equals the
+   oracle and only a five-year lane overflows.  A q6 execute captured
+   in a CUDA graph, replayed after its parameter tensors are overwritten
+   with two other bindings: each replay equals that binding's oracle and
+   execute.  Times: warm medians of ``execute`` and ``execute_batch(8)``
+   (CUDA events) and ms a binding; ``scan_filter`` at q6's
+   ``l_shipdate`` input with 1 and 8 lanes of bounds, beside 8 x the one
+   lane time, the plain version and the bound; the phase's seconds.
 7. The language model, after the TPC-H phases have
    dropped what they placed on the card:
    a. B7's two CUDA variants.  The f32 CUDA-core ``flash_attention_fwd``
@@ -204,10 +232,12 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
       tokens/s, ``torch.cuda.max_memory_allocated``; both B8 variants at
       layer 0's training input beside their plain versions, the backward
       of ``scaled_dot_product_attention`` and the bound.
-9. One ``{"kernels": [...]}`` line (fourteen kernels: B7 and B8 once for
+9. One ``{"kernels": [...]}`` line (fifteen entries: B7 and B8 once for
    each variant, the f32 CUDA-core ones with ``"main_path": false`` and
    0 launches; B5's launches those of q21, q3 and q11, its times at q3's
-   and q11's inputs under ``"q3"`` and ``"q11"``), then the last line
+   and q11's inputs under ``"q3"`` and ``"q11"``; B1 twice, its batched
+   entry ``scan_filter_batched`` with 8 lanes of bounds at q6's input and
+   the launches of the ``execute_batch`` runs), then the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or when
@@ -636,6 +666,13 @@ def check_group_sum(torch, ops, ref, gen, n, num_groups, c, cutoff, *,
     return float(err.max()), (measures, groups, pred)
 
 
+def host_bounds(drv, name, d) -> tuple:
+    """A lowered query's scan bounds for its own literals: the rewrite of
+    decision ``d`` at the query's prepared binding, given on the host, so
+    Python ints."""
+    return d.rewrite.bounds(drv.prepare(name).binding())
+
+
 def tpch_phases(args, torch, smi: str):
     """The TPC-H phases (3-6 of the module docstring): B1-B3 against
     their plain versions, the queries, bytes and times.  Returns (the
@@ -733,7 +770,7 @@ def tpch_phases(args, torch, smi: str):
             if d.mode != "packed":
                 continue
             col = li.columns[d.column]
-            args_ = (col.words, d.rewrite.lo, d.rewrite.hi)
+            args_ = (col.words, *host_bounds(drv, name, d))
             kw = dict(rows=col.rows, padded_rows=col.padded_rows,
                       width=col.width, negate=d.rewrite.negate)
             got = ops.scan_filter(*args_, **kw)
@@ -915,10 +952,10 @@ def tpch_phases(args, torch, smi: str):
 
     iters = 20
     ship = li.columns["l_shipdate"]
-    q6_ship = next(d for d in scans if d.column == "l_shipdate").rewrite
+    q6_ship = next(d for d in scans if d.column == "l_shipdate")
     sf_kw = dict(rows=ship.rows, padded_rows=ship.padded_rows,
                  width=ship.width)
-    sf_args = (ship.words, q6_ship.lo, q6_ship.hi)
+    sf_args = (ship.words, *host_bounds(drv, "q6", q6_ship))
     from repro_torch.kernels.scan_filter import scan_filter_cuda
     from repro_torch.kernels.grouped_agg import filtered_group_sum_cuda
 
@@ -1020,6 +1057,9 @@ def tpch_phases(args, torch, smi: str):
     # -- 6c. the semi-join hand plans, B5 on q3's and q11's inputs -------------
     b5_inputs, semijoin = semijoin_plan_phase(args, torch, smi, drv,
                                               main_launches, zero)
+    # -- 6d. prepared statements, B1 with lanes of bounds ------------------------
+    b1_lanes, prepared = prepared_phase(args, torch, smi, drv,
+                                        main_launches, zero, gen)
     for k in hand_kernels:
         k["launches"] = main_launches[k["name"]]
         if k["name"] == "predicate_bitset":
@@ -1062,9 +1102,9 @@ def tpch_phases(args, torch, smi: str):
             "bound_ms": t4["bound_ms"], "bound_by": t4["bound_by"],
             "library_ms": None, "shape": "q4_sj " + t4["shape"],
             "q18_sj": t18})
-    kernels += hand_kernels
+    kernels += hand_kernels + [b1_lanes]
     return kernels, {"queries_ms": query_ms, "hand_plans": hand,
-                     "semijoin_plans": semijoin,
+                     "semijoin_plans": semijoin, "prepared": prepared,
                      "gen_s": gen_s,
                      "resident_bytes": drv.resident_bytes,
                      "lineitem_bytes": li_bytes, "sf": args.sf,
@@ -1781,6 +1821,368 @@ def semijoin_plan_phase(args, torch, smi, drv, main_launches, zero):
     print(f"phase 6c (semi-join plans): {phase_s:.1f} s")
     return b5, {"plans_ms": plan_ms, "oracle_s": oracle_s,
                 "lazy_rounds": rounds.get("q3_lazy"), "phase_s": phase_s}
+
+
+# ---------------------------------------------------------------------------
+# phase 6d: prepared statements, B1 with lanes of bounds on the card
+# ---------------------------------------------------------------------------
+
+LANES = (1, 2, 8, 64)          # lanes of bounds of the B1 checks
+PREPARED = (("q1", {}), ("q6", {}), ("q14_promo", {}),
+            ("q14_promo", {"alt": "request"}))
+PREPARED_DRAWS = 8             # random bindings a prepared query
+PREPARED_SEED = 2026           # their generator
+
+
+def _lane_bounds(torch, gen, width, lanes):
+    """``lanes`` (lo, hi) pairs of int32 bounds: the edge cases in turn
+    (inside the codes, below 0, past the top code, crossed, equal, empty
+    above the codes, negative, the int32 extremes), then random pairs
+    from [-top, 2 top]."""
+    top = (1 << width) - 1
+    lo = top // 3
+    edges = [(lo, top // 2), (-5, lo), (lo, top + 7), (lo + 1, lo),
+             (lo, lo), (top + 1, top + 9), (-9, -1),
+             (-(2 ** 31), 2 ** 31 - 1), (-(2 ** 31), -(2 ** 31)),
+             (2 ** 31 - 1, 2 ** 31 - 1), (0, top)]
+    pairs = [edges[(b + width) % len(edges)] for b in range(min(lanes,
+                                                                len(edges)))]
+    while len(pairs) < lanes:
+        a, b = torch.randint(-top, 2 * top + 1, (2,), generator=gen,
+                             device="cuda").tolist()
+        pairs.append((a, b))
+    return pairs
+
+
+def check_scan_lanes(torch, compression, ops, ref, gen) -> int:
+    """B1 with bounds on the card against its plain version, bit-identical:
+    every width 1..30, (B,) lanes of bounds for B in LANES and 0-d bounds,
+    the edge cases of :func:`_lane_bounds` in every run, rows = padded and
+    ending inside the last group, both negate values, on the words'
+    storage (16-byte variant) and on a copy 4 bytes past 16 (scalar)."""
+    n_cases = 0
+    groups = 33
+    padded = 32 * groups
+    for width in range(1, 31):
+        top = (1 << width) - 1
+        codes = torch.randint(0, top + 1, (NODES, padded), generator=gen,
+                              device="cuda")
+        words = compression.pack_bits(codes, width)
+        mis = _misaligned(torch, words)
+        for lanes in LANES + (None,):
+            pairs = _lane_bounds(torch, gen, width, lanes or 1)
+            lo = torch.tensor([a for a, _ in pairs], dtype=torch.int32,
+                              device="cuda")
+            hi = torch.tensor([b for _, b in pairs], dtype=torch.int32,
+                              device="cuda")
+            if lanes is None:       # 0-d bounds: one prepared binding
+                lo, hi = lo[0], hi[0]
+            for rows in (padded, padded - 13):
+                for negate in (False, True):
+                    want = ref.scan_filter(words, lo, hi, rows, padded,
+                                           width, negate)
+                    for w in (words, mis):
+                        got = ops.scan_filter(w, lo, hi, rows=rows,
+                                              padded_rows=padded,
+                                              width=width, negate=negate)
+                        if not torch.equal(got, want):
+                            fail(f"scan_filter with lanes={lanes} "
+                                 f"width={width} rows={rows} bounds "
+                                 f"{pairs} negate={negate} aligned="
+                                 f"{w is words} differs from its plain "
+                                 f"version")
+                    n_cases += 1
+    torch.cuda.synchronize()
+    return n_cases
+
+
+def _oracle_of(drv, tq, name, binding):
+    p = tq.oracle_params(name, binding)
+    if name == "q14_promo":
+        return drv.oracle("q14", p=p)[1]
+    return drv.oracle(name, p=p)
+
+
+def _hold_to_oracle(np, name, value, want, what):
+    got = np.asarray(value.cpu(), np.float64).reshape(np.shape(want))
+    if not np.isfinite(got).all():
+        fail(f"{what}: non-finite values")
+    atol = 1e-2 if name == "q14_promo" else 0.0
+    if not np.allclose(got, want, rtol=2e-4, atol=atol):
+        fail(f"{what}: {got} differs from the oracle {want}")
+    return float(np.max(np.abs(got - want) / np.maximum(np.abs(want),
+                                                        1e-30)))
+
+
+def _events_median(torch, fn, repeat):
+    times = []
+    for _ in range(repeat):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def prepared_phase(args, torch, smi, drv, main_launches, zero, gen):
+    """Phase 6d: B1 with lanes of bounds on the card against its plain
+    version; q1, q6 and q14_promo (auto and request) prepared once and
+    executed at the default binding and PREPARED_DRAWS random ones, each
+    against the oracle, and as one ``execute_batch`` whose lanes equal the
+    scalar executes; per-lane overflow; a captured q6 execute replayed
+    for other bindings; launches and times.  Adds the executes' launches
+    to ``main_launches``; returns B1's batched entry of the JSON line and
+    a summary."""
+    import concurrent.futures
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core import compression
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.scan_filter import scan_filter_cuda
+    from repro_torch.query.lower import lower
+    from repro_torch.tpch import queries as tq
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    n_cases = check_scan_lanes(torch, compression, ops, ref, gen)
+    print(f"scan_filter with bounds on the card: bit-identical to the "
+          f"plain version over {n_cases} cases (widths 1..30 x lanes "
+          f"{LANES} and 0-d x 2 rows x negate; edge bounds in every run), "
+          f"each on 16-byte-aligned words and a misaligned copy "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    rng = np.random.default_rng(PREPARED_SEED)
+    bindings = {name: [tq.default_binding(name)]
+                + [tq.random_binding(name, rng)
+                   for _ in range(PREPARED_DRAWS)]
+                for name in tq.PARAM_QUERIES}
+    # the float64 oracles run on the host beside the card's work (numpy
+    # lets go of the interpreter lock in its loops)
+    pool = concurrent.futures.ThreadPoolExecutor(6)
+    oracles = {(name, i): pool.submit(_oracle_of, drv, tq, name, b)
+               for name, bs in bindings.items() for i, b in enumerate(bs)}
+    codec = ("ef_encode", "ef_decode", "mask_fold", "mask_unfold")
+    timings, batched_launches, lane_diff = {}, 0, {}
+    for name, kw in PREPARED:
+        label = name + "".join(f"/{v}" for v in kw.values())
+        prep = drv.prepare(tq.PARAM_QUERIES[name](**kw))
+        plan = drv._ensure_compiled(prep.entry).plan
+        n_scan = sum(d.mode == "packed" for d in plan.scans)
+        n_codec = sum(sj.alt == "request" and sj.wire.packed
+                      for sj in plan.semijoins)
+        want = {**zero, "scan_filter": n_scan,
+                **dict.fromkeys(codec, n_codec)}
+        scalar, errs = [], []
+        for i, b in enumerate(bindings[name]):
+            torch.cuda.empty_cache()
+            ops.reset_launch_counts()
+            ans = prep.execute(b)
+            torch.cuda.synchronize()
+            got = ops.launch_counts()
+            if got != want:
+                fail(f"{label} execute launched {got}, its plan implies "
+                     f"{want}")
+            for k, v in got.items():
+                main_launches[k] += v
+            if ans.overflow:
+                fail(f"{label} at {b}: an exchange buffer overflowed")
+            errs.append(_hold_to_oracle(np, name, ans.value,
+                                        oracles[(name, i)].result(),
+                                        f"{label} at {b}"))
+            scalar.append(ans.value.cpu())
+        draws = bindings[name][1:]
+        ops.reset_launch_counts()
+        ansb = prep.execute_batch(draws)
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        want_b = {**want, **dict.fromkeys(codec, n_codec * len(draws))}
+        if got != want_b:
+            fail(f"{label} execute_batch({len(draws)}) launched {got}, "
+                 f"expected {want_b}")
+        batched_launches += got["scan_filter"]
+        for k, v in got.items():
+            main_launches[k] += v
+        if ansb.overflow.shape != (len(draws),) or bool(ansb.overflow.any()):
+            fail(f"{label} execute_batch: overflow {ansb.overflow}")
+        value = ansb.value.cpu()
+        diff = 0.0
+        for i in range(len(draws)):
+            if name == "q1":
+                # the batched q1 is the lane-mask product: sums in another
+                # order than the scalar one-hot product
+                _hold_to_oracle(np, name, value[i],
+                                oracles[(name, i + 1)].result(),
+                                f"{label} lane {i}")
+                d = (value[i].double() - scalar[i + 1].double()).abs()
+                diff = max(diff, float((d / scalar[i + 1].double().abs()
+                                        .clamp(min=1e-30)).max()))
+            elif value[i].numpy().tobytes() != scalar[i + 1].numpy(
+                    ).tobytes():
+                fail(f"{label} execute_batch lane {i} differs from its "
+                     f"scalar execute")
+        lane_diff[label] = diff
+        print(f"{label}: {len(bindings[name])} bindings equal the oracle "
+              f"(max relative error {max(errs):.3e}), no overflow; "
+              f"execute_batch({len(draws)}) lanes "
+              + ("within the oracle's tolerance, max relative distance "
+                 f"from the scalar executes {diff:.3e}" if name == "q1"
+                 else "byte-equal to the scalar executes")
+              + f"; launches an execute {want}, a batch "
+              f"{ {k: c for k, c in want_b.items() if c} }")
+        t_exec = _events_median(torch, lambda: prep.execute(draws[0]),
+                                args.repeat)
+        t_batch = _events_median(torch, lambda: prep.execute_batch(draws),
+                                 args.repeat)
+        timings[label] = {"execute_ms": t_exec, "batch_ms": t_batch,
+                          "batch_ms_per_binding": t_batch / len(draws)}
+        print(f"{label}: warm median execute {t_exec:.3f} ms, "
+              f"execute_batch({len(draws)}) {t_batch:.3f} ms "
+              f"({t_batch / len(draws):.3f} ms a binding) over "
+              f"{args.repeat} runs (CUDA events) on {smi}")
+        if args.profile:
+            profile_query(torch, lambda: prep.execute(draws[0]),
+                          f"{label} execute")
+            profile_query(torch, lambda: prep.execute_batch(draws),
+                          f"{label} execute_batch({len(draws)})")
+        del ans, ansb, value
+        torch.cuda.empty_cache()
+
+    # one lowering per shape and per batched specialization
+    for name, kw in PREPARED:
+        shape = tq.PARAM_QUERIES[name](**kw).name
+        for lab in (shape, f"{shape}@batch"):
+            if drv.compile_events.count(lab) != 1:
+                fail(f"{lab} lowered {drv.compile_events.count(lab)} "
+                     f"times: {drv.compile_events}")
+    print(f"compile events: {drv.compile_events}")
+
+    # per-lane overflow: the request exchange at the capacity a literal
+    # one-month q14_promo derives, for that month and for five years
+    prep = drv.prepare(tq.q14_promo_param_ir(alt="request"))
+    cap = lower(tq.q14_promo_ir(alt="request"), drv.catalog,
+                wire=drv.wire).semijoins[0].capacity
+    plan = lower(prep.query, drv.catalog, wire=drv.wire,
+                 binding=prep.entry.stats_binding, batched=True)
+    ctx = dataclasses.replace(drv.ctx, capacities={
+        **drv.ctx.capacities, plan.semijoins[0].key: cap})
+    narrow = tq.default_binding("q14_promo")
+    wide = {"q14_date_min": tq.day(1993, 1, 1),
+            "q14_date_max": tq.day(1998, 1, 1)}
+    stacked = {p.name: torch.tensor([m[p.name] for m in
+                                     (prep.binding(narrow),
+                                      prep.binding(wide))],
+                                    dtype=torch.int32, device="cuda")
+               for p in prep.params}
+    out = drv.cluster.compile(plan, ctx, batch=True)(drv.columns(), stacked)
+    overflow = out["overflow"].cpu().tolist()
+    if overflow != [False, True]:
+        fail(f"q14_promo request at capacity {cap}: lanes overflowed "
+             f"{overflow}, expected [False, True]")
+    _hold_to_oracle(np, "q14_promo", out["value"][0],
+                    oracles[("q14_promo", 0)].result(),
+                    "q14_promo request, narrow lane")
+    print(f"q14_promo request at capacity {cap} (the literal one-month "
+          f"plan's): the one-month lane equals the oracle, only the "
+          f"five-year lane overflows")
+    del out
+    torch.cuda.empty_cache()
+
+    # the bounds never pass through the host: a captured q6 execute,
+    # replayed after its parameter tensors are overwritten
+    prep = drv.prepare(tq.q6_param_ir())
+    fn = drv._ensure_compiled(prep.entry)
+    cols = drv.columns()
+    pv = prep._cast(prep.binding(bindings["q6"][0]))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(cols, pv)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn(cols, pv)
+    for i in (3, 5):
+        b = bindings["q6"][i]
+        for k, v in prep._cast(prep.binding(b)).items():
+            pv[k].copy_(v)
+        graph.replay()
+        torch.cuda.synchronize()
+        _hold_to_oracle(np, "q6", captured["value"],
+                        oracles[("q6", i)].result(),
+                        f"captured q6 replayed at {b}")
+        eager = prep.execute(b).value.cpu()
+        if not torch.equal(captured["value"].cpu(), eager):
+            fail(f"captured q6 replayed at {b} differs from its execute "
+                 f"{eager}")
+    del graph, captured
+    print("q6 captured in a CUDA graph: replayed after its parameter "
+          "tensors were overwritten with two other bindings, each equals "
+          "that binding's oracle and execute")
+    pool.shutdown()
+
+    # -- times: B1 at q6's l_shipdate input, 1 and 8 lanes ---------------------
+    ship = drv.placed["lineitem"].columns["l_shipdate"]
+    dec = next(d for d in fn.plan.scans if d.column == "l_shipdate")
+    lanes = [dec.rewrite.bounds(prep.binding(b))
+             for b in bindings["q6"][1:]]
+    lo8 = torch.tensor([a for a, _ in lanes], dtype=torch.int32,
+                       device="cuda")
+    hi8 = torch.tensor([b for _, b in lanes], dtype=torch.int32,
+                       device="cuda")
+    kw = dict(rows=ship.rows, padded_rows=ship.padded_rows,
+              width=ship.width)
+    iters = 20
+    want = ref.scan_filter(ship.words, lo8, hi8, **kw)
+    got = scan_filter_cuda(ship.words, lo8, hi8, **kw)
+    err = max_abs_diff(got.reshape(-1, got.shape[-1]),
+                       want.reshape(-1, want.shape[-1]))
+    if err:
+        fail(f"scan_filter with 8 lanes at q6's input differs from its "
+             f"plain version by up to {err}")
+    del got, want
+    t1 = cuda_ms(lambda: scan_filter_cuda(ship.words, lo8[0], hi8[0], **kw),
+                 iters)
+    t8 = cuda_ms(lambda: scan_filter_cuda(ship.words, lo8, hi8, **kw), iters)
+    g1 = graph_ms(lambda: scan_filter_cuda(ship.words, lo8[0], hi8[0],
+                                           **kw), iters)
+    g8 = graph_ms(lambda: scan_filter_cuda(ship.words, lo8, hi8, **kw),
+                  iters)
+    plain8 = cuda_ms(lambda: ref.scan_filter(ship.words, lo8, hi8, **kw), 3)
+    torch.cuda.empty_cache()
+    groups = ship.padded_rows // 32
+    nbytes = (ship.words.numel() + 8 * NODES * groups) * 4
+    b8_bound, b8_by = bound(nbytes, 4 * 8 * NODES * ship.padded_rows)
+    b1_bytes = (ship.words.numel() + NODES * groups) * 4
+    b1_bound, _ = bound(b1_bytes, 4 * NODES * ship.padded_rows)
+    print(f"scan_filter at q6's l_shipdate input, bounds on the card: "
+          f"B = 1 {t1:.4f} ms (eager loop; a CUDA graph of the calls "
+          f"{g1:.4f}; bound {b1_bound:.4f}), B = 8 {t8:.4f} ms (graph "
+          f"{g8:.4f}) against 8 x B = 1 = {8 * g1:.4f} (graphs); bound "
+          f"{b8_bound:.4f} ms ({b8_by}, {nbytes} B, {b8_bound / g8:.1%} "
+          f"of the graph time); plain {plain8:.3f} ms")
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 6d (prepared statements): {phase_s:.1f} s")
+    entry = {"name": "scan_filter_batched", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/scan_filter.cu",
+             "replaces": "src/repro/kernels/scan_filter.py:76",
+             "tpu_function":
+                 "src/repro/kernels/scan_filter.py:scan_filter_pallas "
+                 "(under vmap: bounds with a lane axis)",
+             "launches": batched_launches, "max_abs_err": float(err),
+             "ms": t8, "plain_ms": plain8, "bound_ms": b8_bound,
+             "bound_by": b8_by, "library_ms": None, "lanes": 8,
+             "graph_ms": g8, "ms_b1": t1, "graph_ms_b1": g1,
+             "bound_ms_b1": b1_bound,
+             "shape": f"P={NODES} rows/node={ship.rows} width={ship.width}"}
+    return entry, {"prepared_ms": timings,
+                   "lane_rel_diff_vs_execute": lane_diff,
+                   "scan_lane_cases": n_cases, "phase_s": phase_s}
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,7 @@ a host-side vocabulary).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Mapping, Optional, Sequence
 
@@ -72,9 +73,7 @@ class PackedColumn:
     def _from_codes(self, codes: torch.Tensor) -> torch.Tensor:
         """int32 codes -> the column's logical dtype."""
         if self.values is not None:
-            table = torch.as_tensor(
-                np.asarray(self.values, dtype=np.dtype(self.dtype)),
-                device=codes.device)
+            table = dictionary(self.values, self.dtype, codes.device)
             return table[codes.to(torch.int64)]
         if self.dtype == "bool":
             return codes.to(torch.bool)
@@ -92,6 +91,16 @@ class PackedColumn:
         row indices are node-local."""
         return self._from_codes(
             compression.gather_bits(self.words, idx, self.width))
+
+
+@functools.cache
+def dictionary(values: tuple, dtype: str, device: torch.device
+               ) -> torch.Tensor:
+    """A dictionary's values as a ``dtype`` tensor on ``device``, made
+    once: a decode or a parameterized code bound then copies nothing from
+    the host (and a captured plan can replay them)."""
+    return torch.as_tensor(np.asarray(values, dtype=np.dtype(dtype)),
+                           device=device)
 
 
 def _pad32(n: int) -> int:

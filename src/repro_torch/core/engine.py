@@ -117,16 +117,31 @@ class Cluster:
                            wires=dict(wires or {}))
 
     # -- compilation -------------------------------------------------------
-    def compile(self, plan: Callable, ctx: PlanContext) -> Callable:
+    def compile(self, plan: Callable, ctx: PlanContext, *,
+                batch: bool = False) -> Callable:
         """Bind a plan to its context: returns ``fn(columns)`` over the
         placed column dicts (table name -> column name -> column), with
         the plan as ``fn.plan``.
+
+        A PARAMETERIZED plan (``plan.params`` non-empty, the lowered form
+        of a query with ``Param`` placeholders) binds to ``fn(columns,
+        params)``, ``params`` mapping each name to a 0-d tensor on the
+        cluster's device: the compile-once / execute-many model, one plan
+        for every binding.  With ``batch=True`` (a plan lowered with
+        ``batched=True``) each value is a ``(B,)`` tensor, one binding a
+        lane, and every output gains a leading lane axis.
 
         Compressed residency: tables may hold PackedColumn entries.  A plan
         that declares ``handles_packed`` (the IR lowering) receives them
         as-is and scans the packed words directly; every other plan gets
         its columns decoded at plan entry, each when the plan first reads
         it (``columnar.decode_columns``)."""
+        params = tuple(getattr(plan, "params", ()) or ())
+        if batch and not params:
+            raise ValueError("batch=True requires a parameterized plan")
+        if batch != bool(getattr(plan, "batched", False)):
+            raise ValueError(f"batch={batch} binds only a plan lowered "
+                             f"with batched={batch}")
         if getattr(plan, "handles_packed", False):
             def entry(columns):
                 return columns
@@ -134,8 +149,12 @@ class Cluster:
             def entry(columns):
                 return {t: decode_columns(c) for t, c in columns.items()}
 
-        def run(columns):
-            return plan(ctx, entry(columns))
+        if params:
+            def run(columns, pvals):
+                return plan(ctx, entry(columns), pvals)
+        else:
+            def run(columns):
+                return plan(ctx, entry(columns))
 
         run.plan = plan
         return run

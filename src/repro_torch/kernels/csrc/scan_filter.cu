@@ -8,9 +8,17 @@
 // j of word g is the test of row 32 g + j; rows >= `rows` are never valid,
 // negated or not.  lo and hi are any int32.
 //
+// Bounds, as the TPU kernel's (1, 2) bounds block: `lanes` pairs (lo, hi)
+// read from device memory (a (lanes, 2) int32 array, one pair a prepared
+// binding), or, without that array, one pair passed by value.  Every lane
+// is tested in the one pass over the words: lane b's bitset is out[b].
+// Each lane's range is clipped into [0, 2^width) here on the device.
+//
 // Bound on this card: bytes.  Per row it reads width/32 of a word and
-// writes one bit, and does a handful of integer operations, so the least
-// time is (packed words + bitset words) * 4 B over the memory rate.
+// writes one bit a lane, and does a handful of integer operations a lane,
+// so the least time is (packed words + lanes * bitset words) * 4 B over
+// the memory rate; at many lanes the compares (about four integer
+// operations a row and lane) come near it.
 //
 // Design.  The node-stacked (nodes, groups * width) words are one
 // contiguous stream of nodes * groups groups; a group's node row only sets
@@ -18,18 +26,20 @@
 // consecutive groups (32 * width words, 128 * width bytes): it loads them
 // coalesced (16-byte vectors where the stream starts on 16 bytes: a tile
 // spans a multiple of 16 bytes, so then every tile does) into shared
-// memory, each lane builds the word of its own group from the shared
-// copy, and the warp stores its 32 words as one 128-byte store.  Each
-// group's row in shared memory has an odd stride (width, or width + 1),
-// so the 32 lanes reading word i of their groups hit 32 banks.  `width`
+// memory, each thread builds the word of its own group from the shared
+// copy, and the warp stores its 32 words of each lane of bounds as one
+// 128-byte store.  Each group's row in shared memory has an odd stride
+// (width, or width + 1), so the 32 threads reading word i of their groups
+// hit 32 banks.  `width`
 // is a template parameter (one switch over 1..30), so every word index
 // and shift of the 32 codes is a constant, as in the TPU kernel's static
 // j loop.  The grid is persistent: each warp walks tiles with a stride of
 // the grid's warps and issues the next tile's loads into registers before
-// it tests the current one, so an SM keeps tens of KB in flight.  The
-// range test is one unsigned compare, (code - lo') <= hi' - lo', with lo
-// and hi clipped to [0, 2^width) on the host (an empty range never
-// passes).
+// it tests the current one, so an SM keeps tens of KB in flight.  A
+// thread extracts its group's 32 codes into registers once and tests them
+// against every lane of bounds in turn.  The range test is one unsigned
+// compare, (code - lo') <= hi' - lo', with lo and hi clipped to
+// [0, 2^width) (an empty range never passes).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -118,12 +128,26 @@ __device__ __forceinline__ void store_tile(const Tile<W, VEC>& t,
   }
 }
 
+// Clip (lo, hi) into the codes' range [0, 2^W): lo' and span = hi' - lo'.
+// An empty range gets lo' = 2^W, so code - lo' wraps above span = 0 for
+// every code.
+template <int W>
+__device__ __forceinline__ void clip_bounds(int lo, int hi, uint32_t& lo_u,
+                                            uint32_t& span) {
+  constexpr int kTop = (1 << W) - 1;
+  const int lo_c = lo < 0 ? 0 : lo;
+  const int hi_c = hi > kTop ? kTop : hi;
+  lo_u = lo_c > hi_c ? (uint32_t)kTop + 1u : (uint32_t)lo_c;
+  span = lo_c > hi_c ? 0u : (uint32_t)(hi_c - lo_c);
+}
+
 template <int W, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 scan_filter_kernel(const uint32_t* __restrict__ words,
                    uint32_t* __restrict__ out, long long total,
-                   long long groups, long long rows, uint32_t lo,
-                   uint32_t span, uint32_t flip) {
+                   long long groups, long long rows,
+                   const int* __restrict__ bounds, int lanes, int lo_arg,
+                   int hi_arg, uint32_t flip) {
   constexpr int S = W | 1;                    // odd stride of a group's row
   constexpr uint32_t kMask = (1u << W) - 1u;
   __shared__ __align__(16) uint32_t smem[kWarps][32 * S];
@@ -144,19 +168,21 @@ scan_filter_kernel(const uint32_t* __restrict__ words,
     if (next < ntiles) load_tile<W, VEC>(t, words, next, total, lane);
     const long long g = tile * 32 + lane;
     if (g < total) {
-      uint32_t w[W];
+      uint32_t code[32];
+      {
+        uint32_t w[W];
 #pragma unroll
-      for (int i = 0; i < W; ++i) w[i] = sm[lane * S + i];
-      uint32_t bits = 0;
+        for (int i = 0; i < W; ++i) w[i] = sm[lane * S + i];
 #pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        const int bit = j * W;
-        const int wi = bit >> 5;
-        const int off = bit & 31;
-        uint32_t v = w[wi] >> off;
-        // off + W > 32 implies off > 0, so the shift below is < 32
-        if (off + W > 32) v |= w[wi + 1] << (32 - off);
-        bits |= (uint32_t)(((v & kMask) - lo) <= span) << j;
+        for (int j = 0; j < 32; ++j) {
+          const int bit = j * W;
+          const int wi = bit >> 5;
+          const int off = bit & 31;
+          uint32_t v = w[wi] >> off;
+          // off + W > 32 implies off > 0, so the shift below is < 32
+          if (off + W > 32) v |= w[wi + 1] << (32 - off);
+          code[j] = v & kMask;
+        }
       }
       // the group's index in its node: 32-bit division where it fits
       const long long in_node =
@@ -166,7 +192,18 @@ scan_filter_kernel(const uint32_t* __restrict__ words,
       const uint32_t rmask = live >= 32 ? 0xffffffffu
                              : live <= 0 ? 0u
                                          : (1u << (int)live) - 1u;
-      out[g] = (bits ^ flip) & rmask;
+      for (int b = 0; b < lanes; ++b) {
+        // the same address in every thread of the warp: one broadcast
+        const int lo = bounds ? __ldg(bounds + 2 * b) : lo_arg;
+        const int hi = bounds ? __ldg(bounds + 2 * b + 1) : hi_arg;
+        uint32_t lo_u, span;
+        clip_bounds<W>(lo, hi, lo_u, span);
+        uint32_t bits = 0;
+#pragma unroll
+        for (int j = 0; j < 32; ++j)
+          bits |= (uint32_t)((code[j] - lo_u) <= span) << j;
+        out[(long long)b * total + g] = (bits ^ flip) & rmask;
+      }
     }
     tile = next;
   }
@@ -174,8 +211,8 @@ scan_filter_kernel(const uint32_t* __restrict__ words,
 
 template <int W, bool VEC>
 int launch(const uint32_t* words, uint32_t* out, long long total,
-           long long groups, long long rows, uint32_t lo, uint32_t span,
-           uint32_t flip, cudaStream_t stream) {
+           long long groups, long long rows, const int* bounds, int lanes,
+           int lo, int hi, uint32_t flip, cudaStream_t stream) {
   // persistent grid: as many blocks as fit the card at once, and no more
   // than one for each kWarps tiles; the occupancy is asked once for each
   // instantiation
@@ -194,48 +231,43 @@ int launch(const uint32_t* words, uint32_t* out, long long total,
   const long long resident = (long long)per_sm * sms;
   if (blocks > resident) blocks = resident;
   scan_filter_kernel<W, VEC><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      words, out, total, groups, rows, lo, span, flip);
+      words, out, total, groups, rows, bounds, lanes, lo, hi, flip);
   return (int)cudaGetLastError();
 }
 
 template <int W>
 int launch_width(bool vec, const uint32_t* words, uint32_t* out,
                  long long total, long long groups, long long rows,
-                 uint32_t lo, uint32_t span, uint32_t flip,
+                 const int* bounds, int lanes, int lo, int hi, uint32_t flip,
                  cudaStream_t stream) {
-  return vec ? launch<W, true>(words, out, total, groups, rows, lo, span,
-                               flip, stream)
-             : launch<W, false>(words, out, total, groups, rows, lo, span,
-                                flip, stream);
+  return vec ? launch<W, true>(words, out, total, groups, rows, bounds,
+                               lanes, lo, hi, flip, stream)
+             : launch<W, false>(words, out, total, groups, rows, bounds,
+                                lanes, lo, hi, flip, stream);
 }
 
 }  // namespace
 
-// words: (nodes, groups * width) uint32; out: (nodes, groups) uint32.
-// vec: the words start on 16 bytes (16-byte loads).  Returns the
-// cudaError_t of the launch (0 on success).
+// words: (nodes, groups * width) uint32; out: (lanes, nodes, groups)
+// uint32.  bounds: a (lanes, 2) int32 array in device memory, or null for
+// one lane whose bounds are lo and hi.  vec: the words start on 16 bytes
+// (16-byte loads).  Returns the cudaError_t of the launch (0 on success).
 extern "C" int repro_scan_filter(const void* words, void* out, int nodes,
                                  long long groups, long long rows, int width,
-                                 int lo, int hi, int negate, int vec,
-                                 void* stream) {
-  if (nodes == 0 || groups == 0) return 0;
-  // clip the bounds to the codes' range; an empty range never passes:
-  // lo' = 2^width makes code - lo' wrap above span = 0 for every code
-  const long long top = (1LL << width) - 1;
-  const long long lo_c = lo < 0 ? 0 : lo;
-  const long long hi_c = hi > top ? top : hi;
-  const uint32_t lo_u = lo_c > hi_c ? (uint32_t)(top + 1) : (uint32_t)lo_c;
-  const uint32_t span = lo_c > hi_c ? 0u : (uint32_t)(hi_c - lo_c);
+                                 const void* bounds, int lanes, int lo,
+                                 int hi, int negate, int vec, void* stream) {
+  if (nodes == 0 || groups == 0 || lanes == 0) return 0;
   const uint32_t flip = negate ? 0xffffffffu : 0u;
   const long long total = (long long)nodes * groups;
   const uint32_t* w = (const uint32_t*)words;
   uint32_t* o = (uint32_t*)out;
+  const int* bd = (const int*)bounds;
   const cudaStream_t st = (cudaStream_t)stream;
   const bool v = vec != 0;
-#define REPRO_SCAN_CASE(W)                                               \
-  case W:                                                                \
-    return launch_width<W>(v, w, o, total, groups, rows, lo_u, span, flip, \
-                           st);
+#define REPRO_SCAN_CASE(W)                                                \
+  case W:                                                                 \
+    return launch_width<W>(v, w, o, total, groups, rows, bd, lanes, lo, hi, \
+                           flip, st);
   switch (width) {
     REPRO_SCAN_CASE(1) REPRO_SCAN_CASE(2) REPRO_SCAN_CASE(3)
     REPRO_SCAN_CASE(4) REPRO_SCAN_CASE(5) REPRO_SCAN_CASE(6)

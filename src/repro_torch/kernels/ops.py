@@ -103,7 +103,10 @@ def filtered_group_sum(measures, groups, pred, *, cutoff, num_groups):
 def scan_filter(words, lo, hi, *, rows, padded_rows, width, negate=False):
     """Validity bitset of ``lo <= code <= hi`` (optionally negated) over
     node-stacked packed words (P, wpn) -> (P, padded_rows / 32) int32;
-    rows past ``rows`` are invalid."""
+    rows past ``rows`` are invalid.  The bounds are Python ints, or int32
+    tensors on the words' device (read there, never on the host): 0-d,
+    or ``(B,)`` for B lanes of bounds in one pass, which gives (B, P,
+    padded_rows / 32)."""
     if _kernel_path(words):
         return scan_filter_cuda(words, lo, hi, rows=rows,
                                 padded_rows=padded_rows, width=width,

@@ -30,9 +30,15 @@ def scan_filter(words, lo, hi, rows, padded_rows, width, negate=False):
     """Decode-then-compare version of the predicate-on-packed kernel:
     unpack the full column, apply the code-space range test, pack the
     validity bitset (rows past ``rows`` are never valid).
-    words: (P, wpn) int32 -> (P, padded_rows / 32) int32."""
+    words: (P, wpn) int32 -> (P, padded_rows / 32) int32.  ``lo`` and
+    ``hi`` are ints or int32 tensors: 0-d, or ``(B,)`` for B lanes of
+    bounds, which gives (B, P, padded_rows / 32)."""
     codes = compression.unpack_bits(words, padded_rows, width)
-    ok = (codes >= int(lo)) & (codes <= int(hi))
+    if isinstance(lo, torch.Tensor) and lo.ndim == 1:
+        lo, hi = lo[:, None, None], hi[:, None, None]
+    elif not isinstance(lo, torch.Tensor):
+        lo, hi = int(lo), int(hi)
+    ok = (codes >= lo) & (codes <= hi)
     if negate:
         ok = ~ok
     ok &= torch.arange(padded_rows, device=words.device) < rows

@@ -2,6 +2,9 @@
 
   ir      expression + operator nodes, the ``Q`` builder, catalog,
           validation, typed errors
-  stats   code-space predicate rewrite and per-column scan strategy
+  params  ``parameterize`` (a query's shape and literal binding) and
+          ``bind_params``, its inverse
+  stats   selectivity model, code-space predicate rewrite (literal or
+          parameterized bounds) and per-column scan strategy
   lower   IR -> node-stacked physical plan (bound by ``Cluster.compile``)
 """

@@ -2,9 +2,9 @@
 
 Counterpart of ``repro.query.ir``: the operators ``Scan``, ``Filter``,
 ``Project``, ``SemiJoin``, ``Exists``, ``GroupAgg``, ``GroupAggByKey`` and
-``TopK`` (with ``Fetch`` attributes) over expression trees of columns and
-literals.  Runtime parameters (``Param``) and binned keys (``Bin``) come
-with a later slice.
+``TopK`` (with ``Fetch`` attributes) over expression trees of columns,
+literals, runtime parameters (``Param``, bound at execute time: the
+paper's §2/§3.1 compile-once model) and binned keys (``Bin``).
 
 Precedence gotcha: ``&``/``|`` bind tighter than comparisons in Python —
 always parenthesize comparisons inside conjunctions:
@@ -16,6 +16,7 @@ import dataclasses
 from typing import Mapping, Optional, Sequence
 
 import numpy as np
+import torch
 
 
 # ---------------------------------------------------------------------------
@@ -39,6 +40,11 @@ class IRValidationError(QueryError):
 class LoweringError(QueryError):
     """The IR is valid but not compilable (min/max aggregates, kernel
     shape mismatch, an operator not yet ported)."""
+
+
+class UnboundParamError(QueryError, LookupError):
+    """A :class:`Param` placeholder was evaluated without a binding for
+    its name (execute a prepared query with the missing parameter)."""
 
 
 # ---------------------------------------------------------------------------
@@ -121,6 +127,25 @@ class Lit(Expr):
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
+class Param(Expr):
+    """Runtime query parameter: a scalar placeholder bound at execute
+    time, so ONE lowered plan serves every literal binding.
+
+    ``lo``/``hi`` optionally declare the binding range; the selectivity
+    model sizes exchange buffer capacities for the WORST binding in the
+    declared range (no range -> fully conservative).  The range is a
+    sizing hint, not a runtime check."""
+
+    name: str
+    dtype: str = "float32"  # numpy dtype name of the bound scalar
+    lo: Optional[float] = None
+    hi: Optional[float] = None
+
+    def __post_init__(self):
+        np.dtype(self.dtype)  # typo-proof: fail at build, not at bind
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class BinOp(Expr):
     op: str  # + - * / == != < <= > >= and or
     lhs: Expr
@@ -131,6 +156,23 @@ class BinOp(Expr):
 class UnaryOp(Expr):
     op: str  # not neg
     operand: Expr
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Bin(Expr):
+    """Digitize a numeric expression against sorted ``edges``: code ``j``
+    covers the half-open interval ``(edges[j-1], edges[j]]`` (the cube's
+    convention for binned dimensions)."""
+
+    child: Expr
+    edges: tuple
+
+    def __post_init__(self):
+        object.__setattr__(self, "edges", tuple(sorted(self.edges)))
+
+    @property
+    def cardinality(self) -> int:
+        return len(self.edges) + 1
 
 
 C = Col  # builder shorthand: C("l_shipdate") <= cutoff
@@ -152,18 +194,42 @@ _BINOPS = {
 }
 
 
-def eval_expr(e: Expr, cols: Mapping[str, object]):
+def _digitize(col, edges: tuple):
+    """Bin codes of ``col``: the number of edges strictly below each value
+    (numpy's ``searchsorted(side="left")``), as int32."""
+    if isinstance(col, torch.Tensor):
+        e = torch.as_tensor(np.asarray(edges), device=col.device)
+        e = e.to(col.dtype)
+        return torch.searchsorted(e, col.contiguous()).to(torch.int32)
+    col = np.asarray(col)
+    return np.searchsorted(np.asarray(edges, col.dtype), col,
+                           side="left").astype(np.int32)
+
+
+def eval_expr(e: Expr, cols: Mapping[str, object], params=None):
     """Evaluate an expression against a column dict (torch tensors inside a
-    plan, numpy on the host — both work: only python operators)."""
+    plan, numpy on the host — both work: only python operators and a
+    sorted search).  ``params`` binds :class:`Param` placeholders by name
+    (0-d tensors on the device inside a prepared plan, python or numpy
+    scalars on the host)."""
     if isinstance(e, Col):
         return cols[e.name]
     if isinstance(e, Lit):
         return e.value
+    if isinstance(e, Param):
+        if params is None or e.name not in params:
+            raise UnboundParamError(
+                f"parameter {e.name!r} has no binding — pass it via "
+                f"params= (bound: {sorted(params) if params else 'none'})")
+        return params[e.name]
     if isinstance(e, BinOp):
-        return _BINOPS[e.op](eval_expr(e.lhs, cols), eval_expr(e.rhs, cols))
+        return _BINOPS[e.op](eval_expr(e.lhs, cols, params),
+                             eval_expr(e.rhs, cols, params))
     if isinstance(e, UnaryOp):
-        v = eval_expr(e.operand, cols)
+        v = eval_expr(e.operand, cols, params)
         return ~v if e.op == "not" else -v
+    if isinstance(e, Bin):
+        return _digitize(eval_expr(e.child, cols, params), e.edges)
     raise IRValidationError(f"unknown expression node {type(e).__name__}")
 
 
@@ -171,13 +237,69 @@ def expr_columns(e: Expr) -> frozenset:
     """Set of column names an expression reads."""
     if isinstance(e, Col):
         return frozenset((e.name,))
-    if isinstance(e, Lit):
+    if isinstance(e, (Lit, Param)):
         return frozenset()
     if isinstance(e, BinOp):
         return expr_columns(e.lhs) | expr_columns(e.rhs)
     if isinstance(e, UnaryOp):
         return expr_columns(e.operand)
+    if isinstance(e, Bin):
+        return expr_columns(e.child)
     raise IRValidationError(f"unknown expression node {type(e).__name__}")
+
+
+def expr_params(e: Optional[Expr]) -> tuple:
+    """Params an expression binds, in deterministic pre-order (duplicates
+    by name kept once, first occurrence wins)."""
+    if e is None or isinstance(e, (Col, Lit)):
+        return ()
+    if isinstance(e, Param):
+        return (e,)
+    if isinstance(e, BinOp):
+        return _dedup_params(expr_params(e.lhs) + expr_params(e.rhs))
+    if isinstance(e, UnaryOp):
+        return expr_params(e.operand)
+    if isinstance(e, Bin):
+        return expr_params(e.child)
+    raise IRValidationError(f"unknown expression node {type(e).__name__}")
+
+
+def _dedup_params(ps: tuple) -> tuple:
+    out, seen = [], {}
+    for p in ps:
+        prev = seen.get(p.name)
+        if prev is None:
+            seen[p.name] = p
+            out.append(p)
+        elif not same_expr(prev, p):
+            raise IRValidationError(
+                f"parameter {p.name!r} declared twice with different "
+                f"dtype/range ({prev.dtype}/[{prev.lo},{prev.hi}] vs "
+                f"{p.dtype}/[{p.lo},{p.hi}])")
+    return tuple(out)
+
+
+def same_expr(a: Optional[Expr], b: Optional[Expr]) -> bool:
+    """Structural equality (``==`` on Expr builds a predicate instead)."""
+    if a is None or b is None:
+        return a is b
+    if type(a) is not type(b):
+        return False
+    if isinstance(a, Col):
+        return a.name == b.name
+    if isinstance(a, Lit):
+        return a.value == b.value
+    if isinstance(a, Param):
+        return (a.name == b.name and a.dtype == b.dtype
+                and a.lo == b.lo and a.hi == b.hi)
+    if isinstance(a, BinOp):
+        return (a.op == b.op and same_expr(a.lhs, b.lhs)
+                and same_expr(a.rhs, b.rhs))
+    if isinstance(a, UnaryOp):
+        return a.op == b.op and same_expr(a.operand, b.operand)
+    if isinstance(a, Bin):
+        return a.edges == b.edges and same_expr(a.child, b.child)
+    return False
 
 
 _FLIP_CMP = {"<": ">", "<=": ">=", ">": "<", ">=": "<=",
@@ -185,16 +307,73 @@ _FLIP_CMP = {"<": ">", "<=": ">=", ">": "<", ">=": "<=",
 
 
 def normalize_comparison(e: Expr) -> Optional[tuple]:
-    """``Col op Lit`` (either side) -> (column, op, value), with the
-    operator flipped when the literal is on the left; None for anything
-    else."""
+    """``Col op Lit`` / ``Col op Param`` (either side) -> (column, op,
+    value), with the operator flipped when the scalar is on the left; None
+    for anything else.  For a literal ``value`` is the raw python value,
+    for a parameter the :class:`Param` node itself."""
     if not isinstance(e, BinOp) or e.op not in _FLIP_CMP:
         return None
-    if isinstance(e.lhs, Col) and isinstance(e.rhs, Lit):
-        return e.lhs.name, e.op, e.rhs.value
-    if isinstance(e.lhs, Lit) and isinstance(e.rhs, Col):
-        return e.rhs.name, _FLIP_CMP[e.op], e.lhs.value
+
+    def _scalar(x):
+        return x.value if isinstance(x, Lit) else x
+
+    if isinstance(e.lhs, Col) and isinstance(e.rhs, (Lit, Param)):
+        return e.lhs.name, e.op, _scalar(e.rhs)
+    if isinstance(e.lhs, (Lit, Param)) and isinstance(e.rhs, Col):
+        return e.rhs.name, _FLIP_CMP[e.op], _scalar(e.lhs)
     return None
+
+
+def same_node(a, b) -> bool:
+    """Structural equality of operator trees (``Expr.__eq__`` builds
+    predicates, so dataclass equality is unavailable by design)."""
+    if type(a) is not type(b):
+        return False
+    if isinstance(a, Scan):
+        return a.table == b.table
+    if isinstance(a, Filter):
+        return same_expr(a.pred, b.pred) and same_node(a.child, b.child)
+    if isinstance(a, Project):
+        return (len(a.cols) == len(b.cols)
+                and all(n1 == n2 and same_expr(e1, e2)
+                        for (n1, e1), (n2, e2) in zip(a.cols, b.cols))
+                and same_node(a.child, b.child))
+    if isinstance(a, SemiJoin):
+        return (a.table == b.table and a.alt == b.alt
+                and same_expr(a.key, b.key) and same_expr(a.pred, b.pred)
+                and same_node(a.child, b.child))
+    if isinstance(a, Exists):
+        return (a.table == b.table and a.key == b.key
+                and same_expr(a.pred, b.pred) and same_node(a.child, b.child))
+    if isinstance(a, GroupAgg):
+        return (a.method == b.method
+                and len(a.keys) == len(b.keys) and len(a.aggs) == len(b.aggs)
+                and all(k1.name == k2.name and k1.cardinality == k2.cardinality
+                        and same_expr(k1.expr, k2.expr)
+                        for k1, k2 in zip(a.keys, b.keys))
+                and all(g1.name == g2.name and g1.agg == g2.agg
+                        and same_expr(g1.expr, g2.expr)
+                        for g1, g2 in zip(a.aggs, b.aggs))
+                and same_node(a.child, b.child))
+    if isinstance(a, GroupAggByKey):
+        return (a.into == b.into and same_expr(a.key, b.key)
+                and len(a.aggs) == len(b.aggs)
+                and all(g1.name == g2.name and g1.agg == g2.agg
+                        and same_expr(g1.expr, g2.expr)
+                        for g1, g2 in zip(a.aggs, b.aggs))
+                and same_node(a.child, b.child))
+    if isinstance(a, TopK):
+        return (a.k == b.k and same_expr(a.value, b.value)
+                and same_expr(a.pred, b.pred) and a.fetch == b.fetch
+                and same_node(a.child, b.child))
+    return False
+
+
+def same_query(a: Optional["Query"], b: Optional["Query"]) -> bool:
+    """Structural equality of two queries (names ignored)."""
+    if a is None or b is None:
+        return a is b
+    return same_node(a.root, b.root)
 
 
 def conjuncts(e: Expr) -> list:
@@ -202,6 +381,58 @@ def conjuncts(e: Expr) -> list:
     if isinstance(e, BinOp) and e.op == "and":
         return conjuncts(e.lhs) + conjuncts(e.rhs)
     return [e]
+
+
+def query_params(node) -> tuple:
+    """All :class:`Param` placeholders an operator tree (or ``Query``)
+    binds, deduplicated by name, in deterministic scan-first order — the
+    ordered parameter signature of a prepared plan.  Raises
+    :class:`IRValidationError` when one name is declared with conflicting
+    dtype/range."""
+    if isinstance(node, Query):
+        node = node.root
+    if isinstance(node, Scan):
+        return ()
+    ps = query_params(node.child)
+    if isinstance(node, Filter):
+        ps += expr_params(node.pred)
+    elif isinstance(node, Project):
+        for _, e in node.cols:
+            ps += expr_params(e)
+    elif isinstance(node, SemiJoin):
+        ps += expr_params(node.key) + expr_params(node.pred)
+    elif isinstance(node, Exists):
+        ps += expr_params(node.pred)
+    elif isinstance(node, GroupAgg):
+        for k in node.keys:
+            ps += expr_params(k.expr)
+        for a in node.aggs:
+            ps += expr_params(a.expr)
+    elif isinstance(node, GroupAggByKey):
+        ps += expr_params(node.key)
+        for a in node.aggs:
+            ps += expr_params(a.expr)
+    elif isinstance(node, TopK):
+        ps += expr_params(node.value) + expr_params(node.pred)
+    return _dedup_params(ps)
+
+
+def substitute(e: Expr, env: Mapping[str, Expr]) -> Expr:
+    """Inline projected columns so derived expressions read base columns.
+    A projection may shadow the column it reads (``x = x * 2``), so while
+    expanding a name that name is excluded from further expansion."""
+    if isinstance(e, Col):
+        if e.name not in env:
+            return e
+        inner = {k: v for k, v in env.items() if k != e.name}
+        return substitute(env[e.name], inner)
+    if isinstance(e, BinOp):
+        return BinOp(e.op, substitute(e.lhs, env), substitute(e.rhs, env))
+    if isinstance(e, UnaryOp):
+        return UnaryOp(e.op, substitute(e.operand, env))
+    if isinstance(e, Bin):
+        return Bin(substitute(e.child, env), e.edges)
+    return e
 
 
 # ---------------------------------------------------------------------------
@@ -608,6 +839,8 @@ def _as_group_key(k) -> GroupKey:
         return k
     name, expr = k[0], _wrap(k[1])
     card = k[2] if len(k) > 2 else None
+    if card is None and isinstance(expr, Bin):
+        card = expr.cardinality
     return GroupKey(name=name, expr=expr, cardinality=card)
 
 

@@ -38,6 +38,29 @@ capacity was exceeded, and the answer is then incomplete; override the
 capacity in ``PlanContext.capacities`` under ``"<query-name>_sj<i>"`` (the
 i-th semi-join of the chain).  Min/max aggregates raise
 :class:`LoweringError`.
+
+Prepared plans.  A query with :class:`~repro_torch.query.ir.Param`
+placeholders lowers to ``plan(ctx, tables, params)``, ``params`` mapping
+each name to a 0-d tensor on the device: the scan bounds are computed
+from them on the device (``ScanRewrite.bounds``), so one lowered plan
+serves every binding and a captured run replays for new values written
+into the same tensors.
+
+Batched plans (``batched=True``) take each parameter as a ``(B,)`` tensor,
+one value a lane, and give every output a leading lane axis — an explicit
+lane axis, not ``torch.vmap`` (the plans scatter and index-update).  Each
+packed scan runs ONCE for all lanes: the scan kernel reads the lanes'
+``(B, 2)`` code bounds from device memory and writes ``(B, P, words)``
+bitsets.  A ``method="auto"`` GroupAgg whose group codes and measures are
+parameter-free (:func:`_maskgemm_eligible`) then contracts the ``(B, n)``
+lane masks against the ``(n, G*M)`` one-hot (x) measures, one batched
+product per node.  Everything else — other conjuncts, semi-joins, other
+aggregations — runs lane by lane on the lane's own masks with the scalar
+plan's own operations, so a lane's answer is byte-equal to the scalar
+execute of its binding.  A request semi-join in particular makes one
+exchange a lane, with that lane's own buckets, capacity and overflow
+flag: one lane that overflows leaves its siblings whole.  Decoded columns
+are shared by the lanes of one run.
 """
 from __future__ import annotations
 
@@ -61,6 +84,7 @@ from repro_torch.core.exchange import WireFormat
 from repro_torch.kernels import ops
 from repro_torch.query import stats as qstats
 from repro_torch.query.ir import (
+    Bin,
     BinOp,
     Catalog,
     Col,
@@ -75,9 +99,12 @@ from repro_torch.query.ir import (
     Scan,
     SemiJoin,
     TopK,
+    UnaryOp,
     conjuncts,
     eval_expr,
     expr_columns,
+    expr_params,
+    query_params,
     validate,
 )
 
@@ -109,12 +136,14 @@ class _SemiJoinPlan:
 
 
 def _decide_semijoins(root, catalog: Catalog, query_name=None,
-                      wire: str = "packed") -> dict:
+                      wire: str = "packed", binding=None) -> dict:
     """Each SemiJoin's physical alternative and buffer capacity from the
     §3.2.2 model, with selectivities accumulated along the chain.  The
     choice is byte-accurate: the static wire bytes of the Alt-1 exchange at
     its derived capacity and packed widths under ``wire``, against the
-    Alt-2 bitset allgather."""
+    Alt-2 bitset allgather.  ``binding`` resolves parameterized predicates
+    for the estimates; an unbound parameter is sized for the worst binding
+    in its declared range (``query.stats.estimate_selectivity``)."""
     decisions = {}
     base = None
     sel = 1.0
@@ -125,7 +154,8 @@ def _decide_semijoins(root, catalog: Catalog, query_name=None,
             continue
         tinfo = catalog.table(base)
         if isinstance(node, Filter):
-            sel *= qstats.estimate_selectivity(node.pred, tinfo.stats)
+            sel *= qstats.estimate_selectivity(node.pred, tinfo.stats,
+                                               binding)
         elif isinstance(node, Exists):
             sel *= qstats.DEFAULT_SELECTIVITY
         elif isinstance(node, GroupAggByKey):
@@ -133,7 +163,8 @@ def _decide_semijoins(root, catalog: Catalog, query_name=None,
             sel = 1.0
         elif isinstance(node, SemiJoin):
             target = catalog.table(node.table)
-            gamma = qstats.estimate_selectivity(node.pred, target.stats)
+            gamma = qstats.estimate_selectivity(node.pred, target.stats,
+                                                binding)
             edge = catalog.copartitioned.get(base)
             local_ok = (
                 edge is not None and edge[0] == node.table
@@ -207,6 +238,37 @@ def _decide_scans(root, catalog: Catalog, cal=None) -> dict:
     return decisions
 
 
+def _has_division(e) -> bool:
+    """Whether an expression can turn finite inputs non-finite (division).
+    It gates the batched mask product: that product folds the lane mask in
+    AFTER the measures are evaluated, and 0 * inf = NaN would poison a
+    group sum that the masked per-lane path computes correctly."""
+    if isinstance(e, BinOp):
+        return e.op == "/" or _has_division(e.lhs) or _has_division(e.rhs)
+    if isinstance(e, UnaryOp):
+        return _has_division(e.operand)
+    if isinstance(e, Bin):
+        return _has_division(e.child)
+    return False
+
+
+def _maskgemm_eligible(root: GroupAgg, num_groups: int) -> bool:
+    """The batched ``mask @ (onehot (x) measures)`` product requires the
+    expanded tensor to be parameter-free (one tensor for every lane),
+    bounded (one-hot-sized group spaces only) and NaN-safe (no division
+    feeding group codes or measures: the lane mask is folded in by
+    multiplication, after evaluation)."""
+    if not 1 < num_groups <= ONEHOT_MAX_GROUPS:
+        return False
+    exprs = [k.expr for k in root.keys]
+    exprs += [a.expr for a in root.aggs if a.expr is not None]
+    # projections below the root may feed group keys and measures
+    for node in _chain(root)[:-1]:
+        if isinstance(node, Project):
+            exprs += [e for _, e in node.cols]
+    return not any(expr_params(e) or _has_division(e) for e in exprs)
+
+
 def _kernel_filter(root: GroupAgg) -> tuple:
     """The fused kernel consumes its filter directly: the chain must be
     Scan -> Filter(Col <= Lit int) -> GroupAgg.  Returns (col, cutoff)."""
@@ -225,16 +287,23 @@ def _kernel_filter(root: GroupAgg) -> tuple:
 
 class _LazyCols(dict):
     """Column view over a (possibly packed-resident) node-stacked table.
-    Packed columns decode on first touch and the decoded view is cached,
-    so a column whose only consumer is the predicate-on-packed kernel is
-    NEVER expanded to raw.  ``raw()`` exposes the undecoded resident
-    form."""
+    Packed columns decode on first touch and the decoded view is cached
+    (in ``cache``, which the lanes of a batched run share), so a column
+    whose only consumer is the predicate-on-packed kernel is NEVER
+    expanded to raw.  ``raw()`` exposes the undecoded resident form."""
+
+    def __init__(self, columns, cache=None):
+        super().__init__(columns)
+        self._decoded = {} if cache is None else cache
 
     def __getitem__(self, name):
         v = super().__getitem__(name)
         if isinstance(v, PackedColumn):
-            v = v.decode()
-            super().__setitem__(name, v)
+            d = self._decoded.get(id(v))
+            if d is None:
+                d = self._decoded[id(v)] = v.decode()
+            super().__setitem__(name, d)
+            v = d
         return v
 
     def raw(self, name):
@@ -271,14 +340,14 @@ class _Stream:
         return tuple(next(iter(self.cols.values())).shape)
 
 
-def _measure_stack(aggs, s: _Stream, mask) -> torch.Tensor:
+def _measure_stack(aggs, s: _Stream, mask, pv) -> torch.Tensor:
     """(P, rows, len(aggs)) f32 measures, zeroed where ``mask`` is False."""
     outs = []
     for a in aggs:
         if a.agg == "count":
             v = torch.ones(s.shape, dtype=torch.float32, device=s.device)
         else:
-            v = eval_expr(a.expr, s.cols).to(torch.float32)
+            v = eval_expr(a.expr, s.cols, pv).to(torch.float32)
         outs.append(v)
     stacked = torch.stack(outs, dim=-1)
     if mask is not None:
@@ -286,23 +355,40 @@ def _measure_stack(aggs, s: _Stream, mask) -> torch.Tensor:
     return stacked
 
 
-def lower(query: Query, catalog: Catalog, *, wire: str = "packed"):
-    """Compile ``query`` into ``plan(ctx, tables)`` (see the module
-    docstring for the output).  ``wire`` is the exchange encoding the
+def _lanes(pv) -> int:
+    """The lane count B of a batched run's ``(B,)`` parameter tensors."""
+    shapes = {tuple(v.shape) for v in pv.values()}
+    if len(shapes) != 1 or len(next(iter(shapes))) != 1:
+        raise ValueError(f"a batched plan takes every parameter as one "
+                         f"(B,) tensor, got shapes {sorted(shapes)}")
+    return next(iter(shapes))[0]
+
+
+def lower(query: Query, catalog: Catalog, *, wire: str = "packed",
+          binding=None, batched: bool = False):
+    """Compile ``query`` into ``plan(ctx, tables)``, or ``plan(ctx, tables,
+    params)`` where the query has parameters (see the module docstring for
+    both, and for ``batched``).  ``wire`` is the exchange encoding the
     §3.2.2 byte-accurate model assumes ("packed" or "raw"); the plan ships
     packed only where the execution context agrees (``ctx.wire !=
-    "raw"``).
+    "raw"``).  ``binding`` feeds only the static capacity and alternative
+    decisions, never the values the plan computes with: pass the
+    prepare-time defaults of an auto-parameterized literal query to size
+    its buffers as the literal plan would.  The plan's parameter
+    signature is ``plan.params``.
 
     Raises :class:`IRValidationError` for malformed IR and
     :class:`LoweringError` for valid-but-uncompilable queries (min/max
     aggregates, kernel-ineligible shapes, other roots, ``wire="auto"``)."""
     root = query.root
     validate(root, catalog)
+    params = query_params(root)
     if not isinstance(root, (GroupAgg, TopK)):
         raise LoweringError(
             f"query root must be group_agg or top_k to produce a result set "
             f"(got {type(root).__name__}) — add an aggregation or selection"
         )
+    maskgemm = False
     if isinstance(root, GroupAgg):
         bad = [a.name for a in root.aggs if a.agg in ("min", "max")]
         if bad:
@@ -319,26 +405,29 @@ def lower(query: Query, catalog: Catalog, *, wire: str = "packed"):
                     f"limit {KERNEL_MAX_GROUPS}"
                 )
             kernel_col, kernel_cutoff = _kernel_filter(root)
+        maskgemm = (batched and root.method == "auto"
+                    and _maskgemm_eligible(root, num_groups))
 
     sj_plans = _decide_semijoins(root, catalog, query_name=query.name,
-                                 wire=wire)
+                                 wire=wire, binding=binding)
     scan_plans = _decide_scans(root, catalog)
 
-    def _eval(node, ctx, t) -> _Stream:
+    def _eval(node, ctx, t, pv, scan, cache) -> _Stream:
         if isinstance(node, Scan):
-            return _Stream(base=node.table, cols=_LazyCols(t[node.table]),
+            return _Stream(base=node.table,
+                           cols=_LazyCols(t[node.table], cache),
                            mask=None, device=ctx.device)
 
-        s = _eval(node.child, ctx, t)
+        s = _eval(node.child, ctx, t, pv, scan, cache)
 
         if isinstance(node, Filter):
             per = scan_plans.get(id(node))
             if per is None:
-                s.and_mask(eval_expr(node.pred, s.cols))
+                s.and_mask(eval_expr(node.pred, s.cols, pv))
                 return s
             acc = None          # AND of per-column bitsets, in word space
             acc_shape = None    # (rows, padded_rows) — same table, so same
-            for conjs, ds in per:
+            for i, (conjs, ds) in enumerate(per):
                 dec = next((d for d in ds if d.mode == "packed"
                             and d.rewrite is not None), None)
                 col = (s.cols.raw(dec.rewrite.column)
@@ -346,15 +435,12 @@ def lower(query: Query, catalog: Catalog, *, wire: str = "packed"):
                 if isinstance(col, PackedColumn):
                     # predicate-on-packed: code-space range test over the
                     # resident words, no decode of the column at all
-                    words = ops.scan_filter(
-                        col.words, dec.rewrite.lo, dec.rewrite.hi,
-                        rows=col.rows, padded_rows=col.padded_rows,
-                        width=col.width, negate=dec.rewrite.negate)
+                    words = scan((id(node), i), dec, col)
                     acc = words if acc is None else acc & words
                     acc_shape = (col.rows, col.padded_rows)
                 else:
                     for conj in conjs:
-                        s.and_mask(eval_expr(conj, s.cols))
+                        s.and_mask(eval_expr(conj, s.cols, pv))
             if acc is not None:
                 rows, padded = acc_shape
                 s.and_mask(compression.unpack_bitset(acc, padded)[:, :rows])
@@ -362,32 +448,32 @@ def lower(query: Query, catalog: Catalog, *, wire: str = "packed"):
 
         if isinstance(node, Project):
             for name, e in node.cols:
-                s.cols[name] = eval_expr(e, s.cols)
+                s.cols[name] = eval_expr(e, s.cols, pv)
             return s
 
         if isinstance(node, SemiJoin):
             sj = sj_plans[id(node)]
-            target_cols = _LazyCols(t[node.table])
+            target_cols = _LazyCols(t[node.table], cache)
             part = ctx.part(node.table)
-            key = eval_expr(node.key, s.cols)
+            key = eval_expr(node.key, s.cols, pv)
             if sj.alt == "local":
-                bits_owner = eval_expr(node.pred, target_cols)
+                bits_owner = eval_expr(node.pred, target_cols, pv)
                 s.and_mask(torch.gather(
                     bits_owner, 1, _local_index(ctx, node.table, key)))
             elif sj.alt == "bitset":
                 words = semijoin.alt2_bitset(eval_expr(node.pred,
-                                                       target_cols))
+                                                       target_cols, pv))
                 s.and_mask(semijoin.probe(words, key, part))
             else:  # request (Alt-1 exchange)
                 needed = expr_columns(node.pred)
 
                 def pred_fn(local_idx, m, _cols=target_cols, _p=node.pred,
-                            _need=needed):
+                            _need=needed, _pv=pv):
                     # requested rows only: packed targets gather and
                     # decode the requested codes, not the column
                     view = {c: _col_at(_cols.raw(c), local_idx)
                             for c in _need}
-                    return eval_expr(_p, view) & m
+                    return eval_expr(_p, view, _pv) & m
 
                 mask = (s.mask if s.mask is not None
                         else torch.ones(key.shape, dtype=torch.bool,
@@ -404,8 +490,8 @@ def lower(query: Query, catalog: Catalog, *, wire: str = "packed"):
             return s
 
         if isinstance(node, Exists):
-            inner = _LazyCols(t[node.table])
-            bits = eval_expr(node.pred, inner)
+            inner = _LazyCols(t[node.table], cache)
+            bits = eval_expr(node.pred, inner, pv)
             fk_local = _local_index(ctx, s.base, inner[node.key])
             hits = torch.zeros((fk_local.shape[0],
                                 ctx.part(s.base).rows_per_node),
@@ -415,7 +501,7 @@ def lower(query: Query, catalog: Catalog, *, wire: str = "packed"):
             return s
 
         if isinstance(node, GroupAggByKey):
-            key = eval_expr(node.key, s.cols)
+            key = eval_expr(node.key, s.cols, pv)
             idx = _local_index(ctx, node.into, key)
             shape = (idx.shape[0], ctx.part(node.into).rows_per_node)
             derived = {}
@@ -424,7 +510,7 @@ def lower(query: Query, catalog: Catalog, *, wire: str = "packed"):
                     v = torch.ones(idx.shape, dtype=torch.float32,
                                    device=s.device)
                 else:
-                    v = eval_expr(a.expr, s.cols).to(torch.float32)
+                    v = eval_expr(a.expr, s.cols, pv).to(torch.float32)
                 if s.mask is not None:
                     v = torch.where(s.mask, v, 0.0)
                 # float atomics on the card: the order of the sums varies
@@ -434,33 +520,33 @@ def lower(query: Query, catalog: Catalog, *, wire: str = "packed"):
                 derived[a.name] = torch.zeros(
                     shape, dtype=torch.float32,
                     device=s.device).scatter_add_(1, idx, v)
-            cols = _LazyCols(t[node.into])
+            cols = _LazyCols(t[node.into], cache)
             cols.update(derived)
             return _Stream(base=node.into, cols=cols, mask=None,
                            device=s.device, overflow=s.overflow)
 
         raise LoweringError(f"cannot lower operator {type(node).__name__}")
 
-    def _group_ids(s: _Stream, *, clip: bool):
+    def _group_ids(s: _Stream, pv, *, clip: bool):
         if not root.keys:
             return torch.zeros(s.shape, dtype=torch.int32, device=s.device)
         gid = None
         for k in root.keys:
-            code = eval_expr(k.expr, s.cols).to(torch.int32)
+            code = eval_expr(k.expr, s.cols, pv).to(torch.int32)
             if clip:
                 code = torch.clamp(code, 0, k.cardinality - 1)
             gid = code if gid is None else gid * k.cardinality + code
         return gid
 
-    def _group_agg(ctx, t):
+    def _group_agg(ctx, t, pv, scan, cache):
         if root.method == "kernel":
             # The kernel applies `pred <= cutoff` itself, so the Filter's
             # scan would be dead: evaluate the Scan below it directly (the
             # JAX package computes that mask and lets XLA drop it; eager
             # PyTorch would really run it).
-            s = _eval(root.child.child, ctx, t)
-            gid = _group_ids(s, clip=True)  # the kernel indexes by gid
-            stacked = _measure_stack(root.aggs, s, mask=None)
+            s = _eval(root.child.child, ctx, t, pv, scan, cache)
+            gid = _group_ids(s, pv, clip=True)  # the kernel indexes by gid
+            stacked = _measure_stack(root.aggs, s, None, pv)
             pred = s.cols[kernel_col]
             if pred.is_floating_point():
                 raise LoweringError(
@@ -472,32 +558,32 @@ def lower(query: Query, catalog: Catalog, *, wire: str = "packed"):
                 cutoff=kernel_cutoff, num_groups=num_groups)
             return {"value": psum(local)}, s
 
-        s = _eval(root.child, ctx, t)
+        s = _eval(root.child, ctx, t, pv, scan, cache)
         method = root.method
         if method == "auto":
             method = "onehot" if num_groups <= ONEHOT_MAX_GROUPS else "dense"
         if num_groups == 1:
             # global aggregate: per-measure masked sums, no one-hot detour
-            stacked = _measure_stack(root.aggs, s, s.mask)
+            stacked = _measure_stack(root.aggs, s, s.mask, pv)
             local = stacked.sum(dim=1)[:, None, :]
         elif method == "onehot":
             # out-of-range codes match no one-hot row and drop out
-            gid = _group_ids(s, clip=False)
-            stacked = _measure_stack(root.aggs, s, s.mask)
+            gid = _group_ids(s, pv, clip=False)
+            stacked = _measure_stack(root.aggs, s, s.mask, pv)
             local = aggregation.group_sum_onehot(stacked, gid, num_groups)
         else:
-            gid = _group_ids(s, clip=True)  # scatter safety
-            stacked = _measure_stack(root.aggs, s, s.mask)
+            gid = _group_ids(s, pv, clip=True)  # scatter safety
+            stacked = _measure_stack(root.aggs, s, s.mask, pv)
             local = torch.stack(
                 [aggregation.group_sum_dense(stacked[..., c], gid, num_groups)
                  for c in range(stacked.shape[-1])], dim=-1)
         return {"value": psum(local)}, s
 
-    def _top_k(ctx, t):
-        s = _eval(root.child, ctx, t)
+    def _top_k(ctx, t, pv, scan, cache):
+        s = _eval(root.child, ctx, t, pv, scan, cache)
         if root.pred is not None:
-            s.and_mask(eval_expr(root.pred, s.cols))
-        values = eval_expr(root.value, s.cols)
+            s.and_mask(eval_expr(root.pred, s.cols, pv))
+        values = eval_expr(root.value, s.cols, pv)
         keys = ctx.part(s.base).global_keys(ctx.device)
         local = topk.local_topk(values, keys, root.k, s.mask)
         # every node's row holds the global winners after the reduction
@@ -518,14 +604,86 @@ def lower(query: Query, catalog: Catalog, *, wire: str = "packed"):
                     {f.name: t[f.table][f.name]}))
         return out, s
 
-    def plan(ctx, t):
-        out, s = (_group_agg if isinstance(root, GroupAgg) else _top_k)(
-            ctx, t)
+    body = _group_agg if isinstance(root, GroupAgg) else _top_k
+
+    def scan_with(pv):
+        """The packed scans under parameters ``pv``: one kernel launch
+        each, with a lane axis where the bounds have one."""
+        def scan(key, dec, col):
+            lo, hi = dec.rewrite.bounds(pv)
+            return ops.scan_filter(col.words, lo, hi, rows=col.rows,
+                                   padded_rows=col.padded_rows,
+                                   width=col.width,
+                                   negate=dec.rewrite.negate)
+        return scan
+
+    def run(ctx, t, pv):
+        out, s = body(ctx, t, pv, scan_with(pv), {})
         if s.overflow is not False:
             out["overflow"] = s.overflow
         return out
 
-    plan.params = ()
+    def lane_scan(pv, lane, done):
+        """Lane ``lane``'s bitset of a scan that runs once for all lanes
+        (on the first lane that reaches it); a scan whose bounds are
+        literal has no lane axis."""
+        batch = scan_with(pv)
+
+        def scan(key, dec, col):
+            if key not in done:
+                done[key] = batch(key, dec, col)
+            words = done[key]
+            return words[lane] if words.ndim == 3 else words
+        return scan
+
+    def run_batched(ctx, t, pv):
+        B = _lanes(pv)
+        lane_pv = [{k: v[b] for k, v in pv.items()} for b in range(B)]
+        done, cache = {}, {}
+        if maskgemm:
+            streams = [_eval(root.child, ctx, t, lane_pv[b],
+                             lane_scan(pv, b, done), cache)
+                       for b in range(B)]
+            s = streams[0]
+            # group codes and measures are parameter-free, only the mask
+            # varies by lane: contract the lane masks against the
+            # (n, G*M) one-hot (x) measures once.  Out-of-range codes match
+            # no one-hot column and drop out, as in the onehot path
+            gid = _group_ids(s, lane_pv[0], clip=False)
+            stacked = _measure_stack(root.aggs, s, None, lane_pv[0])
+            P, n, m = stacked.shape
+            ids = torch.arange(num_groups, dtype=torch.int32,
+                               device=s.device)
+            onehot = (gid[..., None] == ids).to(torch.float32)
+            expanded = (onehot[..., None] * stacked[..., None, :]).reshape(
+                P, n, num_groups * m)
+            del onehot, stacked
+            masks = torch.stack(
+                [x.mask if x.mask is not None
+                 else torch.ones((P, n), dtype=torch.bool, device=s.device)
+                 for x in streams], dim=1)
+            local = torch.bmm(masks.to(torch.float32), expanded)
+            out = {"value": psum(local).reshape(B, num_groups, m)}
+            if s.overflow is not False:
+                out["overflow"] = torch.stack([x.overflow for x in streams])
+            return out
+        outs = []
+        for b in range(B):
+            out, s = body(ctx, t, lane_pv[b], lane_scan(pv, b, done), cache)
+            if s.overflow is not False:
+                out["overflow"] = s.overflow
+            outs.append(out)
+        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+    if batched:
+        plan = run_batched
+    elif params:
+        plan = run
+    else:
+        def plan(ctx, t):
+            return run(ctx, t, None)
+    plan.params = params
+    plan.batched = batched
     # the static semi-join decisions, in chain order
     plan.semijoins = tuple(sj_plans.values())
     # per-column scan strategies (chain order), for EXPLAIN and byte

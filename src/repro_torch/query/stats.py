@@ -2,27 +2,36 @@
 compressed residency's code-space predicate rewrite and per-column scan
 strategy.
 
-Counterpart of ``repro.query.stats`` for literal predicates.  Exchange
-buffers have static shapes, so the expected number of surviving keys
-becomes a buffer capacity: the per-destination mean under uniform routing
-plus a 6-sigma tail margin and a constant floor, rounded up to a power of
-two; the exchange's overflow flag surfaces any under-estimate at run time.
+Counterpart of ``repro.query.stats``.  Exchange buffers have static
+shapes, so the expected number of surviving keys becomes a buffer
+capacity: the per-destination mean under uniform routing plus a 6-sigma
+tail margin and a constant floor, rounded up to a power of two; the
+exchange's overflow flag surfaces any under-estimate at run time.  A
+parameterized comparison is sized from the prepare-time binding when there
+is one, else for the worst binding in the parameter's declared range.
 
-A comparison against a literal rewrites into an inclusive code-range test
-``lo <= code <= hi`` (optionally negated) over the packed words —
-frame-of-reference columns by integer arithmetic on the offset, dictionary
-columns by binary search over the sorted values.  Anything else
-(column-vs-column, arithmetic on the column) is evaluated on the decoded
-column.
+A comparison against a literal or a parameter rewrites into an inclusive
+code-range test ``lo <= code <= hi`` (optionally negated) over the packed
+words — frame-of-reference columns by integer arithmetic on the offset,
+dictionary columns by binary search over the sorted values.  A literal's
+bounds are Python ints fixed at lower time; a parameter's are computed at
+execute time from its bound value, on the device when the value is a
+tensor (0-d, or ``(B,)`` for a batch of lanes), so the bounds never pass
+through the host.  Anything else (column-vs-column, arithmetic on the
+column) is evaluated on the decoded column.
 """
 from __future__ import annotations
 
 import bisect
 import dataclasses
 import math
-from typing import Mapping, Optional
+from typing import Callable, Mapping, Optional
+
+import numpy as np
+import torch
 
 from repro_torch.core import scancal
+from repro_torch.core.columnar import dictionary
 from repro_torch.core.exchange import WireFormat
 from repro_torch.query.ir import (
     BinOp,
@@ -31,7 +40,9 @@ from repro_torch.query.ir import (
     Expr,
     LoweringError,
     PackedInfo,
+    Param,
     UnaryOp,
+    UnboundParamError,
     expr_columns,
     normalize_comparison,
 )
@@ -74,38 +85,54 @@ def _range_fraction(st: ColumnStats, op: str, v: float) -> float:
     return min(1.0, max(0.0, frac))
 
 
-def estimate_selectivity(pred: Expr, stats: Mapping[str, ColumnStats]
-                         ) -> float:
+def estimate_selectivity(pred: Expr, stats: Mapping[str, ColumnStats],
+                         binding=None) -> float:
     """Estimated fraction of rows satisfying ``pred`` under independence +
     uniformity (the paper's model; good enough to size buffers, and the
-    run-time overflow flag catches the rest)."""
+    run-time overflow flag catches the rest).
+
+    A parameterized comparison (``col op Param``) takes its value from
+    ``binding`` where it has one, else the WORST binding in the
+    parameter's declared ``lo``/``hi`` range (range selectivity is
+    monotone in the bound, so the worst case is an endpoint), else 1.0:
+    a prepared plan's capacities must hold for every future binding."""
     if isinstance(pred, BinOp):
         if pred.op == "and":
-            return (estimate_selectivity(pred.lhs, stats)
-                    * estimate_selectivity(pred.rhs, stats))
+            return (estimate_selectivity(pred.lhs, stats, binding)
+                    * estimate_selectivity(pred.rhs, stats, binding))
         if pred.op == "or":
-            a = estimate_selectivity(pred.lhs, stats)
-            b = estimate_selectivity(pred.rhs, stats)
+            a = estimate_selectivity(pred.lhs, stats, binding)
+            b = estimate_selectivity(pred.rhs, stats, binding)
             return min(1.0, a + b - a * b)
         norm = normalize_comparison(pred)
         if norm is not None:
             col, op, v = norm
             st = stats.get(col)
             if st is None:
-                return DEFAULT_SELECTIVITY
+                return 1.0 if isinstance(v, Param) else DEFAULT_SELECTIVITY
             if op == "==":
+                # value-independent under the distinct-count model, so a
+                # parameterized equality needs no binding
                 return (1.0 / st.n_distinct if st.n_distinct
                         else DEFAULT_SELECTIVITY)
             if op == "!=":
                 return (1.0 - (1.0 / st.n_distinct) if st.n_distinct
                         else DEFAULT_SELECTIVITY)
+            if isinstance(v, Param):
+                if binding is not None and v.name in binding:
+                    v = binding[v.name]
+                elif v.lo is not None and v.hi is not None:
+                    return max(_range_fraction(st, op, float(v.lo)),
+                               _range_fraction(st, op, float(v.hi)))
+                else:
+                    return 1.0
             try:
                 return _range_fraction(st, op, float(v))
             except (TypeError, ValueError):
                 return DEFAULT_SELECTIVITY
         return DEFAULT_SELECTIVITY
     if isinstance(pred, UnaryOp) and pred.op == "not":
-        return 1.0 - estimate_selectivity(pred.operand, stats)
+        return 1.0 - estimate_selectivity(pred.operand, stats, binding)
     if isinstance(pred, Col):
         # bare boolean column: no histogram, assume an even split
         return 0.5
@@ -148,76 +175,174 @@ def _clamp_i32(v: float) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class ScanRewrite:
-    """A predicate rewritten into code space: the inclusive code range
-    ``[lo, hi]`` (empty when ``lo > hi``), optionally negated."""
+    """A predicate rewritten into code space: ``bounds(params)`` yields
+    the inclusive code range ``(lo, hi)`` (empty when ``lo > hi``),
+    optionally negated — Python ints for a literal predicate, int32
+    tensors on the device for a parameter bound to a tensor."""
 
     column: str
     negate: bool
     describe: str
-    lo: int
-    hi: int
+    bounds: Callable
+
+    def static_bounds(self) -> Optional[tuple]:
+        """(lo, hi) of a literal (binding-free) rewrite, else None."""
+        try:
+            lo, hi = self.bounds(None)
+        except LookupError:
+            return None
+        return lo, hi
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 codes clamped into int32 (the literal path's _clamp_i32)."""
+    return x.clamp(_I32_MIN, _I32_MAX).to(torch.int32)
+
+
+def _pair(lo, hi) -> tuple:
+    """Both bounds as Python ints, or both as int32 tensors of one shape
+    (a constant bound becomes a tensor on the device, no host copy)."""
+    if not isinstance(lo, torch.Tensor) and not isinstance(hi, torch.Tensor):
+        return int(lo), int(hi)
+    if not isinstance(lo, torch.Tensor):
+        lo = torch.full_like(hi, lo, dtype=torch.int32)
+    if not isinstance(hi, torch.Tensor):
+        hi = torch.full_like(lo, hi, dtype=torch.int32)
+    return lo.to(torch.int32), hi.to(torch.int32)
+
+
+def _scalar(v):
+    """A host binding value as a Python scalar (tensors stay)."""
+    return v.item() if isinstance(v, np.generic) else v
 
 
 def _for_bounds(op: str, v, offset: int, maxc: int) -> tuple:
-    """Inclusive code bounds of ``x op v`` over FOR codes ``x - offset``."""
-    fl, ce = math.floor(v), math.ceil(v)
+    """Inclusive code bounds of ``x op v`` over FOR codes ``x - offset``.
+    ``v`` is a Python scalar, or a tensor (0-d or lanes) whose bounds are
+    computed on its device.  Both paths clamp into int32, so a tensor
+    gives the literal path's bounds for every value."""
+    if not isinstance(v, torch.Tensor):
+        fl, ce = math.floor(v), math.ceil(v)
+        if op == "<=":
+            return 0, _clamp_i32(fl - offset)
+        if op == "<":
+            return 0, _clamp_i32(ce - 1 - offset)
+        if op == ">=":
+            return _clamp_i32(ce - offset), maxc
+        if op == ">":
+            return _clamp_i32(fl + 1 - offset), maxc
+        # == / != : a non-integral value matches nothing (negation of an
+        # empty range is everything, which the negate flag handles)
+        if fl == v:
+            c = _clamp_i32(fl - offset)
+            return c, c
+        return 0, -1
+    exact = None
+    if v.is_floating_point():
+        wide = v.to(torch.float64)
+        fl, ce = torch.floor(wide), torch.ceil(wide)
+        exact = fl == wide
+        fl, ce = (x.clamp(-2.0 ** 62, 2.0 ** 62).to(torch.int64)
+                  for x in (fl, ce))
+    else:
+        fl = ce = v.to(torch.int64)
     if op == "<=":
-        return 0, _clamp_i32(fl - offset)
+        return _pair(0, _i32(fl - offset))
     if op == "<":
-        return 0, _clamp_i32(ce - 1 - offset)
+        return _pair(0, _i32(ce - 1 - offset))
     if op == ">=":
-        return _clamp_i32(ce - offset), maxc
+        return _pair(_i32(ce - offset), maxc)
     if op == ">":
-        return _clamp_i32(fl + 1 - offset), maxc
-    # == / != : a non-integral value matches nothing (negation of an empty
-    # range is everything, which the negate flag handles)
-    if fl == v:
-        c = _clamp_i32(fl - offset)
+        return _pair(_i32(fl + 1 - offset), maxc)
+    c = _i32(fl - offset)
+    if exact is None:
         return c, c
-    return 0, -1
+    return (torch.where(exact, c, 0).to(torch.int32),
+            torch.where(exact, c, -1).to(torch.int32))
 
 
-def _dict_bounds(op: str, v, values: tuple) -> tuple:
+def _dict_bounds(op: str, v, values: tuple, dtype: str = "float32"
+                 ) -> tuple:
     """Inclusive code bounds of ``x op v`` over dictionary positions in
-    the sorted ``values``."""
+    the sorted ``values``: bisection in float64 for a Python scalar, a
+    sorted search in the column's ``dtype`` (float32, as the reference
+    searches) on the tensor's device for a tensor."""
     k = len(values)
-    left = bisect.bisect_left(values, v)
-    right = bisect.bisect_right(values, v)
+    if not isinstance(v, torch.Tensor):
+        left = bisect.bisect_left(values, v)
+        right = bisect.bisect_right(values, v)
+        if op == "<=":
+            return 0, right - 1
+        if op == "<":
+            return 0, left - 1
+        if op == ">=":
+            return left, k - 1
+        if op == ">":
+            return right, k - 1
+        if right > left:  # == / != : present in the dictionary?
+            return left, left
+        return 0, -1
+    va = dictionary(values, dtype, v.device)
+    vv = v.to(va.dtype)
+    left = torch.searchsorted(va, vv).to(torch.int32)
+    right = torch.searchsorted(va, vv, right=True).to(torch.int32)
     if op == "<=":
-        return 0, right - 1
+        return _pair(0, right - 1)
     if op == "<":
-        return 0, left - 1
+        return _pair(0, left - 1)
     if op == ">=":
-        return left, k - 1
+        return _pair(left, k - 1)
     if op == ">":
-        return right, k - 1
-    if right > left:  # == / != : present in the dictionary?
-        return left, left
-    return 0, -1
+        return _pair(right, k - 1)
+    found = right > left
+    return (torch.where(found, left, 0).to(torch.int32),
+            torch.where(found, left, -1).to(torch.int32))
 
 
 def scan_rewrite(conjunct: Expr,
                  packed: Mapping[str, PackedInfo]) -> Optional[ScanRewrite]:
     """Rewrite one filter conjunct into a code-space range test over a
     packed column, or None when the shape does not admit it (not a
-    ``col op literal`` comparison, or the column is not packed-resident)."""
+    ``col op scalar`` comparison, or the column is not packed-resident)."""
     norm = normalize_comparison(conjunct)
     if norm is None:
         return None
     col, op, v = norm
     info = packed.get(col)
-    if info is None or not isinstance(v, (int, float, bool)):
+    if info is None:
         return None
     negate = op == "!="
     cmp_op = "==" if negate else op
-    if info.values is not None:
-        lo, hi = _dict_bounds(cmp_op, v, info.values)
+    maxc = (1 << info.width) - 1
+
+    def code_bounds(x):
+        if info.values is not None:
+            return _dict_bounds(cmp_op, x, info.values, info.dtype)
+        return _for_bounds(cmp_op, x, info.offset, maxc)
+
+    if isinstance(v, Param):
+        param = v
+
+        def bounds(params):
+            if params is None or param.name not in params:
+                raise UnboundParamError(
+                    f"parameter {param.name!r} has no binding")
+            return code_bounds(_scalar(params[param.name]))
+
+        vs = f"${param.name}"
     else:
-        lo, hi = _for_bounds(cmp_op, v, info.offset, (1 << info.width) - 1)
+        if not isinstance(v, (int, float, bool)):
+            return None
+        lo, hi = code_bounds(v)
+
+        def bounds(params, _lo=lo, _hi=hi):
+            return _lo, _hi
+
+        vs = repr(v)
     kind = "dict" if info.values is not None else "for"
     return ScanRewrite(column=col, negate=negate,
-                       describe=f"{col}{op}{v!r} -> {kind} code range",
-                       lo=lo, hi=hi)
+                       describe=f"{col}{op}{vs} -> {kind} code range",
+                       bounds=bounds)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -274,14 +399,37 @@ def decide_scan_conjunct(conjunct: Expr, table_name: str,
     return out
 
 
+def _bound_max(a, b):
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        return torch.maximum(a, b)
+    if isinstance(a, torch.Tensor):
+        return a.clamp(min=b)
+    return b.clamp(min=a) if isinstance(b, torch.Tensor) else max(a, b)
+
+
+def _bound_min(a, b):
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        return torch.minimum(a, b)
+    if isinstance(a, torch.Tensor):
+        return a.clamp(max=b)
+    return b.clamp(max=a) if isinstance(b, torch.Tensor) else min(a, b)
+
+
 def merge_rewrites(a: ScanRewrite, b: ScanRewrite) -> ScanRewrite:
     """Intersect two non-negated code-space range tests over the SAME
     column: ``a AND b`` holds iff the code lies in ``[max(lo_a, lo_b),
-    min(hi_a, hi_b)]`` — one kernel scan instead of two."""
+    min(hi_a, hi_b)]`` — one kernel scan instead of two.  Tensor bounds
+    intersect on the device."""
     assert a.column == b.column and not a.negate and not b.negate
+
+    def bounds(params, _a=a, _b=b):
+        lo1, hi1 = _a.bounds(params)
+        lo2, hi2 = _b.bounds(params)
+        return _pair(_bound_max(lo1, lo2), _bound_min(hi1, hi2))
+
     return ScanRewrite(column=a.column, negate=False,
                        describe=f"{a.describe} & {b.describe}",
-                       lo=max(a.lo, b.lo), hi=min(a.hi, b.hi))
+                       bounds=bounds)
 
 
 def merge_scan_conjuncts(per: list) -> list:

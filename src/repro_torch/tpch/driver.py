@@ -1,20 +1,33 @@
 """TPC-H driver: generate, place, lower and run queries on the node-stacked
 cluster.
 
-Counterpart of the constructor, ``compile``, ``run``, ``run_ir``,
-``query`` and ``oracle`` of ``repro.tpch.driver.TPCHDriver``.  The
-constructor generates the tables (packed by default), builds the catalog
-with each packed column's encoding, derives the hand plans' exchange
-capacities and wire formats (``tpch.capacities``), and places the tables
-on the device once.  ``run(name)`` runs a registered query
-(``core.plans.REGISTRY``): its hand-written plan where it has one, else
-its lowered IR; ``run_ir`` always lowers.  The exchange settings
-(``capacities`` overrides, the all-to-all ``backend``, the ``wire``
-format) are threaded into the plan context.
+Counterpart of ``repro.tpch.driver.TPCHDriver`` without the cube tier and
+the observability hub.  The constructor generates the tables (packed by
+default), builds the catalog with each packed column's encoding, derives
+the hand plans' exchange capacities and wire formats
+(``tpch.capacities``), and places the tables on the device once.
+``run(name)`` runs a registered query (``core.plans.REGISTRY``): its
+hand-written plan where it has one, else its lowered IR; ``run_ir``
+always lowers.  The exchange settings (``capacities`` overrides, the
+all-to-all ``backend``, the ``wire`` format) are threaded into the plan
+context.
+
+Prepared statements (the paper's §2/§3.1 compile-once model): every IR
+query is canonicalized into a parameterized SHAPE plus a literal binding
+(``query.params.parameterize``), and the plan cache keys on the shape (and
+the wire and backend) alone, so two queries differing only in predicate
+literals share ONE lowered plan.  ``prepare(q).execute(binding)`` re-runs
+that plan for any literals; ``execute_batch`` runs many bindings as one
+batched plan with a leading lane axis.  The capacities of a prepared shape
+are sized from the prepare-time binding (auto-parameterized literals) or
+the worst binding in each parameter's declared range; the ``overflow``
+flag surfaces any binding that exceeds them.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -26,9 +39,15 @@ from repro_torch.query.ir import (
     LoweringError,
     PackedInfo,
     Query,
+    QueryError,
+    UnboundParamError,
     build_catalog,
+    query_params,
+    same_query,
+    validate,
 )
 from repro_torch.query.lower import lower
+from repro_torch.query.params import parameterize
 from repro_torch.tpch import capacities as tpch_capacities
 from repro_torch.tpch import dbgen, reference
 
@@ -65,14 +84,165 @@ def _split_overflow(out):
 
 @dataclasses.dataclass
 class QueryAnswer:
-    """Result of :meth:`TPCHDriver.query`: the value, the query that
-    produced it (a lowered plan, or a hand plan for a registered name
-    without IR), and whether an exchange buffer overflowed (the answer is
-    then incomplete)."""
+    """Result of :meth:`TPCHDriver.query` and of a prepared query: the
+    value, the query that produced it (a lowered plan, or a hand plan for
+    a registered name without IR), and whether an exchange buffer
+    overflowed (the answer is then incomplete).  ``overflow`` is a bool
+    for one execution and a ``(B,)`` bool tensor on the host for
+    ``execute_batch``, one flag a lane."""
 
     value: object
     source: str
-    overflow: bool = False
+    overflow: object = False
+
+
+class _PlanEntry:
+    """One cached prepared SHAPE under one wire and backend: the
+    parameterized query, its ordered parameter signature, and the lazily
+    lowered plans (scalar and batched), shared by every query that
+    canonicalizes to this shape.  ``lock`` makes the first lowering of
+    each happen once when threads race into it."""
+
+    def __init__(self, shape: Query, stats_binding: dict, wire: str,
+                 backend: str):
+        self.shape = shape
+        self.params = query_params(shape.root)
+        self.stats_binding = dict(stats_binding)
+        self.wire = wire
+        self.backend = backend
+        self.fn = None          # bound scalar plan
+        self.batched_fn = None  # bound batched plan (any lane count)
+        self.bound = {}         # binding key -> fn(columns) closure (LRU)
+        self.lock = threading.Lock()
+
+
+class PreparedQuery:
+    """A query prepared against one driver: lowered once, executed for any
+    parameter binding (``execute``), or for many bindings as one batched
+    plan (``execute_batch``).
+
+    ``params`` is the ordered parameter signature; ``defaults`` carries
+    the literal values that auto-parameterization extracted, so a prepared
+    literal query executes with no arguments and any subset can be
+    overridden per call."""
+
+    def __init__(self, driver: "TPCHDriver", entry: _PlanEntry,
+                 defaults: dict, source: str, cache_hit: bool = False):
+        self.driver = driver
+        self.entry = entry
+        self.defaults = dict(defaults)
+        self.source = source
+        self.cache_hit = cache_hit  # the shape's entry was reused
+
+    @property
+    def params(self) -> tuple:
+        return self.entry.params
+
+    @property
+    def query(self) -> Query:
+        return self.entry.shape
+
+    def binding(self, params=None) -> dict:
+        """Defaults merged with per-call overrides; raises
+        :class:`UnboundParamError` for missing or unknown names and for a
+        value that does not cast to its parameter's dtype."""
+        b = dict(self.defaults)
+        if params:
+            b.update(params)
+        names = {p.name for p in self.entry.params}
+        missing = sorted(names - set(b))
+        if missing:
+            raise UnboundParamError(
+                f"missing binding(s) {missing} for prepared query "
+                f"{self.source!r} (parameters: {sorted(names)})")
+        unknown = sorted(set(b) - names)
+        if unknown:
+            raise UnboundParamError(
+                f"unknown parameter(s) {unknown} for prepared query "
+                f"{self.source!r} (parameters: {sorted(names)})")
+        # a bad value fails HERE, naming the key, not inside the plan
+        for p in self.entry.params:
+            try:
+                np.asarray(b[p.name], np.dtype(p.dtype))
+            except (TypeError, ValueError) as e:
+                raise UnboundParamError(
+                    f"binding {p.name}={b[p.name]!r} for prepared query "
+                    f"{self.source!r} is not castable to {p.dtype}: {e}"
+                ) from None
+        return b
+
+    def _cast(self, b: dict) -> dict:
+        """Binding -> the plan's parameters: a 0-d tensor of each
+        parameter's dtype on the cluster's device (a (B,) tensor where the
+        binding holds B values of each)."""
+        device = self.driver.cluster.device
+        return {p.name: torch.as_tensor(
+                    np.asarray(b[p.name], np.dtype(p.dtype))).to(device)
+                for p in self.entry.params}
+
+    def answer_tier1(self, b: dict) -> Optional[QueryAnswer]:
+        """A rollup cube's answer for the binding ``b``.  The port has no
+        cube tier yet, so this is None and every execution runs the
+        prepared plan."""
+        return None
+
+    def execute(self, params=None) -> QueryAnswer:
+        """Run the prepared plan for the defaults overridden by
+        ``params``."""
+        b = self.binding(params)
+        ans = self.answer_tier1(b)
+        if ans is not None:
+            return ans
+        fn = self.driver._ensure_compiled(self.entry)
+        cols = self.driver.columns()
+        out = (fn(cols, self._cast(b)) if self.entry.params
+               else fn(cols))
+        overflow = bool(out.pop("overflow", False))
+        value = out["value"] if set(out) == {"value"} else out
+        return QueryAnswer(value, source=self.source, overflow=overflow)
+
+    def execute_batch(self, param_table, pad_to: Optional[int] = None
+                      ) -> QueryAnswer:
+        """Run many bindings of this prepared shape as ONE batched plan.
+        ``param_table`` is a mapping name -> length-B sequence (missing
+        names take the defaults) or a sequence of B binding dicts.  Every
+        output gains a leading lane axis, and ``overflow`` comes back a
+        lane.  ``pad_to`` pads the batch to a fixed lane count by
+        repeating the last binding; the outputs are cut back to B."""
+        if not self.entry.params:
+            raise QueryError(
+                f"prepared query {self.source!r} has no parameters — "
+                f"execute_batch needs a parameterized shape")
+        if isinstance(param_table, Mapping):
+            seqs = {k: list(v) for k, v in param_table.items()}
+            sizes = {len(v) for v in seqs.values()}
+            if len(sizes) != 1:
+                raise QueryError(
+                    f"ragged param_table: column lengths {sorted(sizes)}")
+            B = sizes.pop()
+            rows = [{k: seqs[k][i] for k in seqs} for i in range(B)]
+        else:
+            rows = [dict(r) for r in param_table]
+            B = len(rows)
+        if B == 0:
+            raise QueryError("execute_batch needs at least one binding")
+        merged = [self.binding(r) for r in rows]
+        lanes = B
+        if pad_to is not None and pad_to > B:
+            merged = merged + [merged[-1]] * (pad_to - B)
+            lanes = pad_to
+        stacked = self._cast({p.name: [m[p.name] for m in merged]
+                              for p in self.entry.params})
+        fn = self.driver._ensure_batched(self.entry)
+        out = fn(self.driver.columns(), stacked)
+        overflow = out.pop("overflow", None)
+        overflow = (torch.zeros(lanes, dtype=torch.bool) if overflow is None
+                    else overflow.cpu())
+        if lanes != B:  # drop the padding lanes from every output
+            out = {k: v[:B] for k, v in out.items()}
+            overflow = overflow[:B]
+        value = out["value"] if set(out) == {"value"} else out
+        return QueryAnswer(value, source=self.source, overflow=overflow)
 
 
 def _resident_bytes(t: Table) -> int:
@@ -134,7 +304,15 @@ class TPCHDriver:
             wire=wire,
             wires=tpch_capacities.wire_formats(self.tables, num_nodes))
         self._compiled = {}   # registry name -> bound plan (hand or IR)
-        self._lowered = {}    # registry name -> bound lowered IR plan
+        # (shape, wire, backend) -> _PlanEntry, least recently used first
+        self._prepared = {}
+        # one lock for the caches (_compiled, _prepared and its LRU order,
+        # the entries' bound-closure LRUs): two threads preparing one
+        # shape converge on one entry.  Reentrant: compile() reaches
+        # prepare() through compile_query()
+        self._lock = threading.RLock()
+        self.compile_events = []  # one label per lowering of a prepared
+                                  # shape ("<name>" / "<name>@batch")
 
     @staticmethod
     def _host_column(col) -> np.ndarray:
@@ -146,22 +324,6 @@ class TPCHDriver:
         """The placed column dicts (table name -> column name -> column)
         that a bound plan runs over."""
         return {n: t.columns for n, t in self.placed.items()}
-
-    def compile_query(self, q: Query, *, wire: str | None = None,
-                      backend: str | None = None):
-        """Lower + bind an IR query: returns ``fn(columns)``, its lowered
-        plan as ``fn.plan``.  ``wire`` and ``backend`` (default: the
-        driver's) set both the lowering's wire, which the semi-join
-        decision reads, and the context's, which the exchange ships."""
-        if not isinstance(q, Query):
-            raise TypeError(f"compile_query() takes a repro_torch.query "
-                            f"Query, got {type(q)}")
-        wire = self.wire if wire is None else wire
-        backend = self.backend if backend is None else backend
-        ctx = (self.ctx if (wire, backend) == (self.wire, self.backend)
-               else dataclasses.replace(self.ctx, wire=wire,
-                                        backend=backend))
-        return self.cluster.compile(lower(q, self.catalog, wire=wire), ctx)
 
     @staticmethod
     def _registered(name: str) -> Query:
@@ -176,14 +338,15 @@ class TPCHDriver:
     def compile(self, name: str):
         """Bound plan of a registered query: its hand-written plan when it
         has one, else its lowered IR (cached)."""
-        if name not in self._compiled:
-            entry = plans.get(name)
-            if entry.plan is not None:
-                self._compiled[name] = self.cluster.compile(entry.plan,
-                                                            self.ctx)
-            else:
-                self._compiled[name] = self.compile_ir(name)
-        return self._compiled[name]
+        with self._lock:
+            if name not in self._compiled:
+                entry = plans.get(name)
+                if entry.plan is not None:
+                    self._compiled[name] = self.cluster.compile(entry.plan,
+                                                                self.ctx)
+                else:
+                    self._compiled[name] = self.compile_ir(name)
+            return self._compiled[name]
 
     def run(self, name: str):
         """Run a registered query through :meth:`compile`: the plan's raw
@@ -191,11 +354,9 @@ class TPCHDriver:
         return self.compile(name)(self.columns())
 
     def compile_ir(self, name: str):
-        """Bound LOWERED plan of a registered query's IR (cached), even
-        when a hand plan exists."""
-        if name not in self._lowered:
-            self._lowered[name] = self.compile_query(self._registered(name))
-        return self._lowered[name]
+        """Bound LOWERED plan of a registered query's IR, even when a hand
+        plan exists (through :meth:`compile_query`)."""
+        return self.compile_query(self._registered(name))
 
     def run_ir(self, name: str) -> dict:
         """Run a registered IR query: the plan's dict of device tensors
@@ -203,32 +364,133 @@ class TPCHDriver:
         request exchange)."""
         return self.compile_ir(name)(self.columns())
 
-    def query(self, q, *, wire: str | None = None,
+    IR_CACHE_MAX = 32    # prepared-shape LRU bound
+    BOUND_CACHE_MAX = 8  # per-shape LRU bound of literal-bound closures
+
+    # -- prepared statements (lower once, execute for any literals) --------
+    def prepare(self, q, *, wire: str | None = None,
+                backend: str | None = None) -> PreparedQuery:
+        """Prepare an IR query (or a registered name) under ``wire`` and
+        ``backend`` (default: the driver's): canonicalize it into a
+        parameterized shape + default binding and return the (possibly
+        cached) :class:`PreparedQuery`.  The cache keys on the shape, so
+        queries differing only in predicate literals share one plan; the
+        lowering is lazy, on the first execution."""
+        if isinstance(q, str):
+            q = self._registered(q)
+        if not isinstance(q, Query):
+            raise TypeError(f"prepare() takes a repro_torch.query Query "
+                            f"(or a registered plan name), got {type(q)}")
+        validate(q.root, self.catalog)  # typed errors at prepare time
+        shape, defaults = parameterize(q)
+        source = q.name or "<lowered-ir>"
+        wire = self.wire if wire is None else wire
+        backend = self.backend if backend is None else backend
+        key = (repr(shape.root), wire, backend)  # same_query guards it
+        with self._lock:
+            hit = self._prepared.get(key)
+            if hit is not None and same_query(hit.shape, shape):
+                self._prepared[key] = self._prepared.pop(key)  # LRU touch
+                return PreparedQuery(self, hit, defaults, source,
+                                     cache_hit=True)
+            entry = _PlanEntry(shape, defaults, wire, backend)
+            self._prepared[key] = entry
+            while len(self._prepared) > self.IR_CACHE_MAX:
+                self._prepared.pop(next(iter(self._prepared)))
+            return PreparedQuery(self, entry, defaults, source)
+
+    def _context(self, entry: _PlanEntry):
+        if (entry.wire, entry.backend) == (self.wire, self.backend):
+            return self.ctx
+        return dataclasses.replace(self.ctx, wire=entry.wire,
+                                   backend=entry.backend)
+
+    def _bind(self, entry: _PlanEntry, batched: bool):
+        """Lower the shape (one ``compile_events`` label each time) and
+        bind it to the entry's context."""
+        label = entry.shape.name or "<lowered-ir>"
+        plan = lower(entry.shape, self.catalog, wire=entry.wire,
+                     binding=entry.stats_binding, batched=batched)
+        self.compile_events.append(f"{label}@batch" if batched else label)
+        return self.cluster.compile(plan, self._context(entry),
+                                    batch=batched)
+
+    def _ensure_compiled(self, entry: _PlanEntry):
+        if entry.fn is None:
+            with entry.lock:  # double-checked: lower once
+                if entry.fn is None:
+                    entry.fn = self._bind(entry, batched=False)
+        return entry.fn
+
+    def _ensure_batched(self, entry: _PlanEntry):
+        if entry.batched_fn is None:
+            with entry.lock:
+                if entry.batched_fn is None:
+                    entry.batched_fn = self._bind(entry, batched=True)
+        return entry.batched_fn
+
+    def compile_query(self, q: Query, *, wire: str | None = None,
+                      backend: str | None = None):
+        """Lower + bind an IR query under ``wire`` and ``backend``
+        (default: the driver's; they set both the lowering's wire, which
+        the semi-join decision reads, and the context's, which the
+        exchange ships): returns ``fn(columns)`` with the query's own
+        literals bound, its lowered plan as ``fn.plan``.  The prepared
+        plan is shared by shape, and the closure is memoized per binding
+        (an LRU of ``BOUND_CACHE_MAX``)."""
+        if not isinstance(q, Query):
+            raise TypeError(f"compile_query() takes a repro_torch.query "
+                            f"Query, got {type(q)}")
+        prep = self.prepare(q, wire=wire, backend=backend)
+        entry = prep.entry
+        fn = self._ensure_compiled(entry)
+        if not entry.params:
+            return fn
+        b = prep.binding()
+        key = tuple(sorted(b.items()))
+        with self._lock:
+            if key in entry.bound:
+                entry.bound[key] = entry.bound.pop(key)  # LRU touch
+            else:
+                pvals = prep._cast(b)
+
+                def bound(columns, _fn=fn, _pv=pvals):
+                    return _fn(columns, _pv)
+
+                bound.plan = fn.plan
+                entry.bound[key] = bound
+                # closures hold device scalars: a stream of new literals
+                # must not grow this without bound (the plan is shared)
+                while len(entry.bound) > self.BOUND_CACHE_MAX:
+                    entry.bound.pop(next(iter(entry.bound)))
+            return entry.bound[key]
+
+    def query(self, q, params=None, *, wire: str | None = None,
               backend: str | None = None) -> QueryAnswer:
-        """Run an IR ``Query`` with literal predicates (or a registered
-        name) through the lowering, under ``wire`` and ``backend``
-        (default: the driver's).  The answer's value is the plan's
-        ``value`` (a ``GroupAgg`` root) or its dict of top-k fields.  A
-        registered name without IR runs its hand plan, whose overflow flag
-        is split off the result."""
-        source = q if isinstance(q, str) else q.name or "<lowered-ir>"
+        """Run an IR ``Query`` (or a registered name) through its prepared
+        plan under ``wire`` and ``backend`` (default: the driver's);
+        ``params`` binds or overrides its runtime parameters.  Its
+        literals become parameters (``parameterize``): a float literal
+        compares in float32, as through the reference's ``query``.  The
+        answer's value is the plan's ``value`` (a ``GroupAgg`` root) or
+        its dict of top-k fields.  A registered name without IR runs its
+        hand plan, whose overflow flag is split off the result."""
         if isinstance(q, str) and plans.get(q).ir is None:
+            if params:
+                raise UnboundParamError(
+                    f"{q!r} is a hand-written plan with no runtime "
+                    f"parameters — binding(s) {sorted(params)} cannot be "
+                    f"applied; use an IR form or drop params")
             if (wire, backend) != (None, None):
                 raise LoweringError(
                     f"{q!r} is a hand-written plan: its wire and backend "
                     f"are the driver's")
             value, overflow = _split_overflow(self.run(q))
-            return QueryAnswer(value, source=source, overflow=overflow)
-        if isinstance(q, str) and wire is None and backend is None:
-            fn = self.compile_ir(q)
-        else:
-            fn = self.compile_query(
-                self._registered(q) if isinstance(q, str) else q,
-                wire=wire, backend=backend)
-        out = fn(self.columns())
-        overflow = bool(out.pop("overflow", False))
-        value = out["value"] if "value" in out else out
-        return QueryAnswer(value, source=source, overflow=overflow)
+            return QueryAnswer(value, source=q, overflow=overflow)
+        if not isinstance(q, (str, Query)):
+            raise TypeError(f"query() takes a repro_torch.query Query (or "
+                            f"a registered plan name), got {type(q)}")
+        return self.prepare(q, wire=wire, backend=backend).execute(params)
 
     def oracle(self, name: str, **kw):
         """Float64 numpy reference for a registered query or a forced

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from repro.launch.roofline import parse_collective_bytes
+from repro.query import parameterize as jax_parameterize
 from repro.query.lower import lower as jax_lower
 from repro.tpch import queries as jq
 from repro_torch.core import exchange
@@ -37,15 +38,23 @@ _JAX = {}
 
 def _jax_run(drv, q, wire="packed"):
     """The JAX plan's answer and its all-to-all operand bytes per device
-    (from the compiled HLO), for ``q`` lowered under ``wire``; cached."""
+    (from the compiled HLO), for ``q`` prepared as the JAX driver's
+    ``query`` prepares it (its literals parameterized, its capacities
+    sized from their values) and lowered under ``wire``; cached."""
     key = (q.name, repr(q.root), wire)
     if key not in _JAX:
-        plan = jax_lower(q, drv.catalog, wire=wire)
+        import jax.numpy as jnp
+
+        shape, binding = jax_parameterize(q)
+        plan = jax_lower(shape, drv.catalog, wire=wire, binding=binding)
         ctx = dataclasses.replace(drv.ctx, wire=wire, backend="xla")
         cols = {n: t.columns for n, t in drv.placed.items()}
         fn = drv.cluster.compile(plan, ctx, drv.placed)
-        compiled = fn.lower(cols).compile()
-        out = {k: np.asarray(v) for k, v in compiled(cols).items()}
+        pv = {p.name: jnp.asarray(np.asarray(binding[p.name],
+                                             np.dtype(p.dtype)))
+              for p in plan.params}
+        compiled = fn.lower(cols, pv).compile()
+        out = {k: np.asarray(v) for k, v in compiled(cols, pv).items()}
         stats = parse_collective_bytes(compiled.as_text())
         _JAX[key] = out, stats.bytes_by_op.get("all-to-all", 0)
     return _JAX[key]

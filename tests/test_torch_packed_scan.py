@@ -63,7 +63,7 @@ def test_packed_scan_equals_value_space_filter(kind, op, case):
     rw = scan_rewrite(BinOp(op, C("x"), Lit(v)), {"x": info})
     assert rw is not None and rw.negate == (op == "!=")
 
-    bits = ops.scan_filter(col.words, rw.lo, rw.hi, rows=col.rows,
+    bits = ops.scan_filter(col.words, *rw.static_bounds(), rows=col.rows,
                            padded_rows=col.padded_rows, width=col.width,
                            negate=rw.negate)
     mask = compression.unpack_bitset(bits, col.padded_rows)[:, :rows].numpy()

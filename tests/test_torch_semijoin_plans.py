@@ -31,11 +31,13 @@ from repro.core import semijoin as jsj
 from repro.core import topk as jtopk
 from repro.core.partitioning import RangePartitioning as JaxPart
 from repro.core.plans import REGISTRY as JAX_REGISTRY
+from repro.tpch.schema import DEFAULT_PARAMS as JAX_DP
 from repro_torch.core import compression, exchange, semijoin, topk
 from repro_torch.core import plans
 from repro_torch.core.partitioning import RangePartitioning
 from repro_torch.core.plans import semijoin_plans as sjp
 from repro_torch.kernels import ops
+from repro_torch.tpch import schema as S
 from repro_torch.tpch.schema import DEFAULT_PARAMS as DP
 
 AXIS = "nodes"
@@ -102,10 +104,24 @@ def _assert_like_oracle(name, got, oracle):
 def test_semijoin_plan_matches_jax_and_oracle(tpch_driver, port_driver,
                                               name):
     ops.reset_launch_counts()
-    got = _np(port_driver.run(name))
-    want = _np(tpch_driver.run(name))
+    if name == "q2":
+        # at the filter of _q2_filter: q2's default one may qualify no row
+        # in this process's data
+        jkw, tkw = _q2_kwargs(port_driver, 100)
+        cols = {n: t.columns for n, t in tpch_driver.placed.items()}
+        want = _np(tpch_driver.cluster.compile(
+            functools.partial(JAX_REGISTRY[name].plan, **jkw),
+            tpch_driver.ctx, tpch_driver.placed)(cols))
+        got = _np(port_driver.cluster.compile(
+            functools.partial(plans.PLANS[name], **tkw),
+            port_driver.ctx)(port_driver.columns()))
+        oracle = port_driver.oracle(name, **tkw)
+    else:
+        got = _np(port_driver.run(name))
+        want = _np(tpch_driver.run(name))
+        oracle = port_driver.oracle(name)
     _assert_like_jax(name, got, want)
-    _assert_like_oracle(name, got, port_driver.oracle(name))
+    _assert_like_oracle(name, got, oracle)
     # the plain versions on the CPU count no launch
     assert set(ops.launch_counts().values()) == {0}
 
@@ -113,18 +129,48 @@ def test_semijoin_plan_matches_jax_and_oracle(tpch_driver, port_driver,
 # (plan arguments, capacities): q11 at SF 1's threshold (many parts
 # qualify); q3_lazy needing 100 survivors a node from chunks of 16
 # candidates (several rounds; at this scale every candidate fits the
-# default chunk of 256); q2 at k = 10
+# default chunk of 256); q2 at k = 10, at the size and type filter of
+# _q2_filter
 OTHER_PARAMS = {"q11": ({"sf": 1.0}, {}),
                 "q3_lazy": ({"k": 100}, {"q3_chunk": 16}),
                 "q2": ({"k": 10}, {})}
+
+
+def _q2_filter(driver, k: int) -> dict:
+    """q2's (size, type finish) pair whose oracle answer at ``k`` has the
+    most rows, first in (size, finish) order among ties.  The tables are
+    seeded by ``hash(table)``, so they differ from process to process: at
+    SF 0.01 about 8 parts pass the default filter, and one qualifying row
+    is a common draw there.  Chosen from this process's data, the filter
+    qualifies k rows wherever the data allows."""
+    best = None
+    for size in range(1, 51):
+        for finish in range(S.NUM_BRASS):
+            p = dataclasses.replace(DP, q2_size=size, q2_type_finish=finish)
+            n = int(np.isfinite(driver.oracle("q2", p=p, k=k)[0]).sum())
+            if best is None or n > best[0]:
+                best = (n, size, finish)
+    return {"q2_size": best[1], "q2_type_finish": best[2]}
+
+
+def _q2_kwargs(driver, k: int) -> tuple:
+    """q2's plan arguments at k and the filter of :func:`_q2_filter`, as
+    each package's own ``QueryParams``: (JAX kwargs, port kwargs)."""
+    chosen = _q2_filter(driver, k)
+    return ({"k": k, "p": dataclasses.replace(JAX_DP, **chosen)},
+            {"k": k, "p": dataclasses.replace(DP, **chosen)})
 
 
 @pytest.mark.parametrize("name", sorted(OTHER_PARAMS))
 def test_semijoin_plans_at_other_parameters(tpch_driver, port_driver, name,
                                             monkeypatch):
     kw, caps = OTHER_PARAMS[name]
-    jplan = functools.partial(JAX_REGISTRY[name].plan, **kw)
-    tplan = functools.partial(plans.PLANS[name], **kw)
+    jkw = tkw = kw
+    if name == "q2":
+        jkw, tkw = _q2_kwargs(port_driver, kw["k"])
+        kw = tkw
+    jplan = functools.partial(JAX_REGISTRY[name].plan, **jkw)
+    tplan = functools.partial(plans.PLANS[name], **tkw)
     jctx, tctx = (dataclasses.replace(c, capacities={**c.capacities, **caps})
                   for c in (tpch_driver.ctx, port_driver.ctx))
     cols = {n: t.columns for n, t in tpch_driver.placed.items()}

@@ -107,7 +107,7 @@ def test_scan_decisions_match_jax(tpch_driver, port_driver, name):
            "raw_bytes")
     assert ([tuple(getattr(d, k) for k in key) for d in mine]
             == [tuple(getattr(d, k) for k in key) for d in ref])
-    assert ([(d.rewrite.lo, d.rewrite.hi, d.rewrite.negate) for d in mine]
+    assert ([d.rewrite.static_bounds() + (d.rewrite.negate,) for d in mine]
             == [d.rewrite.static_bounds() + (d.rewrite.negate,)
                 for d in ref])
     if name == "q6":  # five conjuncts fuse into three scans

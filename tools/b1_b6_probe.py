@@ -14,8 +14,11 @@ card, holds each kernel bit-identical to its plain version on them, and
 times it: B1 at q6's ``l_shipdate`` shape at SF 10 over 8 stacked nodes
 (8 x 7,500,000 padded rows at width 12, the date range of Q6), the words
 on 16 bytes and (where the checkout has :func:`vector_loads`) off them;
-B6 at q15_approx's input at SF 10 ((8, 8, 12,500), m = 8, group 4) and at
-the lineitem stress size ((8, 7,500,000), m = 8, group 1,000).  Each time
+B1 also, where the checkout takes bounds on the card
+(``scan_filter.device_bounds``), with B = 1 (0-d tensors), 8 and 64 lanes
+of bounds (one-year ranges, each lane held to a call with its bounds as
+ints); B6 at q15_approx's input at SF 10 ((8, 8, 12,500), m = 8, group
+4) and at the lineitem stress size ((8, 7,500,000), m = 8, group 1,000).  Each time
 is the mean over 20 calls: ``eager`` an eager loop (CUDA events; it
 includes the wrapper's host cost where that is the longer), ``graph`` 20
 calls captured in one CUDA graph and replayed.  Prints each turn's
@@ -96,6 +99,26 @@ def turn(root: pathlib.Path) -> dict:
         fn = (lambda w=w: sfm.scan_filter_cuda(w, Q6_LO, Q6_HI, **kw))
         out[f"B1 {label}"] = {"eager": _mean_ms(torch, fn, False),
                               "graph": _mean_ms(torch, fn, True)}
+    if hasattr(sfm, "device_bounds"):
+        for lanes in (None, 8, 64):
+            n = 1 if lanes is None else lanes
+            lo = torch.tensor([Q6_LO + 37 * b for b in range(n)],
+                              dtype=torch.int32, device="cuda")
+            hi = lo + (Q6_HI - Q6_LO)
+            if lanes is None:
+                lo, hi = lo[0], hi[0]
+            got = sfm.scan_filter_cuda(words, lo, hi, **kw)
+            torch.cuda.synchronize()
+            for b in range(n):
+                one = sfm.scan_filter_cuda(words, Q6_LO + 37 * b,
+                                           Q6_HI + 37 * b, **kw)
+                if not torch.equal(got if lanes is None else got[b], one):
+                    raise SystemExit(f"B1 lane {b} of {n} from {root} "
+                                     f"differs from the int-bound call")
+            fn = (lambda lo=lo, hi=hi: sfm.scan_filter_cuda(words, lo, hi,
+                                                            **kw))
+            out[f"B1 lanes={n}"] = {"eager": _mean_ms(torch, fn, False),
+                                    "graph": _mean_ms(torch, fn, True)}
     del cases, words
     for label, shape, group in (("q15_approx", (8, 8, 12_500), 4),
                                 ("stress", (8, 7_500_000), 1000)):
