@@ -138,6 +138,30 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
    (CUDA events) and ms a binding; ``scan_filter`` at q6's
    ``l_shipdate`` input with 1 and 8 lanes of bounds, beside 8 x the one
    lane time, the plain version and the bound; the phase's seconds.
+6e. The two-tier query path on the same driver.  ``build_cubes()``
+   builds the default cubes (``tpch.cubes``: lineitem_pricing, 516
+   cells, and orders_status, 1,275, both one-hot products summed in
+   chunks under ``core.aggregation.ONEHOT_MAX_BYTES``), launching no
+   kernel; each cube's build seconds and peak allocated bytes.  Each
+   finest rollup against a float64 numpy group-by of the host tables
+   (sums within rtol 2e-4; min, max, and counts and rows up to 2^24
+   exactly, larger counts within rtol 1e-6), every coarser rollup against
+   the float64 marginals of the finest.  Two kernel-method cubes
+   (returnflag x linestatus with sum_qty and count_order, B2's register
+   variant; lineitem_pricing's six measures over returnflag x linestatus
+   x the year of l_shipdate, 48 cells x 7 columns, its shared slabs):
+   ``filtered_group_sum`` launched exactly once a build, each equal to
+   the numpy group-by and within rtol 2e-4 of its one-hot twin.  Each
+   ``SERVING_QUERIES`` entry through ``drv.query`` at tier 1 from the
+   expected cube and ``uncovered_query`` at tier 2 (the launches its plan
+   implies), each against the float64 oracle or a numpy group-by (rtol
+   2e-4); the prepared ``q1_param`` at an on-edge binding from tier 1,
+   off-edge and out of range from tier 2, against the oracle.  At SF 0.1:
+   raw storage over a budget between the packed and the raw bytes raises
+   ``ResidentBudgetError``, packed storage under it does not.  Times:
+   ``measure_query`` (tier 1 in microseconds, trimmed median of 10; tier
+   2 in ms, of 3, the card synchronized around each) for each serving
+   query; the metrics report; the phase's seconds.
 7. The language model, after the TPC-H phases have
    dropped what they placed on the card:
    a. B7's two CUDA variants.  The f32 CUDA-core ``flash_attention_fwd``
@@ -234,11 +258,12 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
       of ``scaled_dot_product_attention`` and the bound.
 9. One ``{"kernels": [...]}`` line (fifteen entries: B7 and B8 once for
    each variant, the f32 CUDA-core ones with ``"main_path": false`` and
-   0 launches; B5's launches those of q21, q3 and q11, its times at q3's
-   and q11's inputs under ``"q3"`` and ``"q11"``; B1 twice, its batched
-   entry ``scan_filter_batched`` with 8 lanes of bounds at q6's input and
-   the launches of the ``execute_batch`` runs), then the last line
-   ``{"ok": true, "device": {...}}``.
+   0 launches; B2's launches those of q1_kernel and the two
+   kernel-method cubes of 6e; B5's launches those of q21, q3 and q11,
+   its times at q3's and q11's inputs under ``"q3"`` and ``"q11"``; B1
+   twice, its batched entry ``scan_filter_batched`` with 8 lanes of
+   bounds at q6's input and the launches of the ``execute_batch`` runs),
+   then the last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or when
 it is run outside a checkout of the repository.
@@ -1060,6 +1085,8 @@ def tpch_phases(args, torch, smi: str):
     # -- 6d. prepared statements, B1 with lanes of bounds ------------------------
     b1_lanes, prepared = prepared_phase(args, torch, smi, drv,
                                         main_launches, zero, gen)
+    # -- 6e. the two-tier query path: cubes through B2, router, budget ---------
+    cubes = cube_phase(args, torch, smi, drv, main_launches, zero)
     for k in hand_kernels:
         k["launches"] = main_launches[k["name"]]
         if k["name"] == "predicate_bitset":
@@ -1105,6 +1132,7 @@ def tpch_phases(args, torch, smi: str):
     kernels += hand_kernels + [b1_lanes]
     return kernels, {"queries_ms": query_ms, "hand_plans": hand,
                      "semijoin_plans": semijoin, "prepared": prepared,
+                     "cubes": cubes,
                      "gen_s": gen_s,
                      "resident_bytes": drv.resident_bytes,
                      "lineitem_bytes": li_bytes, "sf": args.sf,
@@ -2183,6 +2211,370 @@ def prepared_phase(args, torch, smi, drv, main_launches, zero, gen):
     return entry, {"prepared_ms": timings,
                    "lane_rel_diff_vs_execute": lane_diff,
                    "scan_lane_cases": n_cases, "phase_s": phase_s}
+
+
+# ---------------------------------------------------------------------------
+# phase 6e: the two-tier query path (rollup cubes, router, resident budget)
+# ---------------------------------------------------------------------------
+
+CUBE_REPEAT = 3             # measure_query's repeats
+BUDGET_SF = 0.1             # scale factor of the resident-budget check
+
+
+def _kernel_specs(CubeSpec, Dimension, Measure, tc, day):
+    """The kernel-method cubes of phase 6e, each with its one-hot twin: the
+    JAX test's two measures over returnflag x linestatus (6 cells, 3
+    columns with the rows: B2's register variant), and lineitem_pricing's
+    six over returnflag x linestatus x the year of l_shipdate (48 cells,
+    7 columns: its shared slabs)."""
+    dims = (Dimension("returnflag", "l_returnflag", 3),
+            Dimension("linestatus", "l_linestatus", 2))
+    years = tuple(day(y, 1, 1) - 1 for y in range(1993, 2000))
+    out = {}
+    for method in ("kernel", "onehot"):
+        out[("li_small", method)] = CubeSpec(
+            f"li_small_{method}", "lineitem", dims,
+            (Measure("sum_qty", "sum", "l_quantity"),
+             Measure("count_order", "count")), method=method)
+        out[("li_yearly", method)] = CubeSpec(
+            f"li_yearly_{method}", "lineitem",
+            dims + (Dimension("shipyear", "l_shipdate", edges=years,
+                              integral=True),),
+            tc.lineitem_cube().measures, method=method)
+    return out
+
+
+def _numpy_cube(np, tables, spec, tq):
+    """Float64 numpy group-by of a spec's finest rollup over the host
+    tables: {measure: array of spec.shape}, the rows under ``__rows``."""
+    cols = tables[spec.table].columns
+    key = np.zeros(len(next(iter(cols.values()))), np.int64)
+    for d in spec.dimensions:
+        col = cols[d.column]
+        code = (np.searchsorted(np.asarray(d.edges, col.dtype), col,
+                                side="left") if d.binned
+                else np.clip(col.astype(np.int64), 0, d.cardinality - 1))
+        key = key * d.cardinality + code
+    G = spec.num_cells
+    f64 = {c: v.astype(np.float64) for c, v in cols.items()
+           if v.dtype.kind == "f"}
+
+    def values(m):
+        if isinstance(m.column, str):
+            return f64[m.column]
+        from repro_torch.query.ir import eval_expr
+
+        return eval_expr(m.column, f64)
+
+    out = {"__rows": np.bincount(key, minlength=G).astype(np.float64)}
+    order = starts = None
+    for m in spec.measures:
+        if m.agg == "count":
+            out[m.name] = out["__rows"]
+        elif m.agg == "sum":
+            out[m.name] = np.bincount(key, values(m), G)
+        else:
+            if order is None:  # cells as runs of the sorted keys
+                order = np.argsort(key, kind="stable")
+                starts = np.flatnonzero(np.r_[True, np.diff(key[order])])
+            arr = np.full(G, np.inf if m.agg == "min" else -np.inf)
+            ufunc = np.minimum if m.agg == "min" else np.maximum
+            arr[key[order][starts]] = ufunc.reduceat(values(m)[order],
+                                                     starts)
+            out[m.name] = arr
+    return {k: v.reshape(spec.shape) for k, v in out.items()}
+
+
+def _hold_cube(np, cube, want, what) -> float:
+    """A built cube's finest rollup against ``want`` (sums within rtol
+    2e-4; min, max, and counts and rows up to 2^24, f32's last exact
+    integer, exactly; larger counts, f32 sums of exact per-node partials,
+    within rtol 1e-6), and every coarser rollup against float64 marginals
+    of the finest (sums and counts within rtol 1e-5: one more f32
+    reduction; min and max exactly).  Returns the largest relative
+    difference of the sums."""
+    spec = cube.spec
+    fine = cube.rollup(spec.dim_names)
+    aggs = {m.name: m.agg for m in spec.measures}
+    aggs["__rows"] = "count"
+    worst = 0.0
+    for name, agg in aggs.items():
+        got = fine[name].astype(np.float64)
+        if got.shape != spec.shape:
+            fail(f"{what} {name}: shape {got.shape}, expected {spec.shape}")
+        if agg == "sum":
+            rel = np.abs(got - want[name]) / np.maximum(np.abs(want[name]),
+                                                        1e-30)
+            worst = max(worst, float(rel.max()))
+            if not np.allclose(got, want[name], rtol=2e-4, atol=0):
+                fail(f"{what} {name}: max relative error {rel.max()} vs "
+                     f"the numpy group-by > 2e-4")
+        elif agg == "count":
+            exact = want[name] <= 2 ** 24
+            if not (np.array_equal(got[exact], want[name][exact])
+                    and np.allclose(got[~exact], want[name][~exact],
+                                    rtol=1e-6, atol=0)):
+                fail(f"{what} {name}: counts differ from the numpy "
+                     f"group-by")
+        elif not np.array_equal(got, want[name]):
+            fail(f"{what} {name}: differs from the numpy group-by (exact)")
+    for dims, arrays in cube.rollups.items():
+        axes = tuple(i for i, n in enumerate(spec.dim_names)
+                     if n not in dims)
+        for name, arr in arrays.items():
+            f = fine[name].astype(np.float64)
+            agg = aggs[name]
+            m = (f.min(axis=axes) if agg == "min" else
+                 f.max(axis=axes) if agg == "max" else f.sum(axis=axes))
+            ok = (np.array_equal(arr, m) if agg in ("min", "max")
+                  else np.allclose(arr, m, rtol=1e-5, atol=0))
+            if not ok:
+                fail(f"{what} rollup {dims} {name}: differs from the "
+                     f"marginal of the finest")
+    return worst
+
+
+def _hold_answer(np, got, want, what) -> float:
+    got = np.asarray(got, np.float64).reshape(np.shape(want))
+    if not np.isfinite(got).all():
+        fail(f"{what}: non-finite values")
+    if not np.allclose(got, want, rtol=2e-4, atol=0):
+        fail(f"{what}: {got} differs from the oracle {want}")
+    return float(np.max(np.abs(got - want) / np.maximum(np.abs(want),
+                                                        1e-30)))
+
+
+def cube_phase(args, torch, smi, drv, main_launches, zero):
+    """Phase 6e: the default cubes built on the card against a numpy
+    group-by of the host tables, the kernel-method cubes through B2, the
+    serving queries and q1_param through both tiers, the resident budget,
+    times.  Adds B2's launches to ``main_launches``; returns a summary."""
+    import numpy as np
+
+    from repro_torch.cube import CubeSpec, Dimension, Measure
+    from repro_torch.cube.build import build_cube
+    from repro_torch.cube.serving import measure_query
+    from repro_torch.kernels import ops
+    from repro_torch.tpch import cubes as tc
+    from repro_torch.tpch import queries as tq
+    from repro_torch.tpch.driver import (
+        ResidentBudgetError,
+        TPCHDriver,
+        _raw_bytes,
+    )
+    from repro_torch.tpch.schema import DEFAULT_PARAMS as DP
+    from repro_torch.tpch.schema import day
+
+    t_phase = time.perf_counter()
+
+    def counted(fn):
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, ops.launch_counts()
+
+    # -- the default cubes, one-hot products in chunks under 8 GiB ---------
+    builds = {}
+    for spec in tc.default_specs():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        _, got = counted(lambda s=spec: drv.build_cubes([s]))
+        if got != zero:
+            fail(f"the {spec.name} build launched {got}, expected no kernel "
+                 f"(method {spec.resolve_method()})")
+        cube = drv.cubes[spec.name]
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        rel = _hold_cube(np, cube, _numpy_cube(np, drv.tables, spec, tq),
+                         spec.name)
+        builds[spec.name] = {"build_s": cube.build_seconds,
+                             "peak_allocated_bytes": peak,
+                             "allocated_before_bytes": before,
+                             "cells": spec.num_cells,
+                             "rows": cube.rows_scanned,
+                             "sum_max_rel_err": rel}
+        print(f"cube {spec.name} ({spec.num_cells} cells, "
+              f"{spec.resolve_method()}, {cube.rows_scanned} rows): built "
+              f"in {cube.build_seconds:.3f} s on {smi}; peak allocated {peak}"
+              f" B ({before} B before); finest rollup equals the numpy "
+              f"group-by (sums max relative error {rel:.3e}, rtol 2e-4; "
+              f"min, max, counts and rows exactly up to 2^24), coarser "
+              f"rollups its marginals ({time.perf_counter() - t0:.1f} s to "
+              f"check)")
+        if args.profile:
+            profile_query(torch, lambda s=spec: build_cube(
+                drv.cluster, drv.ctx, drv.placed, s), f"{spec.name} build")
+    if drv.router is None or len(drv.router.cubes) != 2:
+        fail("build_cubes did not install a router over both cubes")
+
+    # -- the kernel-method cubes through B2 ----------------------------------
+    specs = _kernel_specs(CubeSpec, Dimension, Measure, tc, day)
+    kernel_builds = {}
+    for label in ("li_small", "li_yearly"):
+        spec = specs[(label, "kernel")]
+        cube, got = counted(lambda s=spec: build_cube(
+            drv.cluster, drv.ctx, drv.placed, s))
+        if got != {**zero, "filtered_group_sum": 1}:
+            fail(f"the kernel-method {label} build launched {got}, expected "
+                 f"filtered_group_sum once")
+        main_launches["filtered_group_sum"] += 1
+        twin, got = counted(lambda s=specs[(label, "onehot")]: build_cube(
+            drv.cluster, drv.ctx, drv.placed, s))
+        if got != zero:
+            fail(f"the one-hot {label} build launched {got}")
+        want = _numpy_cube(np, drv.tables, spec, tq)
+        rel = _hold_cube(np, cube, want, f"{label} (kernel)")
+        twin_err = _hold_cube(np, twin, want, f"{label} (onehot)")
+        fine, tfine = cube.rollup(spec.dim_names), twin.rollup(spec.dim_names)
+        twin_rel = 0.0
+        for name, arr in fine.items():
+            t = tfine[name].astype(np.float64)
+            d = np.abs(arr - t) / np.maximum(np.abs(t), 1e-30)
+            twin_rel = max(twin_rel, float(d.max()))
+            if not np.allclose(arr, t, rtol=2e-4, atol=0):
+                fail(f"{label} {name}: the kernel build differs from its "
+                     f"one-hot twin")
+        kernel_builds[label] = {"cells": spec.num_cells,
+                                "columns": len(spec.measures) + 1,
+                                "build_s": cube.build_seconds,
+                                "onehot_build_s": twin.build_seconds,
+                                "sum_max_rel_err": rel,
+                                "onehot_sum_max_rel_err": twin_err,
+                                "vs_onehot_max_rel": twin_rel}
+        print(f"kernel-method cube {label} ({spec.num_cells} cells x "
+              f"{len(spec.measures) + 1} columns): filtered_group_sum "
+              f"launched once; equals the numpy group-by (sums max relative "
+              f"error {rel:.3e}; the one-hot twin's {twin_err:.3e}) and its "
+              f"one-hot twin (max relative distance {twin_rel:.3e}); built "
+              f"in {cube.build_seconds:.3f} s, the one-hot twin "
+              f"{twin.build_seconds:.3f} s")
+    del cube, twin
+    torch.cuda.empty_cache()
+
+    # -- answers through query(): tier 1 from the cubes, tier 2 lowered --------
+    li = drv.tables["lineitem"].columns
+    o = drv.tables["orders"].columns
+    f64 = lambda a: a.astype(np.float64)  # noqa: E731
+    ship = np.searchsorted(np.asarray(tq.month_edges(
+        extra=(DP.q1_shipdate_max,)), np.int32), li["l_shipdate"])
+    rev = f64(li["l_extendedprice"]) * (1.0 - f64(li["l_discount"]))
+    window = ((o["o_orderdate"] >= DP.q4_date_min)
+              & (o["o_orderdate"] < DP.q4_date_max))
+    pri = o["o_orderpriority"][window]
+    sel = li["l_shipdate"] <= DP.q1_shipdate_max - 1
+    g = li["l_returnflag"][sel] * 2 + li["l_linestatus"][sel]
+    oracles = {
+        "q1_cube": drv.oracle("q1"),
+        "revenue_by_shipmonth": np.stack(
+            [np.bincount(ship, rev, 86), np.bincount(ship, minlength=86)],
+            axis=1),
+        "orders_by_priority": np.stack(
+            [np.bincount(pri, minlength=5),
+             np.bincount(pri, f64(o["o_totalprice"][window]), 5)], axis=1),
+        "q1_offedge": np.stack([np.bincount(g, f64(li["l_quantity"][sel]),
+                                            6),
+                                np.bincount(g, minlength=6)], axis=1),
+    }
+    del rev, ship
+    cube_of = {"q1_cube": "lineitem_pricing",
+               "revenue_by_shipmonth": "lineitem_pricing",
+               "orders_by_priority": "orders_status"}
+    queries = {**{n: f() for n, f in tq.SERVING_QUERIES.items()},
+               "q1_offedge": tq.uncovered_query()}
+    answers = {}
+    for name, q in queries.items():
+        ans, got = counted(lambda q=q: drv.query(q))
+        tier, source = (1, cube_of[name]) if name in cube_of else (
+            2, "q1_offedge")
+        if (ans.tier, ans.source) != (tier, source):
+            fail(f"{name}: answered from tier {ans.tier} ({ans.source}), "
+                 f"expected tier {tier} ({source})")
+        want = {**zero}
+        if tier == 2:
+            plan = drv._ensure_compiled(drv.prepare(q).entry).plan
+            want["scan_filter"] = sum(d.mode == "packed" for d in plan.scans)
+            if ans.overflow:
+                fail(f"{name}: an exchange buffer overflowed")
+        if got != want:
+            fail(f"{name} (tier {tier}) launched {got}, expected {want}")
+        value = ans.value if tier == 1 else ans.value.cpu().numpy()
+        rel = _hold_answer(np, value, oracles[name], name)
+        answers[name] = {"tier": tier, "source": source, "max_rel_err": rel,
+                         "launches": {k: v for k, v in got.items() if v}}
+        print(f"{name}: tier {tier} ({source}) equals the float64 "
+              f"reference (max relative error {rel:.3e}, rtol 2e-4); "
+              f"launches {answers[name]['launches']}")
+
+    # -- q1_param through one PreparedQuery: the tier follows the binding ----
+    prep = drv.prepare(tq.q1_param_ir())
+    for label, cut in (("on-edge", DP.q1_shipdate_max),
+                       ("off-edge", DP.q1_shipdate_max - 1),
+                       ("out-of-range", day(1999, 6, 1))):
+        b = {"q1_shipdate_max": cut}
+        ans, got = counted(lambda b=b: prep.execute(b))
+        tier = 1 if label == "on-edge" else 2
+        if ans.tier != tier:
+            fail(f"q1_param {label} ({cut}): tier {ans.tier}, expected "
+                 f"{tier}")
+        value = ans.value if tier == 1 else ans.value.cpu().numpy()
+        rel = _hold_answer(np, value, drv.oracle(
+            "q1", p=tq.oracle_params("q1", b)), f"q1_param {label}")
+        answers[f"q1_param {label}"] = {"tier": tier, "max_rel_err": rel}
+        print(f"q1_param {label} (l_shipdate <= {cut}): tier {tier}, equals "
+              f"the oracle (max relative error {rel:.3e}); launches "
+              f"{ {k: v for k, v in got.items() if v} }")
+
+    # -- the resident budget at a small scale factor on the card -------------
+    torch.cuda.empty_cache()
+    small = TPCHDriver(BUDGET_SF, num_nodes=NODES, device="cuda")
+    packed = small.resident_bytes
+    raw = sum(_raw_bytes(t) for t in small.resident.values())
+    del small
+    budget = (packed + raw) // 2
+    try:
+        TPCHDriver(BUDGET_SF, num_nodes=NODES, device="cuda", storage="raw",
+                   resident_budget=budget)
+        fail(f"raw storage at sf={BUDGET_SF} ({raw} B) did not raise "
+             f"ResidentBudgetError under a budget of {budget} B")
+    except ResidentBudgetError as e:
+        msg = str(e)
+    if str(budget) not in msg or str(raw) not in msg:
+        fail(f"ResidentBudgetError message lacks the budget or the raw "
+             f"bytes: {msg}")
+    TPCHDriver(BUDGET_SF, num_nodes=NODES, device="cuda",
+               resident_budget=budget)
+    torch.cuda.empty_cache()
+    print(f"resident budget at sf={BUDGET_SF}: raw storage ({raw} B) over "
+          f"a budget of {budget} B raises ResidentBudgetError, packed "
+          f"({packed} B) under it does not")
+
+    # -- times: tier 1 in microseconds beside tier 2 ---------------------------
+    serving = {}
+    for name, f in tq.SERVING_QUERIES.items():
+        m = measure_query(drv, f(), repeat=CUBE_REPEAT)
+        if m is None:
+            fail(f"measure_query found no cube for {name}")
+        serving[name] = {"tier1_us": m["tier1_s"] * 1e6,
+                         "tier1_p99_us": m["tier1_p99_s"] * 1e6,
+                         "tier2_ms": m["tier2_s"] * 1e3,
+                         "tier2_p99_ms": m["tier2_p99_s"] * 1e3,
+                         "rollup": "x".join(m["route"].rollup)}
+        print(f"{name}: tier 1 {serving[name]['tier1_us']:.1f} us "
+              f"(trimmed median of 10; p99 "
+              f"{serving[name]['tier1_p99_us']:.1f}) from the "
+              f"{serving[name]['rollup']} rollup, tier 2 "
+              f"{serving[name]['tier2_ms']:.3f} ms (trimmed median of "
+              f"{CUBE_REPEAT}, the card synchronized around each; p99 "
+              f"{serving[name]['tier2_p99_ms']:.3f}) on {smi}")
+    print("metrics report:\n" + drv.obs.metrics.report())
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 6e (two-tier query path): {phase_s:.1f} s")
+    return {"builds": builds, "kernel_builds": kernel_builds,
+            "answers": answers, "serving": serving,
+            "budget": {"sf": BUDGET_SF, "packed_bytes": packed,
+                       "raw_bytes": raw, "budget_bytes": budget},
+            "phase_s": phase_s}
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,10 @@ Generates TPC-H data per node, runs every registered hand plan through
 plans (§3.2.2: Q2, Q3 three ways, Q5, Q11, Q13, Q14) and the distributed
 top-k ones (§3.2.5: Q15, Q21) — and holds each answer to its oracle.  Then
 it prepares Q6 once (the paper's compile-once model), executes it at two
-TPC-H substitution bindings and runs both as one batch.  On the CPU (the
+TPC-H substitution bindings and runs both as one batch.  Last, the two
+tiers: it builds the default rollup cubes and answers one query that a
+cube covers (tier 1, from host memory) and one that no cube covers (tier
+2, the lowered plan), each against a numpy group-by.  On the CPU (the
 default here) the kernels run their plain PyTorch versions; ``--device
 cuda`` runs the CUDA kernels on a GPU.
 
@@ -99,6 +102,31 @@ def main(argv=None):
     print(f"  q6_param     batch of {len(bindings)} lanes "
           f"{batch.value.reshape(-1).tolist()}, equal to the executes; "
           f"lowerings {driver.compile_events}")
+
+    # two tiers: a query a rollup covers exactly, and one it does not
+    from repro_torch.query.ir import C, Q
+    from repro_torch.tpch.schema import day
+
+    driver.build_cubes()
+    li = driver.tables["lineitem"].columns
+    month_end = day(1994, 7, 1) - 1  # a bin edge of the lineitem cube
+    for bound in (month_end, month_end - 1):
+        q = (Q.scan("lineitem")
+             .filter(C("l_shipdate") <= bound)
+             .group_agg(keys=[("returnflag", C("l_returnflag"), 3),
+                              ("linestatus", C("l_linestatus"), 2)],
+                        aggs=[("sum_qty", "sum", C("l_quantity")),
+                              ("count_order", "count")]))
+        ans = driver.query(q)
+        sel = li["l_shipdate"] <= bound
+        g = li["l_returnflag"][sel] * 2 + li["l_linestatus"][sel]
+        want = np.stack([np.bincount(g, li["l_quantity"][sel], 6),
+                         np.bincount(g, minlength=6)], axis=1)
+        value = np.asarray(ans.value if ans.tier == 1 else ans.value.cpu(),
+                           np.float64)
+        np.testing.assert_allclose(value, want, rtol=2e-4)
+        print(f"  l_shipdate <= {bound}: tier {ans.tier} ({ans.source}), "
+              f"sum_qty {np.round(value[:, 0], 1).tolist()}")
     print("\nall results oracle-checked")
 
 

@@ -67,10 +67,15 @@ def _count(kind: str, x: torch.Tensor, nodes: int) -> None:
 
 
 def allreduce_max(x):
+    """MPI_Allreduce(MAX) of the per-node operands ``x`` (P, ...) over
+    the node axis -> (...); a -inf sentinel survives only where every
+    node holds it."""
     return x.amax(0)
 
 
 def allreduce_min(x):
+    """MPI_Allreduce(MIN) over the node axis, as :func:`allreduce_max`
+    (+inf sentinels)."""
     return x.amin(0)
 
 

@@ -42,6 +42,11 @@ class LoweringError(QueryError):
     shape mismatch, an operator not yet ported)."""
 
 
+class UncoveredQueryError(QueryError, LookupError):
+    """No rollup cube covers the query AND it has no lowerable Tier-2
+    form — nothing can answer it."""
+
+
 class UnboundParamError(QueryError, LookupError):
     """A :class:`Param` placeholder was evaluated without a binding for
     its name (execute a prepared query with the missing parameter)."""

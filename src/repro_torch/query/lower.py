@@ -365,7 +365,7 @@ def _lanes(pv) -> int:
 
 
 def lower(query: Query, catalog: Catalog, *, wire: str = "packed",
-          binding=None, batched: bool = False):
+          binding=None, batched: bool = False, obs=None):
     """Compile ``query`` into ``plan(ctx, tables)``, or ``plan(ctx, tables,
     params)`` where the query has parameters (see the module docstring for
     both, and for ``batched``).  ``wire`` is the exchange encoding the
@@ -376,6 +376,9 @@ def lower(query: Query, catalog: Catalog, *, wire: str = "packed",
     prepare-time defaults of an auto-parameterized literal query to size
     its buffers as the literal plan would.  The plan's parameter
     signature is ``plan.params``.
+
+    ``obs`` (an :class:`repro_torch.obs.Observer`) records the lowering's
+    decisions as a trace event.
 
     Raises :class:`IRValidationError` for malformed IR and
     :class:`LoweringError` for valid-but-uncompilable queries (min/max
@@ -411,6 +414,14 @@ def lower(query: Query, catalog: Catalog, *, wire: str = "packed",
     sj_plans = _decide_semijoins(root, catalog, query_name=query.name,
                                  wire=wire, binding=binding)
     scan_plans = _decide_scans(root, catalog)
+    if obs is not None:
+        obs.event(
+            "lower", cat="plan",
+            query=query.name or "<lowered-ir>", batched=batched, wire=wire,
+            n_params=len(params),
+            semijoins=" ".join(f"{d.key}:{d.alt}" for d in sj_plans.values())
+            or "none",
+        )
 
     def _eval(node, ctx, t, pv, scan, cache) -> _Stream:
         if isinstance(node, Scan):

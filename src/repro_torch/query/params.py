@@ -65,14 +65,19 @@ def _param_dtype(value) -> Optional[str]:
     return None
 
 
-def parameterize(q: Query) -> tuple:
+def parameterize(q: Query, obs=None) -> tuple:
     """``(shape, binding)``: ``q`` with every predicate comparison literal
     replaced by an auto-named ``Param`` (``_p0, _p1, ...`` in scan-first
     order), and the extracted name -> value binding.  Explicit params are
     untouched; a ``method='kernel'`` GroupAgg root is left as it is (the
-    fused kernel takes its cutoff as a constant)."""
+    fused kernel takes its cutoff as a constant).  ``obs`` (an
+    :class:`repro_torch.obs.Observer`) records the extraction as a trace
+    event."""
     root = q.root
     if isinstance(root, GroupAgg) and root.method == "kernel":
+        if obs is not None:
+            obs.event("parameterize", cat="plan", query=q.name or "<anon>",
+                      extracted=0, skipped="kernel")
         return q, {}
     taken = {p.name for p in query_params(root)}
     binding: dict = {}
@@ -126,7 +131,12 @@ def parameterize(q: Query) -> tuple:
             return dataclasses.replace(node, child=child, pred=pred)
         return dataclasses.replace(node, child=child)
 
-    return Query(root=walk(root), name=q.name), binding
+    shape = Query(root=walk(root), name=q.name)
+    if obs is not None:
+        obs.event("parameterize", cat="plan", query=q.name or "<anon>",
+                  extracted=len(binding),
+                  params=" ".join(sorted(binding)) or "none")
+    return shape, binding
 
 
 def bind_params(q: Query, binding: Mapping[str, object]) -> Query:

@@ -1,16 +1,28 @@
-"""TPC-H driver: generate, place, lower and run queries on the node-stacked
-cluster.
+"""TPC-H driver: generate, place, route, lower and run queries on the
+node-stacked cluster.
 
-Counterpart of ``repro.tpch.driver.TPCHDriver`` without the cube tier and
-the observability hub.  The constructor generates the tables (packed by
-default), builds the catalog with each packed column's encoding, derives
-the hand plans' exchange capacities and wire formats
-(``tpch.capacities``), and places the tables on the device once.
-``run(name)`` runs a registered query (``core.plans.REGISTRY``): its
-hand-written plan where it has one, else its lowered IR; ``run_ir``
+Counterpart of ``repro.tpch.driver.TPCHDriver`` without EXPLAIN and the
+static verifier.  The constructor generates the tables (packed by
+default), holds them to the resident budget, builds the catalog with each
+packed column's encoding, derives the hand plans' exchange capacities and
+wire formats (``tpch.capacities``), and places the tables on the device
+once.  ``run(name)`` runs a registered query (``core.plans.REGISTRY``):
+its hand-written plan where it has one, else its lowered IR; ``run_ir``
 always lowers.  The exchange settings (``capacities`` overrides, the
 all-to-all ``backend``, the ``wire`` format) are threaded into the plan
 context.
+
+Two tiers: ``query()`` takes ONE type (an IR ``Query``, or a registered
+name as sugar for its definition) and routes it
+
+  Tier 1  to the coarsest covering rollup cube (``build_cubes()``; the
+          router matches the ``GroupAgg`` root structurally), answered
+          from host memory, else
+  Tier 2  to the plan LOWERED from the IR itself.
+
+One ``Observer`` (``driver.obs``) records the spans of each query (route,
+lowering, execute) and the metrics of the driver, the plan cache, the
+router and the storage.
 
 Prepared statements (the paper's §2/§3.1 compile-once model): every IR
 query is canonicalized into a parameterized SHAPE plus a literal binding
@@ -26,7 +38,9 @@ flag surfaces any binding that exceeds them.
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
+import time
 from typing import Mapping, Optional
 
 import numpy as np
@@ -35,12 +49,15 @@ import torch
 from repro_torch.core import plans
 from repro_torch.core.columnar import PackedColumn, Table
 from repro_torch.core.engine import Cluster
+from repro_torch.cube import CubeRouter, build_cube
+from repro_torch.obs import Observer
 from repro_torch.query.ir import (
     LoweringError,
     PackedInfo,
     Query,
     QueryError,
     UnboundParamError,
+    UncoveredQueryError,
     build_catalog,
     query_params,
     same_query,
@@ -69,6 +86,14 @@ def oracle_binding(name: str) -> tuple:
     raise LoweringError(f"{name!r} has no oracle binding")
 
 
+class ResidentBudgetError(MemoryError):
+    """The resident dataset exceeds the node memory budget
+    (``REPRO_RESIDENT_BUDGET_BYTES`` / ``resident_budget=``) — the cluster
+    cannot hold this scale factor in the chosen storage format.  The
+    message reports both formats' footprints; switching to
+    ``storage="packed"`` is the usual fix."""
+
+
 def _split_overflow(out):
     """Surface a plan's exchange-overflow flag instead of leaving it buried
     in the raw result: hand plans return either a dict with an
@@ -85,15 +110,18 @@ def _split_overflow(out):
 @dataclasses.dataclass
 class QueryAnswer:
     """Result of :meth:`TPCHDriver.query` and of a prepared query: the
-    value, the query that produced it (a lowered plan, or a hand plan for
-    a registered name without IR), and whether an exchange buffer
-    overflowed (the answer is then incomplete).  ``overflow`` is a bool
-    for one execution and a ``(B,)`` bool tensor on the host for
-    ``execute_batch``, one flag a lane."""
+    value, which tier served it (1: a rollup cube, 2: a plan), its source
+    (the cube's name at tier 1; at tier 2 the lowered query, or a hand
+    plan for a registered name without IR), and whether an exchange
+    buffer overflowed (the answer is then incomplete).  ``overflow`` is a
+    bool for one execution and a ``(B,)`` bool tensor on the host for
+    ``execute_batch``, one flag a lane.  A tier-1 value is a float64
+    numpy array of ``(groups, measures)``."""
 
     value: object
     source: str
     overflow: object = False
+    tier: int = 2
 
 
 class _PlanEntry:
@@ -113,6 +141,8 @@ class _PlanEntry:
         self.fn = None          # bound scalar plan
         self.batched_fn = None  # bound batched plan (any lane count)
         self.bound = {}         # binding key -> fn(columns) closure (LRU)
+        self.route = (None, None)  # (router identity, Match|None) memo
+        self.scans = ()         # the lowered plan's per-column scans
         self.lock = threading.Lock()
 
 
@@ -181,25 +211,69 @@ class PreparedQuery:
                 for p in self.entry.params}
 
     def answer_tier1(self, b: dict) -> Optional[QueryAnswer]:
-        """A rollup cube's answer for the binding ``b``.  The port has no
-        cube tier yet, so this is None and every execution runs the
-        prepared plan."""
-        return None
+        """Tier-1 (rollup cube) answer for a FULL binding ``b``, or None
+        when no cube covers this shape or the binding is off-edge or out
+        of range.  Host-side numpy only, nothing on the device; the route
+        match is memoized on the entry (per router)."""
+        router = self.driver.router
+        if router is None:
+            return None
+        if self.entry.route[0] is not router:
+            self.entry.route = (router, router.route_query(self.entry.shape))
+        match = self.entry.route[1]
+        if match is None:
+            return None
+        value = router.answer_bound(match, b)
+        if value is None:  # off-edge / out-of-range binding -> Tier 2
+            return None
+        value = np.asarray(value).reshape(-1, value.shape[-1])
+        return QueryAnswer(value, tier=1, source=match.route.cube.spec.name)
+
+    def _tier2(self, ensure):
+        """The bound plan from ``ensure`` (lowered on first use); a query
+        that cannot lower raises :class:`UncoveredQueryError`."""
+        try:
+            return ensure(self.entry)
+        except LoweringError as e:
+            raise UncoveredQueryError(
+                f"no rollup cube covers query {self.source} for this "
+                f"binding and it has no lowerable Tier-2 form: {e}"
+            ) from e
 
     def execute(self, params=None) -> QueryAnswer:
-        """Run the prepared plan for the defaults overridden by
-        ``params``."""
-        b = self.binding(params)
-        ans = self.answer_tier1(b)
-        if ans is not None:
-            return ans
-        fn = self.driver._ensure_compiled(self.entry)
-        cols = self.driver.columns()
-        out = (fn(cols, self._cast(b)) if self.entry.params
-               else fn(cols))
-        overflow = bool(out.pop("overflow", False))
-        value = out["value"] if set(out) == {"value"} else out
-        return QueryAnswer(value, source=self.source, overflow=overflow)
+        """Answer for the defaults overridden by ``params``: from a rollup
+        cube where one covers this binding exactly (tier 1), else from the
+        prepared plan (tier 2)."""
+        driver = self.driver
+        obs = driver.obs
+        mreg = obs.metrics
+        t_start = time.perf_counter()
+        with obs.span("query", source=self.source,
+                      cache="hit" if self.cache_hit else "miss") as sp:
+            b = self.binding(params)
+            with obs.span("route", cat="route"):
+                ans = self.answer_tier1(b)
+            if ans is not None:
+                sp.set(tier=1, route=ans.source)
+                mreg.counter("driver.tier1").inc()
+                mreg.histogram("query.tier1_us").record(
+                    (time.perf_counter() - t_start) * 1e6)
+                return ans
+            fn = self._tier2(driver._ensure_compiled)
+            cols = driver.columns()
+            with obs.span("execute", cat="exec"):
+                out = (fn(cols, self._cast(b)) if self.entry.params
+                       else fn(cols))
+            overflow = bool(out.pop("overflow", False))
+            value = out["value"] if set(out) == {"value"} else out
+            sp.set(tier=2, route=self.source, overflow=overflow)
+            mreg.counter("driver.tier2").inc()
+            driver._count_scan_bytes(self.entry)
+            if overflow:
+                mreg.counter("exchange.overflow").inc()
+            mreg.histogram("query.tier2_us").record(
+                (time.perf_counter() - t_start) * 1e6)
+            return QueryAnswer(value, source=self.source, overflow=overflow)
 
     def execute_batch(self, param_table, pad_to: Optional[int] = None
                       ) -> QueryAnswer:
@@ -208,7 +282,9 @@ class PreparedQuery:
         names take the defaults) or a sequence of B binding dicts.  Every
         output gains a leading lane axis, and ``overflow`` comes back a
         lane.  ``pad_to`` pads the batch to a fixed lane count by
-        repeating the last binding; the outputs are cut back to B."""
+        repeating the last binding (counted in ``driver.batch_pad_lanes``);
+        the outputs are cut back to B.  A batch always runs the plan
+        (tier 2): a cube's exactness is decided binding by binding."""
         if not self.entry.params:
             raise QueryError(
                 f"prepared query {self.source!r} has no parameters — "
@@ -227,26 +303,49 @@ class PreparedQuery:
         if B == 0:
             raise QueryError("execute_batch needs at least one binding")
         merged = [self.binding(r) for r in rows]
+        driver = self.driver
+        obs = driver.obs
+        mreg = obs.metrics
         lanes = B
         if pad_to is not None and pad_to > B:
             merged = merged + [merged[-1]] * (pad_to - B)
             lanes = pad_to
+            mreg.counter("driver.batch_pad_lanes").inc(pad_to - B)
         stacked = self._cast({p.name: [m[p.name] for m in merged]
                               for p in self.entry.params})
-        fn = self.driver._ensure_batched(self.entry)
-        out = fn(self.driver.columns(), stacked)
-        overflow = out.pop("overflow", None)
-        overflow = (torch.zeros(lanes, dtype=torch.bool) if overflow is None
-                    else overflow.cpu())
-        if lanes != B:  # drop the padding lanes from every output
-            out = {k: v[:B] for k, v in out.items()}
-            overflow = overflow[:B]
-        value = out["value"] if set(out) == {"value"} else out
-        return QueryAnswer(value, source=self.source, overflow=overflow)
+        with obs.span("query.batch", source=self.source, lanes=B,
+                      padded=lanes) as sp:
+            fn = self._tier2(driver._ensure_batched)
+            with obs.span("execute", cat="exec"):
+                out = fn(driver.columns(), stacked)
+            overflow = out.pop("overflow", None)
+            overflow = (torch.zeros(lanes, dtype=torch.bool)
+                        if overflow is None else overflow.cpu())
+            if lanes != B:  # drop the padding lanes from every output
+                out = {k: v[:B] for k, v in out.items()}
+                overflow = overflow[:B]
+            value = out["value"] if set(out) == {"value"} else out
+            n_ovf = int(overflow.sum())
+            sp.set(tier=2, overflow_lanes=n_ovf)
+            mreg.counter("driver.batch").inc()
+            mreg.counter("driver.batch_lanes").inc(B)
+            driver._count_scan_bytes(self.entry, lanes=B)
+            if n_ovf:
+                mreg.counter("exchange.overflow").inc(n_ovf)
+            return QueryAnswer(value, source=self.source, overflow=overflow)
 
 
 def _resident_bytes(t: Table) -> int:
+    """Resident footprint of one table (packed columns at their packed
+    size, raw columns at tensor size)."""
     return sum(c.nbytes if isinstance(c, PackedColumn)
+               else c.numel() * c.element_size()
+               for c in t.columns.values())
+
+
+def _raw_bytes(t: Table) -> int:
+    """What the same table would occupy fully decoded."""
+    return sum(c.raw_nbytes if isinstance(c, PackedColumn)
                else c.numel() * c.element_size()
                for c in t.columns.values())
 
@@ -256,12 +355,20 @@ class TPCHDriver:
 
     ``device=None`` means ``cuda`` and raises without it; pass
     ``device="cpu"`` to run on the CPU (kernels then use their plain
-    PyTorch versions)."""
+    PyTorch versions).  ``obs`` is the observability hub (a fresh
+    always-on ``Observer`` by default; ``Observer(enabled=False)`` drops
+    the spans, the metrics stay).  ``resident_budget`` (else
+    ``REPRO_RESIDENT_BUDGET_BYTES``) caps the resident bytes: above it
+    the constructor raises :class:`ResidentBudgetError` before placing
+    anything on the device."""
 
     def __init__(self, sf: float, num_nodes: int = 8, seed: int = 0,
                  storage: str = "packed", device=None, capacities=None,
-                 backend: str = "xla", wire: str = "packed"):
+                 backend: str = "xla", wire: str = "packed",
+                 obs: Optional[Observer] = None,
+                 resident_budget: Optional[int] = None):
         self.cluster = Cluster(num_nodes, device=device)
+        self.obs = obs if obs is not None else Observer()
         self.sf = sf
         self.seed = seed
         self.storage = storage
@@ -292,8 +399,27 @@ class TPCHDriver:
         }
         self.catalog = build_catalog(self.tables, num_nodes=num_nodes,
                                      packed=packed_meta)
-        self.resident_bytes = sum(_resident_bytes(t)
-                                  for t in self.resident.values())
+        # resident footprint and the node memory budget: exceeding it is
+        # the out-of-memory the packed format pushes out by about the
+        # compression ratio
+        if resident_budget is None:
+            env = os.environ.get("REPRO_RESIDENT_BUDGET_BYTES")
+            resident_budget = int(env) if env else None
+        mreg = self.obs.metrics
+        total = 0
+        for n, t in self.resident.items():
+            b = _resident_bytes(t)
+            total += b
+            mreg.gauge(f"storage.bytes_resident.{n}").set(b)
+        mreg.gauge("storage.bytes_resident").set(total)
+        self.resident_bytes = total
+        if resident_budget is not None and total > resident_budget:
+            raw = sum(_raw_bytes(t) for t in self.resident.values())
+            raise ResidentBudgetError(
+                f"resident dataset at sf={sf} needs {total} bytes in "
+                f"{storage!r} storage but the node budget is "
+                f"{resident_budget} bytes (fully decoded it would be "
+                f"{raw}); use storage='packed' or a smaller scale factor")
         self.placed = {n: self.cluster.load(t)
                        for n, t in self.resident.items()}
         # §3.2.2-derived capacities for the hand plans; overrides win
@@ -313,6 +439,8 @@ class TPCHDriver:
         self._lock = threading.RLock()
         self.compile_events = []  # one label per lowering of a prepared
                                   # shape ("<name>" / "<name>@batch")
+        self.cubes = {}
+        self.router: Optional[CubeRouter] = None
 
     @staticmethod
     def _host_column(col) -> np.ndarray:
@@ -382,7 +510,7 @@ class TPCHDriver:
             raise TypeError(f"prepare() takes a repro_torch.query Query "
                             f"(or a registered plan name), got {type(q)}")
         validate(q.root, self.catalog)  # typed errors at prepare time
-        shape, defaults = parameterize(q)
+        shape, defaults = parameterize(q, obs=self.obs)
         source = q.name or "<lowered-ir>"
         wire = self.wire if wire is None else wire
         backend = self.backend if backend is None else backend
@@ -391,12 +519,14 @@ class TPCHDriver:
             hit = self._prepared.get(key)
             if hit is not None and same_query(hit.shape, shape):
                 self._prepared[key] = self._prepared.pop(key)  # LRU touch
+                self.obs.metrics.counter("plan_cache.hit").inc()
                 return PreparedQuery(self, hit, defaults, source,
                                      cache_hit=True)
             entry = _PlanEntry(shape, defaults, wire, backend)
             self._prepared[key] = entry
             while len(self._prepared) > self.IR_CACHE_MAX:
                 self._prepared.pop(next(iter(self._prepared)))
+            self.obs.metrics.counter("plan_cache.miss").inc()
             return PreparedQuery(self, entry, defaults, source)
 
     def _context(self, entry: _PlanEntry):
@@ -406,14 +536,35 @@ class TPCHDriver:
                                    backend=entry.backend)
 
     def _bind(self, entry: _PlanEntry, batched: bool):
-        """Lower the shape (one ``compile_events`` label each time) and
-        bind it to the entry's context."""
+        """Lower the shape (one ``compile_events`` label and one
+        ``plan.compile_events`` count each time, inside a ``lower`` span)
+        and bind it to the entry's context."""
         label = entry.shape.name or "<lowered-ir>"
-        plan = lower(entry.shape, self.catalog, wire=entry.wire,
-                     binding=entry.stats_binding, batched=batched)
-        self.compile_events.append(f"{label}@batch" if batched else label)
-        return self.cluster.compile(plan, self._context(entry),
-                                    batch=batched)
+        label = f"{label}@batch" if batched else label
+        with self.obs.span("lower", cat="plan", label=label):
+            plan = lower(entry.shape, self.catalog, wire=entry.wire,
+                         binding=entry.stats_binding, batched=batched,
+                         obs=self.obs)
+            entry.scans = plan.scans
+            self.compile_events.append(label)
+            self.obs.metrics.counter("plan.compile_events").inc()
+            return self.cluster.compile(plan, self._context(entry),
+                                        batch=batched)
+
+    def _count_scan_bytes(self, entry: _PlanEntry, lanes: int = 1) -> None:
+        """Account one execution's predicted scan traffic against the
+        ``storage.bytes_scanned`` counters (cluster-wide bytes: per-node
+        prediction x nodes x batch lanes)."""
+        if not entry.scans:
+            return
+        mreg = self.obs.metrics
+        nn = max(self.cluster.num_nodes, 1)
+        total = 0
+        for d in entry.scans:
+            b = d.scan_bytes * nn * lanes
+            mreg.counter(f"storage.bytes_scanned.{d.table}").inc(b)
+            total += b
+        mreg.counter("storage.bytes_scanned").inc(total)
 
     def _ensure_compiled(self, entry: _PlanEntry):
         if entry.fn is None:
@@ -465,16 +616,37 @@ class TPCHDriver:
                     entry.bound.pop(next(iter(entry.bound)))
             return entry.bound[key]
 
+    # -- two-tier execution (cube) -------------------------------------------
+    def build_cubes(self, specs=None):
+        """Materialize Tier-1 rollup cubes (one scan per spec) and install
+        the query router.  Defaults to the TPC-H presets
+        (``tpch.cubes.default_specs``)."""
+        if specs is None:
+            from repro_torch.tpch import cubes as tpch_cubes
+
+            specs = tpch_cubes.default_specs()
+        for spec in specs:
+            with self.obs.span("cube.build", cat="plan", cube=spec.name):
+                self.cubes[spec.name] = build_cube(
+                    self.cluster, self.ctx, self.placed, spec)
+        self.obs.metrics.gauge("router.cubes").set(len(self.cubes))
+        self.router = CubeRouter(list(self.cubes.values()), obs=self.obs)
+        return self.cubes
+
     def query(self, q, params=None, *, wire: str | None = None,
               backend: str | None = None) -> QueryAnswer:
-        """Run an IR ``Query`` (or a registered name) through its prepared
-        plan under ``wire`` and ``backend`` (default: the driver's);
-        ``params`` binds or overrides its runtime parameters.  Its
-        literals become parameters (``parameterize``): a float literal
-        compares in float32, as through the reference's ``query``.  The
-        answer's value is the plan's ``value`` (a ``GroupAgg`` root) or
-        its dict of top-k fields.  A registered name without IR runs its
-        hand plan, whose overflow flag is split off the result."""
+        """Router-first execution of an IR ``Query`` (or a registered
+        name): a ``GroupAgg`` root that a rollup covers exactly for this
+        call's binding is answered from the cube (tier 1); anything else
+        runs its prepared plan under ``wire`` and ``backend`` (default:
+        the driver's; tier 2).  ``params`` binds or overrides its runtime
+        parameters.  Its literals become parameters (``parameterize``): a
+        float literal compares in float32, as through the reference's
+        ``query``.  The answer's value is the plan's ``value`` (a
+        ``GroupAgg`` root) or its dict of top-k fields.  A registered name
+        without IR runs its hand plan (tier 2), whose overflow flag is
+        split off the result.  Raises :class:`UncoveredQueryError` when no
+        cube covers the query and it cannot lower (min/max measures)."""
         if isinstance(q, str) and plans.get(q).ir is None:
             if params:
                 raise UnboundParamError(

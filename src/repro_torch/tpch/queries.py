@@ -1,16 +1,20 @@
 """TPC-H queries expressed in the declarative IR: q1, q1_kernel, q4, q6,
 q14_promo and q18 (``IR_QUERIES``), the semi-join exchange shapes q4_sj
-and q18_sj, and the prepared-statement forms of q1, q6 and q14_promo
-(``PARAM_QUERIES``) with their bindings.
+and q18_sj, the prepared-statement forms of q1, q6 and q14_promo
+(``PARAM_QUERIES``) with their bindings, and the cube tier's serving
+queries (``SERVING_QUERIES``, ``uncovered_query``).
 
 Counterpart of ``repro.tpch.queries``.  The shared measure expressions
-(``REVENUE``, ``CHARGE``) are the single source of the pricing terms.
+(``REVENUE``, ``CHARGE``) and the ``month_edges`` bin grid are the single
+source of the pricing terms and the month bins: ``tpch.cubes`` builds its
+specs from the same objects, which is what lets the cube router match a
+query against a spec structurally.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.query.ir import C, Fetch, Param, Q, Query
+from repro_torch.query.ir import Bin, C, Fetch, Param, Q, Query
 from repro_torch.tpch import schema as S
 from repro_torch.tpch.schema import DEFAULT_PARAMS as DP
 from repro_torch.tpch.schema import day
@@ -18,6 +22,18 @@ from repro_torch.tpch.schema import day
 # shared measure expressions (the TPC-H pricing terms)
 REVENUE = C("l_extendedprice") * (1.0 - C("l_discount"))
 CHARGE = REVENUE * (1.0 + C("l_tax"))
+
+
+def month_edges(extra=()) -> tuple:
+    """Last day (in TPC-H day numbers) of every month 1992-01..1998-12,
+    plus any extra cut points (deduplicated, sorted)."""
+    edges = set()
+    for y in range(1992, 1999):
+        for m in range(1, 13):
+            nxt = (y + 1, 1) if m == 12 else (y, m + 1)
+            edges.add(S.day(nxt[0], nxt[1], 1) - 1)
+    edges.update(extra)
+    return tuple(sorted(edges))
 
 
 def q1_ir(p=DP, method: str = "auto") -> Query:
@@ -291,3 +307,67 @@ def oracle_params(name: str, binding: dict, p=DP):
     if unknown:
         raise KeyError(f"binding keys {sorted(unknown)} are not QueryParams")
     return dataclasses.replace(p, **binding)
+
+
+# ---------------------------------------------------------------------------
+# serving queries (the cube workload; all are GroupAgg roots so the router
+# can match them, and all lower to plans when no rollup covers them)
+# ---------------------------------------------------------------------------
+
+
+def q1_query(p=DP) -> Query:
+    return q1_ir(p)
+
+
+def revenue_by_shipmonth_query(p=DP) -> Query:
+    return (
+        Q.scan("lineitem")
+        .group_agg(
+            keys=[("shipmonth",
+                   Bin(C("l_shipdate"),
+                       month_edges(extra=(p.q1_shipdate_max,))))],
+            aggs=[("sum_disc_price", "sum", REVENUE),
+                  ("count_order", "count")],
+        )
+        .named("revenue_by_shipmonth")
+    )
+
+
+def orders_by_priority_query(p=DP) -> Query:
+    """Date-windowed priority counts.  Cube-covered because the window
+    bounds sit on bin edges; off-edge windows lower to a plan."""
+    return (
+        Q.scan("orders")
+        .filter((C("o_orderdate") >= p.q4_date_min)
+                & (C("o_orderdate") < p.q4_date_max))
+        .group_agg(
+            keys=[("orderpriority", C("o_orderpriority"),
+                   len(S.PRIORITIES))],
+            aggs=[("count_orders", "count"),
+                  ("sum_totalprice", "sum", C("o_totalprice"))],
+        )
+        .named("orders_by_priority")
+    )
+
+
+def uncovered_query(p=DP) -> Query:
+    """A Q1 variant whose shipdate bound is NOT a bin edge — the router
+    rejects it and the driver answers tier 2 from the lowered IR."""
+    return (
+        Q.scan("lineitem")
+        .filter(C("l_shipdate") <= p.q1_shipdate_max - 1)
+        .group_agg(
+            keys=[("returnflag", C("l_returnflag"), len(S.RETURNFLAGS)),
+                  ("linestatus", C("l_linestatus"), len(S.LINESTATUS))],
+            aggs=[("sum_qty", "sum", C("l_quantity")),
+                  ("count_order", "count")],
+        )
+        .named("q1_offedge")
+    )
+
+
+SERVING_QUERIES = {
+    "q1_cube": q1_query,
+    "revenue_by_shipmonth": revenue_by_shipmonth_query,
+    "orders_by_priority": orders_by_priority_query,
+}
