@@ -162,6 +162,32 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
    ``measure_query`` (tier 1 in microseconds, trimmed median of 10; tier
    2 in ms, of 3, the card synchronized around each) for each serving
    query; the metrics report; the phase's seconds.
+6f. The serving tier on the same (cubed) driver.  ``mixed_workload(drv,
+   256, seed=0)`` (tier-1 serving queries, q6 and q14_promo bindings,
+   q1_offedge), warmed at 1, 2, 4, 8 and 16 lanes; the
+   ``sequential_baseline``; then ``OLAPEngine`` (``max_batch`` 16,
+   ``max_wait_us`` 2,000) in a closed loop of 16 clients, again with
+   ``pad_batches=False``, and in an open loop at half the closed loop's
+   q/s, each run under a fresh ``Observer``.  Each run: no request failed
+   or was rejected; every answer equals the baseline's for its item byte
+   for byte (a q1_offedge lane of a coalesced batch, the batched plan's
+   lane-mask product, within rtol 2e-4, and no more such answers than
+   coalesced q1_offedge lanes); ``stats()`` counts every request, tier 1
+   the tier-1 items, ``solo`` 0 (every shape of the mix has parameters,
+   so tier-2 items queue by shape as in the reference), ``batches`` the
+   dispatches the driver's spans show, ``coalesced_lanes`` their lanes
+   (> 0), and the lanes dispatched the param + tier-2 items; the launches
+   equal what the dispatched plans imply (``scan_filter`` once a packed
+   scan a dispatch, whatever its lanes; the codec once a lane), and no
+   CUDA graph is captured.  8 items of each class of the closed loop's
+   answers against the float64 oracle (rtol 2e-4; q14_promo also atol
+   1e-2).  Then ``launch/serve_olap.main`` at SF 0.05 on the card: the
+   default mode (q6, q1_kernel), ``--cubes`` and ``--serve --requests 64
+   --clients 8 --metrics --trace`` return 0 and the trace loads as JSON;
+   an unknown name returns 2.  Prints per-class n, p50, p95, p99 and mean
+   ms, q/s, batch sizes, padding lanes and the engine's stats of each
+   run; with ``--profile`` the device's busy share of the baseline and of
+   a closed loop; the phase's seconds.
 7. The language model, after the TPC-H phases have
    dropped what they placed on the card:
    a. B7's two CUDA variants.  The f32 CUDA-core ``flash_attention_fwd``
@@ -262,7 +288,8 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
    kernel-method cubes of 6e; B5's launches those of q21, q3 and q11,
    its times at q3's and q11's inputs under ``"q3"`` and ``"q11"``; B1
    twice, its batched entry ``scan_filter_batched`` with 8 lanes of
-   bounds at q6's input and the launches of the ``execute_batch`` runs),
+   bounds at q6's input and the launches of the ``execute_batch`` runs
+   and of the engine's coalesced batches in 6f),
    then the last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or when
@@ -1086,7 +1113,11 @@ def tpch_phases(args, torch, smi: str):
     b1_lanes, prepared = prepared_phase(args, torch, smi, drv,
                                         main_launches, zero, gen)
     # -- 6e. the two-tier query path: cubes through B2, router, budget ---------
-    cubes = cube_phase(args, torch, smi, drv, main_launches, zero)
+    cubes, serving_oracles = cube_phase(args, torch, smi, drv,
+                                        main_launches, zero)
+    # -- 6f. the serving tier: the engine and the launcher ---------------------
+    serving, engine_batched_scans = serving_phase(
+        torch, smi, drv, main_launches, serving_oracles, args.profile)
     for k in hand_kernels:
         k["launches"] = main_launches[k["name"]]
         if k["name"] == "predicate_bitset":
@@ -1129,10 +1160,11 @@ def tpch_phases(args, torch, smi: str):
             "bound_ms": t4["bound_ms"], "bound_by": t4["bound_by"],
             "library_ms": None, "shape": "q4_sj " + t4["shape"],
             "q18_sj": t18})
+    b1_lanes["launches"] += engine_batched_scans
     kernels += hand_kernels + [b1_lanes]
     return kernels, {"queries_ms": query_ms, "hand_plans": hand,
                      "semijoin_plans": semijoin, "prepared": prepared,
-                     "cubes": cubes,
+                     "cubes": cubes, "serving": serving,
                      "gen_s": gen_s,
                      "resident_bytes": drv.resident_bytes,
                      "lineitem_bytes": li_bytes, "sf": args.sf,
@@ -2344,11 +2376,40 @@ def _hold_answer(np, got, want, what) -> float:
                                                         1e-30)))
 
 
+def _serving_oracles(np, drv, tq, DP) -> dict:
+    """Float64 answers of the serving queries and of q1_offedge: the q1
+    oracle, numpy group-bys of the host tables for the others."""
+    li = drv.tables["lineitem"].columns
+    o = drv.tables["orders"].columns
+    f64 = lambda a: a.astype(np.float64)  # noqa: E731
+    ship = np.searchsorted(np.asarray(tq.month_edges(
+        extra=(DP.q1_shipdate_max,)), np.int32), li["l_shipdate"])
+    rev = f64(li["l_extendedprice"]) * (1.0 - f64(li["l_discount"]))
+    window = ((o["o_orderdate"] >= DP.q4_date_min)
+              & (o["o_orderdate"] < DP.q4_date_max))
+    pri = o["o_orderpriority"][window]
+    sel = li["l_shipdate"] <= DP.q1_shipdate_max - 1
+    g = li["l_returnflag"][sel] * 2 + li["l_linestatus"][sel]
+    return {
+        "q1_cube": drv.oracle("q1"),
+        "revenue_by_shipmonth": np.stack(
+            [np.bincount(ship, rev, 86), np.bincount(ship, minlength=86)],
+            axis=1),
+        "orders_by_priority": np.stack(
+            [np.bincount(pri, minlength=5),
+             np.bincount(pri, f64(o["o_totalprice"][window]), 5)], axis=1),
+        "q1_offedge": np.stack([np.bincount(g, f64(li["l_quantity"][sel]),
+                                            6),
+                                np.bincount(g, minlength=6)], axis=1),
+    }
+
+
 def cube_phase(args, torch, smi, drv, main_launches, zero):
     """Phase 6e: the default cubes built on the card against a numpy
     group-by of the host tables, the kernel-method cubes through B2, the
     serving queries and q1_param through both tiers, the resident budget,
-    times.  Adds B2's launches to ``main_launches``; returns a summary."""
+    times.  Adds B2's launches to ``main_launches``; returns a summary and
+    the float64 answers of the serving queries and of q1_offedge."""
     import numpy as np
 
     from repro_torch.cube import CubeSpec, Dimension, Measure
@@ -2453,30 +2514,7 @@ def cube_phase(args, torch, smi, drv, main_launches, zero):
     torch.cuda.empty_cache()
 
     # -- answers through query(): tier 1 from the cubes, tier 2 lowered --------
-    li = drv.tables["lineitem"].columns
-    o = drv.tables["orders"].columns
-    f64 = lambda a: a.astype(np.float64)  # noqa: E731
-    ship = np.searchsorted(np.asarray(tq.month_edges(
-        extra=(DP.q1_shipdate_max,)), np.int32), li["l_shipdate"])
-    rev = f64(li["l_extendedprice"]) * (1.0 - f64(li["l_discount"]))
-    window = ((o["o_orderdate"] >= DP.q4_date_min)
-              & (o["o_orderdate"] < DP.q4_date_max))
-    pri = o["o_orderpriority"][window]
-    sel = li["l_shipdate"] <= DP.q1_shipdate_max - 1
-    g = li["l_returnflag"][sel] * 2 + li["l_linestatus"][sel]
-    oracles = {
-        "q1_cube": drv.oracle("q1"),
-        "revenue_by_shipmonth": np.stack(
-            [np.bincount(ship, rev, 86), np.bincount(ship, minlength=86)],
-            axis=1),
-        "orders_by_priority": np.stack(
-            [np.bincount(pri, minlength=5),
-             np.bincount(pri, f64(o["o_totalprice"][window]), 5)], axis=1),
-        "q1_offedge": np.stack([np.bincount(g, f64(li["l_quantity"][sel]),
-                                            6),
-                                np.bincount(g, minlength=6)], axis=1),
-    }
-    del rev, ship
+    oracles = _serving_oracles(np, drv, tq, DP)
     cube_of = {"q1_cube": "lineitem_pricing",
                "revenue_by_shipmonth": "lineitem_pricing",
                "orders_by_priority": "orders_status"}
@@ -2574,7 +2612,359 @@ def cube_phase(args, torch, smi, drv, main_launches, zero):
             "answers": answers, "serving": serving,
             "budget": {"sf": BUDGET_SF, "packed_bytes": packed,
                        "raw_bytes": raw, "budget_bytes": budget},
-            "phase_s": phase_s}
+            "phase_s": phase_s}, oracles
+
+
+# ---------------------------------------------------------------------------
+# phase 6f: the serving tier (the continuous-batching engine, the launcher)
+# ---------------------------------------------------------------------------
+
+SERVE_REQUESTS = 256        # items of the mixed workload
+SERVE_CLIENTS = 16          # closed-loop clients
+SERVE_MAX_BATCH = 16
+SERVE_MAX_WAIT_US = 2000.0
+SERVE_WARM_SIZES = (1, 2, 4, 8, 16)
+SERVE_ORACLE_ITEMS = 8      # items of each class held to the oracle
+LAUNCHER_SF = 0.05          # scale factor of the launcher's runs
+
+
+def _same_bytes(np, a, b) -> bool:
+    a = a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
+    b = b.cpu().numpy() if hasattr(b, "cpu") else np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and (
+        a.tobytes() == b.tobytes())
+
+
+def _class_lines(rep: dict, label: str) -> None:
+    for kind, s in rep["kinds"].items():
+        print(f"  {label} {kind:>6s}: n {s['n']:4d}  p50 {s['p50_ms']:9.3f}  "
+              f"p95 {s['p95_ms']:9.3f}  p99 {s['p99_ms']:9.3f}  mean "
+              f"{s['mean_ms']:9.3f} ms")
+
+
+def _engine_run(torch, drv, items, seq, plans, *, label, open_rate=None,
+                pad_batches=True):
+    """One engine run over ``items`` under a fresh Observer: closed loop
+    of SERVE_CLIENTS, or an open loop at ``open_rate`` q/s.  Checks every
+    answer against the sequential baseline's, the engine's stats, the
+    scan_filter launches the dispatches imply and that no CUDA graph was
+    captured; returns (summary, completions, launches, batched scans)."""
+    import asyncio
+
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.obs import Observer
+    from repro_torch.serve import workload as wl
+    from repro_torch.serve.olap_engine import OLAPEngine
+
+    captures = []
+    graph = getattr(torch.cuda, "CUDAGraph", None)
+    begin = getattr(graph, "capture_begin", None)
+    if begin is not None:
+        def counting(self, *a, **kw):
+            captures.append(1)
+            return begin(self, *a, **kw)
+
+        graph.capture_begin = counting
+
+    async def go():
+        engine = OLAPEngine(drv, max_batch=SERVE_MAX_BATCH,
+                            max_wait_us=SERVE_MAX_WAIT_US,
+                            pad_batches=pad_batches)
+        async with engine:
+            t0 = time.perf_counter()
+            if open_rate is None:
+                res = await wl.run_closed_loop(engine, items,
+                                               clients=SERVE_CLIENTS)
+            else:
+                res = await wl.run_open_loop(engine, items,
+                                             rate_qps=open_rate, seed=0)
+            wall = time.perf_counter() - t0
+        return res, wall, engine.stats()
+
+    outer = drv.obs
+    drv.obs = Observer()  # this run's spans and serve.* metrics alone
+    try:
+        _sync_device(torch, drv)
+        ops.reset_launch_counts()
+        res, wall, stats = asyncio.run(go())
+        _sync_device(torch, drv)
+        launches = ops.launch_counts()
+        obs = drv.obs
+    finally:
+        drv.obs = outer
+        if begin is not None:
+            graph.capture_begin = begin
+    if captures:
+        fail(f"{label}: {len(captures)} CUDA graph capture(s) while the "
+             f"engine ran")
+
+    # -- every request answered, equal to the baseline ----------------------
+    failed = [c for c in res if not c.ok]
+    if failed:
+        fail(f"{label}: {len(failed)} request(s) failed or were rejected: "
+             f"{failed[0].answer!r}")
+    # the dispatches, from the driver's spans: a scalar execute is a
+    # tier-2 'query' span, a coalesced batch a 'query.batch' span
+    scalar = [sp.attrs["source"] for sp in obs.find("query")
+              if sp.attrs.get("tier") == 2]
+    batches = [(sp.attrs["source"], sp.attrs["lanes"], sp.attrs["padded"])
+               for sp in obs.find("query.batch")]
+    lanes_of = collections.Counter()
+    for src, lanes, _ in batches:
+        lanes_of[src] += lanes
+    offedge_src = next(i.prep.source for i in items if i.kind == "tier2")
+    unequal_offedge = 0
+    for c, b in zip(res, seq):
+        if c.answer.tier != b.answer.tier or bool(c.answer.overflow):
+            fail(f"{label}: {c.item.name} answered from tier "
+                 f"{c.answer.tier} (overflow {c.answer.overflow}), the "
+                 f"baseline from tier {b.answer.tier}")
+        if _same_bytes(np, c.answer.value, b.answer.value):
+            continue
+        if c.item.kind != "tier2":
+            fail(f"{label}: {c.item.name} at {c.item.binding} differs from "
+                 f"the sequential baseline's answer")
+        # a coalesced q1_offedge lane is the batched plan's lane-mask
+        # product, summed in another order than the scalar one-hot product
+        unequal_offedge += 1
+        _hold_answer(np, c.answer.value.cpu().numpy(),
+                     b.answer.value.cpu().numpy().astype(np.float64),
+                     f"{label}: coalesced q1_offedge against the baseline")
+    if unequal_offedge > lanes_of[offedge_src]:
+        fail(f"{label}: {unequal_offedge} q1_offedge answers differ from the "
+             f"baseline, but only {lanes_of[offedge_src]} were coalesced")
+
+    # -- the engine's stats -----------------------------------------------------
+    n_kind = collections.Counter(i.kind for i in items)
+    queued = n_kind["param"] + n_kind["tier2"]
+    lanes = len(scalar) + sum(n for _, n, _ in batches)
+    checks = {"requests": (stats["requests"], len(items)),
+              "tier1": (stats["tier1"], n_kind["tier1"]),
+              "solo": (stats["solo"], 0),
+              "rejected": (stats["rejected"], 0),
+              "batches": (stats["batches"], len(scalar) + len(batches)),
+              "coalesced_lanes": (stats["coalesced_lanes"],
+                                  sum(n for _, n, _ in batches)),
+              "lanes dispatched": (lanes, queued)}
+    for what, (got, want) in checks.items():
+        if got != want:
+            fail(f"{label}: stats {what} {got}, expected {want} ({stats})")
+    if not (stats["batches"] > 0 and stats["coalesced_lanes"] > 0):
+        fail(f"{label}: no coalesced batch ({stats})")
+
+    # -- launches: the packed scans of each dispatched plan ---------------------
+    want = dict.fromkeys(launches, 0)
+    for src in scalar:
+        for k, v in plans[src]["scalar"].items():
+            want[k] += v
+    batched_scans = 0
+    for src, _, padded in batches:
+        for k, v in plans[src]["batch"].items():
+            want[k] += v * (padded if k != "scan_filter" else 1)
+        batched_scans += plans[src]["batch"]["scan_filter"]
+    if launches != want:
+        fail(f"{label}: launched {launches}, the dispatched plans imply "
+             f"{want}")
+
+    rep = wl.summarize(res, wall)
+    bs = stats.get("serve.batch_size", {})
+    sizes = [n for _, n, _ in batches] + [1] * len(scalar)
+    pad_lanes = obs.metrics.value("driver.batch_pad_lanes")
+    summary = {"qps": rep["qps"], "wall_s": wall, "kinds": rep["kinds"],
+               "stats": {k: v for k, v in stats.items()
+                         if not isinstance(v, dict)},
+               "batch_size_mean": float(np.mean(sizes)),
+               "batch_size_p95": wl.percentile(sizes, 0.95),
+               "batch_size_histogram": bs,
+               "pad_lanes": pad_lanes, "dispatches": len(sizes),
+               "dispatches_by_source": dict(collections.Counter(
+                   [s for s, _, _ in batches] + scalar)),
+               "q1_offedge_coalesced_unequal": unequal_offedge,
+               "launches": {k: v for k, v in launches.items() if v}}
+    print(f"{label}: {len(items)} requests in {wall:.3f} s, "
+          f"{rep['qps']:.1f} q/s; {len(sizes)} dispatches (batch size mean "
+          f"{summary['batch_size_mean']:.2f}, p95 "
+          f"{summary['batch_size_p95']}), {pad_lanes} padding lanes; "
+          f"answers equal the baseline's (byte for byte; {unequal_offedge} "
+          f"coalesced q1_offedge lanes within rtol 2e-4); launches "
+          f"{summary['launches']} as the dispatches imply; no graph capture")
+    _class_lines(rep, label)
+    print(f"  {label} stats: {summary['stats']}; batch sizes {bs}")
+    return summary, res, launches, batched_scans
+
+
+def _sync_device(torch, drv) -> None:
+    if drv.cluster.device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def serving_phase(torch, smi, drv, main_launches, oracles,
+                  profile=False):
+    """Phase 6f: the mixed workload of ``serve.workload`` (tier-1, param,
+    tier-2) on the cubed driver of 6e: the sequential baseline, the
+    engine in a closed loop (padded and not) and in an open loop at half
+    the closed loop's rate, each answer against the baseline's, samples
+    against the float64 oracle, the stats and launches; then
+    ``launch/serve_olap.main`` in each mode at LAUNCHER_SF; with
+    ``profile``, the device's busy share of the baseline and of a closed
+    loop.  Adds the engine runs' launches to ``main_launches``; returns a
+    summary and the scans of the engine's batched dispatches."""
+    import asyncio
+    import concurrent.futures
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.launch import serve_olap
+    from repro_torch.serve import workload as wl
+    from repro_torch.serve.olap_engine import OLAPEngine
+    from repro_torch.tpch import queries as tq
+
+    t_phase = time.perf_counter()
+    items = wl.mixed_workload(drv, SERVE_REQUESTS, seed=0)
+    n_kind = collections.Counter(i.kind for i in items)
+    t0 = time.perf_counter()
+    wl.warm_workload(drv, items, batch_sizes=SERVE_WARM_SIZES)
+    _sync_device(torch, drv)
+    warm_s = time.perf_counter() - t0
+    print(f"serving workload: {len(items)} items {dict(n_kind)} (seed 0), "
+          f"{len({i.prep.shape_key for i in items})} shapes warmed at lanes "
+          f"{SERVE_WARM_SIZES} in {warm_s:.1f} s")
+
+    # the float64 oracles of the sampled items run on the host meanwhile
+    pool = concurrent.futures.ThreadPoolExecutor(4)
+    sampled = {}
+    for kind in ("tier1", "param", "tier2"):
+        idx = [i for i, it in enumerate(items) if it.kind == kind]
+        sampled[kind] = idx[:SERVE_ORACLE_ITEMS]
+    param_oracles = {i: pool.submit(_oracle_of, drv, tq, items[i].name,
+                                    items[i].binding)
+                     for i in sampled["param"]}
+
+    # each shape's launches: scan_filter once a packed scan, the codec
+    # once a packed request semi-join (a lane in a batch)
+    codec = ("ef_encode", "ef_decode", "mask_fold", "mask_unfold")
+    plans = {}
+    for it in items:
+        if it.kind == "tier1" or it.prep.source in plans:
+            continue
+        plans[it.prep.source] = {}
+        for kind, ensure in (("scalar", drv._ensure_compiled),
+                             ("batch", drv._ensure_batched)):
+            plan = ensure(it.prep.entry).plan
+            n_codec = sum(sj.alt == "request" and sj.wire.packed
+                          for sj in plan.semijoins)
+            plans[it.prep.source][kind] = {
+                "scan_filter": sum(d.mode == "packed" for d in plan.scans),
+                **dict.fromkeys(codec, n_codec)}
+
+    t0 = time.perf_counter()
+    seq = wl.sequential_baseline(drv, items)
+    seq_wall = time.perf_counter() - t0
+    seq_rep = wl.summarize(seq, seq_wall)
+    print(f"sequential baseline: {seq_wall:.3f} s, {seq_rep['qps']:.1f} q/s")
+    _class_lines(seq_rep, "sequential")
+
+    runs = {}
+    engine_launches = collections.Counter()
+    engine_batched_scans = 0
+    closed, closed_res, got, bscans = _engine_run(
+        torch, drv, items, seq, plans, label="closed loop")
+    runs["closed"] = closed
+    engine_launches.update(got)
+    engine_batched_scans += bscans
+    nopad, _, got, bscans = _engine_run(
+        torch, drv, items, seq, plans, label="closed loop, unpadded",
+        pad_batches=False)
+    runs["closed_unpadded"] = nopad
+    engine_launches.update(got)
+    engine_batched_scans += bscans
+    rate = closed["qps"] / 2
+    opened, _, got, bscans = _engine_run(
+        torch, drv, items, seq, plans, label=f"open loop at {rate:.1f} q/s",
+        open_rate=rate)
+    opened["rate_qps"] = rate
+    runs["open"] = opened
+    engine_launches.update(got)
+    engine_batched_scans += bscans
+    for k, v in engine_launches.items():
+        main_launches[k] += v
+    if profile:
+        async def closed_loop():
+            async with OLAPEngine(drv, max_batch=SERVE_MAX_BATCH,
+                                  max_wait_us=SERVE_MAX_WAIT_US) as eng:
+                await wl.run_closed_loop(eng, items, clients=SERVE_CLIENTS)
+
+        for name, run in (("sequential baseline",
+                           lambda: wl.sequential_baseline(drv, items)),
+                          ("closed loop",
+                           lambda: asyncio.run(closed_loop()))):
+            busy, wall = profile_query(torch, run, f"6f {name}")
+            runs.setdefault("profile", {})[name] = {"busy_ms": busy,
+                                                    "wall_ms": wall}
+
+    # -- samples of each class against the float64 oracle ---------------------
+    errs = {}
+    for kind, idx in sampled.items():
+        errs[kind] = 0.0
+        for i in idx:
+            it, ans = items[i], closed_res[i].answer
+            what = f"engine {it.kind} {it.name} item {i}"
+            if kind == "param":
+                e = _hold_to_oracle(np, it.name, ans.value,
+                                    param_oracles[i].result(), what)
+            else:
+                value = (ans.value if kind == "tier1"
+                         else ans.value.cpu().numpy())
+                e = _hold_answer(np, value, oracles[it.name], what)
+            errs[kind] = max(errs[kind], e)
+    pool.shutdown()
+    print(f"oracle samples ({SERVE_ORACLE_ITEMS} a class of the closed "
+          f"loop's answers): max relative error {errs}")
+
+    # -- the launcher in each mode at a small scale factor ---------------------
+    t0 = time.perf_counter()
+    dev = ["--device", drv.cluster.device.type]
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = str(pathlib.Path(tmp) / "trace.json")
+        modes = {
+            "default": ["--queries", "q6", "q1_kernel", "--repeat", "2"],
+            "cubes": ["--cubes"],
+            "serve": ["--serve", "--requests", "64", "--clients", "8",
+                      "--metrics", "--trace", trace]}
+        rcs = {}
+        for mode, argv in modes.items():
+            print(f"-- serve_olap {' '.join(argv)} (sf {LAUNCHER_SF})")
+            rcs[mode] = serve_olap.main(["--sf", str(LAUNCHER_SF)] + dev
+                                        + argv)
+            if rcs[mode] != 0:
+                fail(f"serve_olap {mode} returned {rcs[mode]}")
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        if not events:
+            fail("serve_olap --trace wrote no event")
+    rcs["unknown"] = serve_olap.main(["--queries", "q6", "nope"] + dev)
+    if rcs["unknown"] != 2:
+        fail(f"serve_olap with an unknown query name returned "
+             f"{rcs['unknown']}, expected 2")
+    launcher_s = time.perf_counter() - t0
+    print(f"serve_olap: default, --cubes and --serve returned 0 at sf "
+          f"{LAUNCHER_SF} (the trace loads as JSON, {len(events)} events), "
+          f"an unknown name 2 ({launcher_s:.1f} s)")
+
+    phase_s = time.perf_counter() - t_phase
+    print(f"serving on {smi}: sequential {seq_rep['qps']:.1f} q/s, closed "
+          f"loop {closed['qps']:.1f} (unpadded {nopad['qps']:.1f}), open "
+          f"loop at {rate:.1f} q/s offered {opened['qps']:.1f}")
+    print(f"phase 6f (serving tier): {phase_s:.1f} s")
+    return {"items": dict(n_kind), "warm_s": warm_s,
+            "sequential": {"qps": seq_rep["qps"], "wall_s": seq_wall,
+                           "kinds": seq_rep["kinds"]},
+            **runs, "oracle_max_rel_err": errs, "launcher_rcs": rcs,
+            "launcher_s": launcher_s, "phase_s": phase_s}, \
+        engine_batched_scans
 
 
 # ---------------------------------------------------------------------------

@@ -1,1 +1,2 @@
-"""Launchers of the port (counterpart of ``repro.launch``): training."""
+"""Launchers of the port (counterpart of ``repro.launch``): training
+(``train``) and OLAP serving (``serve_olap``)."""

@@ -1,0 +1,236 @@
+"""OLAP serving launcher (counterpart of ``repro.launch.serve_olap``): load
+a TPC-H instance onto the card and serve queries, one by one or under a
+concurrent load.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve_olap --sf 0.05 \\
+      --queries q1 q3 q15_approx --repeat 3 [--device cuda]
+
+The default mode runs each named hand plan (every registered one without
+``--queries``) once to warm it, then ``--repeat`` times, the card
+synchronized around each run, and prints its best time.
+
+--cubes enables two-tier serving: the tier-1 rollup cubes are built up
+front (one scan each) and every serving query is reported with its
+tier-1 (rollup slice) and tier-2 (lowered plan) latency, trimmed medians
+beside their p99 tails (``cube.serving.measure_query``).
+
+--serve runs the continuous-batching engine (``serve.olap_engine``) under
+a concurrent load generator: cubes are built, a mixed tier-1 / tier-2 /
+parameterized request stream is generated (``serve.workload``), and the
+report shows per-class p50/p95/p99 latency, sustained q/s and the
+engine's batching stats.  ``--clients N`` picks a closed loop (N clients
+back to back); ``--rate QPS`` an open loop (Poisson arrivals).
+
+--metrics dumps the driver's metrics registry on exit; --trace PATH
+writes the structured trace as Chrome-trace JSON (Perfetto).
+
+The reference's ``--lint`` (the static plan verifier) is not ported yet:
+it needs the port's ``query/verify/``.  The P = 8 nodes are stacked on
+one device (``--device``, ``cuda`` by default; ``cpu`` runs the kernels'
+plain PyTorch versions).
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+
+def _speedup_str(tier2_s: float, tier1_s: float) -> str:
+    """Tier-2/tier-1 ratio for the --cubes table.  A trimmed-median tier-1
+    time can underflow to 0.0 (clock granularity against a sub-microsecond
+    rollup slice): report ``inf`` then, and ``--`` when BOTH are 0."""
+    if tier1_s <= 0.0:
+        return f"{'--':>7s} " if tier2_s <= 0.0 else f"{'inf':>7s}x"
+    return f"{tier2_s / tier1_s:7.0f}x"
+
+
+def _serve_cubes(d, repeat: int):
+    from repro_torch.cube.serving import measure_query
+    from repro_torch.tpch import cubes as tpch_cubes
+
+    t0 = time.monotonic()
+    d.build_cubes()
+    build_s = time.monotonic() - t0
+    for name, cube in d.cubes.items():
+        print(f"cube {name}: {cube.num_values} values from "
+              f"{cube.rows_scanned} rows in {cube.build_seconds:.2f}s")
+    print(f"tier-1 materialization total: {build_s:.2f}s\n")
+
+    print(f"{'query':>22s} {'tier1[us]':>10s} {'p99[us]':>9s} "
+          f"{'tier2[ms]':>10s} {'p99[ms]':>9s} {'speedup':>8s}  tier2 plan")
+    for name, make_query in tpch_cubes.SERVING_QUERIES.items():
+        m = measure_query(d, make_query(), repeat=repeat)
+        if m is None:
+            print(f"{name:>22s} {'--':>10s} (not cube-covered; tier 2 only)")
+            continue
+        print(f"{name:>22s} {m['tier1_s']*1e6:10.1f} "
+              f"{m['tier1_p99_s']*1e6:9.1f} {m['tier2_s']*1e3:10.2f} "
+              f"{m['tier2_p99_s']*1e3:9.2f} "
+              f"{_speedup_str(m['tier2_s'], m['tier1_s'])}  {m['plan']}")
+    return 0
+
+
+def _serve_engine(d, args):
+    """--serve: drive the continuous-batching engine under concurrent
+    load and report per-class latency, throughput and batching stats."""
+    import asyncio
+
+    from repro_torch.serve import workload as wl
+    from repro_torch.serve.olap_engine import OLAPEngine
+
+    t0 = time.monotonic()
+    d.build_cubes()
+    print(f"tier-1 cubes built in {time.monotonic() - t0:.2f}s")
+    items = wl.mixed_workload(d, args.requests, seed=args.seed)
+    sizes = sorted({2 ** i for i in range(args.max_batch.bit_length())
+                    if 2 ** i <= args.max_batch} | {args.max_batch})
+    t0 = time.monotonic()
+    wl.warm_workload(d, items, batch_sizes=sizes)
+    n_kind = {k: sum(1 for i in items if i.kind == k)
+              for k in ("tier1", "param", "tier2")}
+    print(f"warmed {len({i.prep.shape_key for i in items})} shapes "
+          f"(batch lanes {sizes}) in {time.monotonic() - t0:.2f}s")
+    print(f"workload: {len(items)} requests "
+          f"(tier1 {n_kind['tier1']} / param {n_kind['param']} / "
+          f"tier2 {n_kind['tier2']}), "
+          f"{'open loop @ %g q/s' % args.rate if args.rate else 'closed loop, %d clients' % args.clients}")
+
+    async def go():
+        engine = OLAPEngine(d, max_batch=args.max_batch,
+                            max_wait_us=args.max_wait_us)
+        async with engine:
+            t0 = time.perf_counter()
+            if args.rate:
+                res = await wl.run_open_loop(engine, items,
+                                             rate_qps=args.rate,
+                                             seed=args.seed)
+            else:
+                res = await wl.run_closed_loop(engine, items,
+                                               clients=args.clients)
+            wall = time.perf_counter() - t0
+        return res, wall, engine.stats()
+
+    res, wall, stats = asyncio.run(go())
+    rep = wl.summarize(res, wall)
+    print(f"\n{'class':>8s} {'n':>6s} {'p50[ms]':>9s} {'p95[ms]':>9s} "
+          f"{'p99[ms]':>9s} {'mean[ms]':>9s}")
+    for kind, s in rep["kinds"].items():
+        print(f"{kind:>8s} {s['n']:6d} {s['p50_ms']:9.2f} "
+              f"{s['p95_ms']:9.2f} {s['p99_ms']:9.2f} {s['mean_ms']:9.2f}")
+    bs = stats.get("serve.batch_size", {})
+    print(f"\nsustained: {rep['qps']:.0f} q/s over {wall:.2f}s "
+          f"({rep['failed']} failed)")
+    print(f"batches: {stats['batches']} "
+          f"({stats['coalesced_lanes']} coalesced lanes, "
+          f"mean size {bs.get('mean', 0):.1f}, p95 {bs.get('p95', 0):.0f}); "
+          f"tier1 inline {stats['tier1']}, solo {stats['solo']}, "
+          f"rejected {stats['rejected']}")
+    return 0
+
+
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--sf", type=float, default=0.05)
+    p.add_argument("--queries", nargs="*", default=None)
+    p.add_argument("--repeat", type=int, default=3)
+    p.add_argument("--backend", choices=["xla", "one_factor"], default="xla")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", type=str, default=None,
+                   help="device the cluster runs on (default: cuda)")
+    p.add_argument("--cubes", action="store_true",
+                   help="two-tier mode: build rollup cubes, report tier-1 vs "
+                        "tier-2 latency per serving query")
+    p.add_argument("--serve", action="store_true",
+                   help="continuous-batching mode: build cubes, run the "
+                        "async serving engine under a concurrent "
+                        "mixed-workload load generator")
+    p.add_argument("--requests", type=int, default=256,
+                   help="--serve: number of requests in the load run")
+    p.add_argument("--clients", type=int, default=16,
+                   help="--serve: closed-loop client count")
+    p.add_argument("--rate", type=float, default=None,
+                   help="--serve: open-loop Poisson arrival rate (q/s); "
+                        "overrides --clients")
+    p.add_argument("--max-batch", type=int, default=16,
+                   help="--serve: continuous-batching lane cap")
+    p.add_argument("--max-wait-us", type=float, default=2000.0,
+                   help="--serve: batching window: a batch launches at "
+                        "max-batch lanes or when its oldest request has "
+                        "waited this long")
+    p.add_argument("--metrics", action="store_true",
+                   help="print the driver's metrics-registry report on exit")
+    p.add_argument("--trace", metavar="PATH", default=None,
+                   help="write the structured trace as Chrome-trace JSON "
+                        "(loadable in Perfetto) on exit")
+    args = p.parse_args(argv)
+
+    from repro_torch.core.plans import PLANS
+    from repro_torch.tpch.driver import TPCHDriver
+
+    # validate query names BEFORE paying for data generation + placement
+    if args.queries:
+        unknown = sorted(set(args.queries) - set(PLANS))
+        if unknown:
+            print(f"unknown query name(s): {', '.join(unknown)}",
+                  file=sys.stderr)
+            print(f"valid --queries names: {', '.join(sorted(PLANS))}",
+                  file=sys.stderr)
+            return 2
+
+    d = TPCHDriver(sf=args.sf, seed=args.seed, backend=args.backend,
+                   device=args.device)
+    nodes = d.cluster.num_nodes
+    try:
+        if args.serve:
+            print(f"cluster: {nodes} nodes | SF {args.sf} | "
+                  f"continuous-batching serving")
+            return _serve_engine(d, args)
+        if args.cubes:
+            print(f"cluster: {nodes} nodes | SF {args.sf} | two-tier serving")
+            if args.queries:
+                print("note: --queries is ignored with --cubes (the fixed "
+                      "tpch.cubes.SERVING_QUERIES set is measured)")
+            return _serve_cubes(d, args.repeat)
+        names = args.queries or list(PLANS)
+        device = d.cluster.device
+        print(f"cluster: {nodes} nodes on {device} | SF {args.sf} | "
+              f"backend {args.backend}")
+        print(f"{'query':>14s} {'compile[s]':>10s} {'run[ms]':>9s}")
+        run_hist = d.obs.metrics.histogram("serve.run_us")
+        for name in names:
+            with d.obs.span("serve", cat="serve", query=name) as sp:
+                t0 = time.monotonic()
+                fn = d.compile(name)
+                compile_s = time.monotonic() - t0
+                cols = d.columns()
+                with d.obs.span("warmup", cat="exec"):
+                    fn(cols)  # first execute
+                    _sync(device)
+                times = []
+                for _ in range(args.repeat):
+                    with d.obs.span("execute", cat="exec"):
+                        t0 = time.monotonic()
+                        fn(cols)
+                        _sync(device)
+                        times.append(time.monotonic() - t0)
+                    run_hist.record(times[-1] * 1e6)
+                sp.set(compile_s=compile_s, best_ms=min(times) * 1e3)
+            print(f"{name:>14s} {compile_s:10.2f} {min(times)*1e3:9.2f}")
+        return 0
+    finally:
+        if args.metrics:
+            print("\n" + d.obs.metrics.report())
+        if args.trace:
+            print(f"\ntrace written to {d.obs.save_chrome_trace(args.trace)}")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

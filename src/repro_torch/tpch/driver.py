@@ -172,6 +172,14 @@ class PreparedQuery:
     def query(self) -> Query:
         return self.entry.shape
 
+    @property
+    def shape_key(self) -> int:
+        """Identity of the prepared shape: two handles carry the same key
+        iff they share one ``_PlanEntry`` (and so one lowered plan).  The
+        serving engine coalesces submissions by this key: same key means
+        their bindings stack into one ``execute_batch``."""
+        return id(self.entry)
+
     def binding(self, params=None) -> dict:
         """Defaults merged with per-call overrides; raises
         :class:`UnboundParamError` for missing or unknown names and for a
@@ -243,7 +251,7 @@ class PreparedQuery:
     def execute(self, params=None) -> QueryAnswer:
         """Answer for the defaults overridden by ``params``: from a rollup
         cube where one covers this binding exactly (tier 1), else from the
-        prepared plan (tier 2)."""
+        prepared plan (tier 2), complete on the card when it returns."""
         driver = self.driver
         obs = driver.obs
         mreg = obs.metrics
@@ -261,9 +269,9 @@ class PreparedQuery:
                 return ans
             fn = self._tier2(driver._ensure_compiled)
             cols = driver.columns()
+            args = (cols, self._cast(b)) if self.entry.params else (cols,)
             with obs.span("execute", cat="exec"):
-                out = (fn(cols, self._cast(b)) if self.entry.params
-                       else fn(cols))
+                out = driver._guarded_call(fn, *args)
             overflow = bool(out.pop("overflow", False))
             value = out["value"] if set(out) == {"value"} else out
             sp.set(tier=2, route=self.source, overflow=overflow)
@@ -317,7 +325,7 @@ class PreparedQuery:
                       padded=lanes) as sp:
             fn = self._tier2(driver._ensure_batched)
             with obs.span("execute", cat="exec"):
-                out = fn(driver.columns(), stacked)
+                out = driver._guarded_call(fn, driver.columns(), stacked)
             overflow = out.pop("overflow", None)
             overflow = (torch.zeros(lanes, dtype=torch.bool)
                         if overflow is None else overflow.cpu())
@@ -437,6 +445,11 @@ class TPCHDriver:
         # shape converge on one entry.  Reentrant: compile() reaches
         # prepare() through compile_query()
         self._lock = threading.RLock()
+        # One plan call from the host at a time: the serving tier's
+        # concurrency comes from lanes in one dispatch, never from
+        # interleaved dispatches, and the kernels' launch counters and the
+        # host reads inside plans must not interleave between threads.
+        self._dispatch_gate = threading.Lock()
         self.compile_events = []  # one label per lowering of a prepared
                                   # shape ("<name>" / "<name>@batch")
         self.cubes = {}
@@ -550,6 +563,27 @@ class TPCHDriver:
             self.obs.metrics.counter("plan.compile_events").inc()
             return self.cluster.compile(plan, self._context(entry),
                                         batch=batched)
+
+    def _guarded_call(self, fn, *args):
+        """One device dispatch of a prepared plan under the dispatch gate,
+        its answer complete when this returns.  On CUDA a plan's answer may
+        still be computing when ``fn`` returns (q6 reads nothing back), so
+        an event is recorded after the dispatch, inside the gate, and
+        waited on outside it: ``Event.synchronize`` lets go of the
+        interpreter lock, so the next dispatch's host work overlaps this
+        one's device work.  (The reference also holds the entry's lock on
+        the first call of each specialization, its ``entry.warm``: the
+        port's batched plan takes any lane count, so there is nothing to
+        specialize; ``entry.lock`` only guards the lowering.)"""
+        with self._dispatch_gate:
+            out = fn(*args)
+            done = None
+            if self.cluster.device.type == "cuda":
+                done = torch.cuda.Event()
+                done.record()
+        if done is not None:
+            done.synchronize()
+        return out
 
     def _count_scan_bytes(self, entry: _PlanEntry, lanes: int = 1) -> None:
         """Account one execution's predicted scan traffic against the

@@ -10,7 +10,9 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "tools" / "logit_fault_control.py",
-           ROOT / "tools" / "grad_fault_control.py"]
+           ROOT / "tools" / "grad_fault_control.py",
+           ROOT / "tools" / "serving_probe.py",
+           ROOT / "examples" / "serve_queries_torch.py"]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + SCRIPTS
 
 
@@ -56,17 +58,20 @@ def test_port_file_list_is_complete():
                 "tpch/capacities.py", "tpch/reference.py",
                 "obs/__init__.py", "obs/metrics.py", "obs/trace.py",
                 "cube/__init__.py", "cube/spec.py", "cube/build.py",
-                "cube/router.py", "cube/serving.py", "tpch/cubes.py"):
+                "cube/router.py", "cube/serving.py", "tpch/cubes.py",
+                "serve/__init__.py", "serve/olap_engine.py",
+                "serve/workload.py", "launch/serve_olap.py"):
         assert mod in names
 
 
 @pytest.mark.parametrize("entry", ["cluster", "driver", "model",
                                    "decode_state", "train_state", "trainer",
-                                   "launch_train"])
+                                   "launch_train", "serve_olap"])
 def test_entry_points_need_cuda_or_an_explicit_cpu(entry, monkeypatch):
     from repro_torch.configs import get_arch
     from repro_torch.core.engine import Cluster
     from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch.serve_olap import main as serve_olap
     from repro_torch.launch.train import main as launch_train
     from repro_torch.models.model import build
     from repro_torch.optim.adamw import AdamWConfig
@@ -83,6 +88,10 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(entry, monkeypatch):
                 "--batch", "2", "--seq", "8"]
         return launch_train(argv + (["--device", device] if device else []))
 
+    def serve(device=None):
+        argv = ["--sf", "0.001", "--queries", "q6", "--repeat", "1"]
+        return serve_olap(argv + (["--device", device] if device else []))
+
     make = {"cluster": lambda **kw: Cluster(8, **kw),
             "driver": lambda **kw: TPCHDriver(0.001, **kw),
             "model": lambda **kw: model.init(0, **kw),
@@ -91,7 +100,7 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(entry, monkeypatch):
             "train_state": lambda **kw: init_train_state(model, 0, **kw),
             "trainer": lambda device=None: Trainer(
                 model, data, device, AdamWConfig(), TrainerConfig(steps=1)),
-            "launch_train": launch}[entry]
+            "launch_train": launch, "serve_olap": serve}[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()
     if entry == "cluster":
@@ -101,3 +110,5 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(entry, monkeypatch):
         assert p.embedding["table"].device == torch.device("cpu")
     if entry == "trainer":
         assert make(device="cpu").device == torch.device("cpu")
+    if entry == "serve_olap":
+        assert make(device="cpu") == 0

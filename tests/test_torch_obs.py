@@ -183,8 +183,11 @@ def _drive(drv, queries):
     moved = {}
     for name, v in after.items():
         old = before.get(name)
-        if isinstance(v, dict):  # a histogram: its count
-            moved[name] = v["count"] - (old or {"count": 0})["count"]
+        if isinstance(v, dict):  # a histogram: its count, where it moved
+            # (another test on the shared driver may have registered it)
+            n = v["count"] - (old or {"count": 0})["count"]
+            if n:
+                moved[name] = n
         elif v != old:
             moved[name] = v - (old or 0)
     names = set()
