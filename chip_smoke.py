@@ -188,6 +188,26 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
    ms, q/s, batch sizes, padding lanes and the engine's stats of each
    run; with ``--profile`` the device's busy share of the baseline and of
    a closed loop; the phase's seconds.
+6g. Calibrations, the static verifier and EXPLAIN on the same driver.
+   ``wirecal.calibrate`` times ``ef_encode`` / ``ef_decode`` (B3) on q18_sj's
+   SF 10 request rows and ``scancal.calibrate`` a stream, ``scan_filter``
+   (B1) and the unpack over one node's 7,500,000 lineitem rows, CUDA events
+   around each call, into a temporary directory (never the default path;
+   their launches printed apart from the main path's); every rate finite
+   and positive, printed beside the card's name and power limit, and the
+   roofline's predicted codec ms of the q4_sj and q18_sj exchanges beside
+   B3's times of phase 6.  ``serve_olap._lint`` over the 12 plans at SF 10:
+   every diagnostic printed, no error.  With the card's calibration in
+   force (``REPRO_TORCH_WIRE_CAL`` / ``REPRO_TORCH_SCAN_CAL`` and
+   ``drv.wire_cal``) and the router detached (every query at tier 2):
+   ``explain_analyze`` of q6, q1, q4_sj, q18_sj and q14_promo (request),
+   each run once lowered, its report printed: no overflow, the launches its
+   plan implies, and each request semi-join's observed all-to-all bytes
+   summing to ``exchange.wire_bytes()`` of the run.  q4_sj and q18_sj
+   lowered under ``wire="auto"``: the chosen wire printed, the answer
+   against the oracle as in phase 4, the launches the plan implies.  Then
+   ``python -m repro_torch.launch.serve_olap --lint --sf 0.05`` as a
+   subprocess exits 0; the phase's seconds.
 7. The language model, after the TPC-H phases have
    dropped what they placed on the card:
    a. B7's two CUDA variants.  The f32 CUDA-core ``flash_attention_fwd``
@@ -1118,6 +1138,9 @@ def tpch_phases(args, torch, smi: str):
     # -- 6f. the serving tier: the engine and the launcher ---------------------
     serving, engine_batched_scans = serving_phase(
         torch, smi, drv, main_launches, serving_oracles, args.profile)
+    # -- 6g. calibrations, the verifier, EXPLAIN ANALYZE, wire="auto" ----------
+    explain = explain_phase(torch, smi, drv, main_launches, zero,
+                            codec_times)
     for k in hand_kernels:
         k["launches"] = main_launches[k["name"]]
         if k["name"] == "predicate_bitset":
@@ -1165,7 +1188,7 @@ def tpch_phases(args, torch, smi: str):
     return kernels, {"queries_ms": query_ms, "hand_plans": hand,
                      "semijoin_plans": semijoin, "prepared": prepared,
                      "cubes": cubes, "serving": serving,
-                     "gen_s": gen_s,
+                     "explain": explain, "gen_s": gen_s,
                      "resident_bytes": drv.resident_bytes,
                      "lineitem_bytes": li_bytes, "sf": args.sf,
                      "nodes": NODES}
@@ -2965,6 +2988,234 @@ def serving_phase(torch, smi, drv, main_launches, oracles,
             **runs, "oracle_max_rel_err": errs, "launcher_rcs": rcs,
             "launcher_s": launcher_s, "phase_s": phase_s}, \
         engine_batched_scans
+
+
+# ---------------------------------------------------------------------------
+# phase 6g: the wire and scan calibrations of the card, the static plan
+# verifier, EXPLAIN ANALYZE and the latency-model wire choice
+# ---------------------------------------------------------------------------
+
+# the calibrations' shapes: the codec on the 64 request rows of q18_sj's
+# SF 10 exchange (P x P rows of 131,072 slots, customer's 187,500 keys a
+# node), the scan over the 7,500,000 lineitem rows of one node at width 12
+WIRECAL_SHAPE = dict(capacity=131_072, domain=187_500, nodes=NODES * NODES)
+SCANCAL_SHAPE = dict(rows=7_500_000, width=12)
+LINT_LAUNCHER_SF = 0.05     # scale factor of the --lint launcher run
+
+
+def _rate_ok(v) -> bool:
+    return isinstance(v, float) and math.isfinite(v) and v > 0
+
+
+def explain_phase(torch, smi, drv, main_launches, zero, codec_times):
+    """Phase 6g on the SF 10 driver of 6e/6f: calibrate the codec and the
+    scan on the card into a temporary directory (their launches counted
+    apart from the main path's), lint the 12 plans, EXPLAIN ANALYZE q6,
+    q1, q4_sj, q18_sj and q14_promo (request) at tier 2 under the card's
+    calibration (observed all-to-all bytes = ``exchange.wire_bytes()`` of
+    the run, no overflow, the launches the plan implies), lower q4_sj and
+    q18_sj under ``wire="auto"`` against the oracle, and run the --lint
+    launcher.  Adds the checked runs' launches to ``main_launches``."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import exchange, scancal, wirecal
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_olap
+    from repro_torch.tpch import queries as tq
+
+    t_phase = time.perf_counter()
+    codec = ("ef_encode", "ef_decode", "mask_fold", "mask_unfold")
+
+    def implied(plan):
+        want = {**zero, "scan_filter": sum(d.mode == "packed"
+                                           for d in plan.scans)}
+        n_codec = sum(sj.alt == "request" and sj.wire.packed
+                      for sj in plan.semijoins)
+        want.update(dict.fromkeys(codec, n_codec))
+        return want
+
+    # -- calibrations on the card --------------------------------------------
+    tmp = tempfile.TemporaryDirectory()
+    wpath = os.path.join(tmp.name, "torch_wire_calibration.json")
+    spath = os.path.join(tmp.name, "torch_scan_calibration.json")
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    wcal = wirecal.calibrate(device="cuda", cal=wirecal.BUILTIN,
+                             **WIRECAL_SHAPE)
+    scal = scancal.calibrate(device="cuda", cal=scancal.BUILTIN,
+                             **SCANCAL_SHAPE)
+    torch.cuda.synchronize()
+    cal_launches = {k: v for k, v in ops.launch_counts().items() if v}
+    cal_s = time.perf_counter() - t0
+    wirecal.save(wcal, wpath)
+    scancal.save(scal, spath)
+    rates = {"encode_gbps": wcal.encode_gbps, "decode_gbps": wcal.decode_gbps,
+             "mem_gbps": scal.mem_gbps, "scan_gvps": scal.scan_gvps,
+             "unpack_gvps": scal.unpack_gvps}
+    bad = {k: v for k, v in rates.items() if not _rate_ok(v)}
+    if bad:
+        fail(f"calibration rates not finite and positive: {bad}")
+    print(f"calibrated on {smi} in {cal_s:.1f} s (launches apart from the "
+          f"main path: {cal_launches}): codec encode "
+          f"{wcal.encode_gbps:.4g} GB/s, decode {wcal.decode_gbps:.4g} GB/s "
+          f"({WIRECAL_SHAPE}); scan memory {scal.mem_gbps:.4g} GB/s, "
+          f"predicate-on-packed {scal.scan_gvps:.4g} Gvalues/s, unpack "
+          f"{scal.unpack_gvps:.4g} Gvalues/s ({SCANCAL_SHAPE}); link "
+          f"{wcal.link_gbps} GB/s and msg {wcal.msg_ms} ms are the builtin "
+          f"knobs (one card has no link to measure)")
+    # the roofline's codec time for the SF 10 exchanges against B3's
+    predicted = {}
+    for label, q in (("q4_sj", tq.q4_sj_ir()), ("q18_sj", tq.q18_sj_ir())):
+        sj = drv.compile_query(q).plan.semijoins[0]
+        enc, dec = wirecal.predict_codec_ms(sj.capacity, NODES,
+                                            sj.wire.domain, cal=wcal)
+        got = {k: codec_times[(label, k)]["ms"] for k in codec}
+        predicted[label] = {"encode_ms_node": enc, "decode_ms_node": dec,
+                            "measured_ms": got}
+        print(f"{label}: the roofline predicts codec encode {enc:.4f} ms, "
+              f"decode {dec:.4f} ms a node (x{NODES} nodes: "
+              f"{enc * NODES:.4f} / {dec * NODES:.4f} ms); B3 measured on "
+              f"all nodes' rows (phase 6): ef_encode "
+              f"{got['ef_encode']:.4f} ms, ef_decode {got['ef_decode']:.4f} "
+              f"ms, mask_fold {got['mask_fold']:.4f} ms, mask_unfold "
+              f"{got['mask_unfold']:.4f} ms")
+
+    saved_env = {v: os.environ.get(v) for v in (wirecal.ENV_VAR,
+                                                scancal.ENV_VAR)}
+    os.environ[wirecal.ENV_VAR] = wpath
+    os.environ[scancal.ENV_VAR] = spath
+    saved_cal, drv.wire_cal = drv.wire_cal, wcal
+    saved_router, drv.router = drv.router, None   # every query at tier 2
+    try:
+        # -- the static verifier at SF 10 ------------------------------------
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            lint_rc = serve_olap._lint(drv)
+        print(out.getvalue().rstrip())
+        lint = {"rc": lint_rc, "errors": 0, "warnings": 0, "infos": 0}
+        for line in out.getvalue().splitlines():
+            for sev, key in (("error]", "errors"), ("warn]", "warnings"),
+                             ("info]", "infos")):
+                if line.strip().startswith("[") and sev in line:
+                    lint[key] += 1
+            if "ERROR  verify failed" in line:
+                lint["errors"] += 1
+        lint["s"] = time.perf_counter() - t0
+        if lint["errors"]:
+            fail(f"--lint at SF {drv.sf}: {lint['errors']} error(s)")
+        print(f"lint at SF {drv.sf}: rc {lint_rc}, {lint['errors']} errors, "
+              f"{lint['warnings']} warnings, {lint['infos']} advisories "
+              f"({lint['s']:.1f} s)")
+
+        # -- EXPLAIN ANALYZE under the card's calibration ---------------------
+        analyzed = {}
+        targets = {"q6": "q6", "q1": "q1", "q4_sj": tq.q4_sj_ir(),
+                   "q18_sj": tq.q18_sj_ir(),
+                   "q14_promo_request": tq.q14_promo_ir(alt="request")}
+        for label, q in targets.items():
+            drv.explain_analyze(q)          # lowers it where it is new
+            exchange.reset_wire_bytes()
+            ops.reset_launch_counts()
+            rep = drv.explain_analyze(q)
+            torch.cuda.synchronize()
+            got = ops.launch_counts()
+            wire = exchange.wire_bytes()["all-to-all"]
+            print(rep.text())
+            obs = rep.observed
+            if obs["tier"] != 2 or obs["lowerings"] or obs["overflow"]:
+                fail(f"explain_analyze {label}: tier {obs['tier']}, "
+                     f"{obs['lowerings']} lowerings, overflow "
+                     f"{obs['overflow']}")
+            plan = drv.prepare(q).entry.fn.plan
+            if got != implied(plan):
+                fail(f"explain_analyze {label} launched {got}, its plan "
+                     f"implies {implied(plan)}")
+            for k, v in got.items():
+                main_launches[k] += v
+            sjs = [sj for sj in rep.semijoins if sj.alt == "request"]
+            if any(sj.a2a_bytes is None for sj in sjs) or (
+                    sum(sj.a2a_bytes or 0 for sj in sjs) != wire):
+                fail(f"explain_analyze {label}: semi-join all-to-all bytes "
+                     f"{[sj.a2a_bytes for sj in sjs]} vs the run's "
+                     f"exchange.wire_bytes() {wire}")
+            analyzed[label] = {
+                "execute_ms": obs["execute_ms"], "a2a_bytes": wire,
+                "collective_bytes_by_op": obs.get("collective_bytes_by_op"),
+                "semijoins": [(sj.alt, sj.wire_kind, sj.capacity,
+                               sj.codec_ms, sj.wire_ms, sj.a2a_bytes)
+                              for sj in rep.semijoins],
+                "launches": {k: v for k, v in got.items() if v}}
+            print(f"explain_analyze {label}: all-to-all bytes of the "
+                  f"semi-joins {[sj.a2a_bytes for sj in sjs]} = the run's "
+                  f"wire bytes {wire}; launches as the plan implies")
+
+        # -- wire="auto" under the card's calibration -------------------------
+        auto = {}
+        for label, q in (("q4_sj", tq.q4_sj_ir()), ("q18_sj", tq.q18_sj_ir())):
+            fn = drv.compile_query(q, wire="auto")
+            chosen = [sj.wire.kind for sj in fn.plan.semijoins]
+            ops.reset_launch_counts()
+            res = fn(drv.columns())
+            torch.cuda.synchronize()
+            got = ops.launch_counts()
+            if got != implied(fn.plan):
+                fail(f"{label} wire=auto launched {got}, its plan implies "
+                     f"{implied(fn.plan)}")
+            for k, v in got.items():
+                main_launches[k] += v
+            if bool(res.pop("overflow", False)):
+                fail(f"{label} wire=auto: an exchange buffer overflowed")
+            value = res["value"].cpu().numpy().astype(np.float64).reshape(-1)
+            oracle = np.asarray(drv.oracle(q.name), np.float64).reshape(-1)
+            exact = label == "q4_sj"
+            if not (np.array_equal(value, oracle) if exact
+                    else np.allclose(value, oracle, rtol=2e-4, atol=0)):
+                fail(f"{label} wire=auto: {value} vs the oracle {oracle}")
+            auto[label] = chosen
+            print(f"{label} wire=auto chose {chosen} under the card's "
+                  f"calibration; matches the oracle "
+                  f"({'exactly' if exact else 'rtol 2e-4'}), no overflow, "
+                  f"launches {dict((k, v) for k, v in got.items() if v)}")
+    finally:
+        drv.router = saved_router
+        drv.wire_cal = saved_cal
+        for var, v in saved_env.items():
+            if v is None:
+                os.environ.pop(var, None)
+            else:
+                os.environ[var] = v
+        tmp.cleanup()
+
+    # -- the --lint launcher, as a user runs it -------------------------------
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve_olap", "--lint",
+         "--sf", str(LINT_LAUNCHER_SF)],
+        capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=300)
+    launcher_s = time.perf_counter() - t0
+    print(proc.stdout.rstrip())
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        fail(f"serve_olap --lint --sf {LINT_LAUNCHER_SF} exited "
+             f"{proc.returncode}")
+    print(f"serve_olap --lint --sf {LINT_LAUNCHER_SF}: exit 0 "
+          f"({launcher_s:.1f} s)")
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 6g (calibrations, verifier, EXPLAIN ANALYZE): "
+          f"{phase_s:.1f} s")
+    return {"card": smi, "wire_cal": wcal.to_json(),
+            "scan_cal": scal.to_json(),
+            "calibration_launches": cal_launches, "calibration_s": cal_s,
+            "codec_predicted": predicted, "lint": lint,
+            "explain_analyze": analyzed, "wire_auto": auto,
+            "lint_launcher_s": launcher_s, "phase_s": phase_s}
 
 
 # ---------------------------------------------------------------------------

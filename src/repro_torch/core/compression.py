@@ -244,12 +244,22 @@ def alt2_wire_bytes(m: float, P: int) -> float:
 def choose_semijoin_wire(capacity: int, m: float, P: int, *,
                          domain: int = 0, packed: bool = True,
                          cal=None) -> int:
-    """Alternative at the plan's static exchange shapes, 1 or 2: the wire
-    bytes of the Alt-1 exchange against the Alt-2 bitset allgather.  The
-    JAX package's latency model (``cal``) rests on a calibration of other
-    hardware; the port has none for the card."""
+    """Alternative at the plan's static exchange shapes, 1 or 2.
+
+    Without a calibration this is the byte-accurate model: the wire bytes
+    of the Alt-1 exchange (at its derived capacity and packed widths)
+    against the Alt-2 bitset allgather.  With a
+    :class:`repro_torch.core.wirecal.WireCalibration` it is
+    latency-accurate: codec time + link time + per-collective latency on
+    both sides, so an alternative with fewer bytes but more collectives no
+    longer wins on a latency-bound link."""
     if cal is not None:
-        raise NotImplementedError(
-            "the port has no wire calibration of the card yet")
+        from repro_torch.core import wirecal  # wirecal imports this module
+
+        c1, w1 = wirecal.predict_alt1_ms(capacity, P, domain,
+                                         packed=packed and domain > 0,
+                                         cal=cal)
+        c2, w2 = wirecal.predict_alt2_ms(m, P, cal=cal)
+        return 1 if c1 + w1 <= c2 + w2 else 2
     a1 = alt1_wire_bytes(capacity, P, domain, packed=packed)
     return 1 if a1 <= alt2_wire_bytes(m, P) else 2

@@ -13,6 +13,7 @@ context and returns a callable.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Callable, Mapping
 
@@ -35,9 +36,48 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+@dataclasses.dataclass(frozen=True)
+class CollectiveInstr:
+    """One collective a plan issued, in program order: what the JAX
+    package parses out of its compiled HLO (``repro.launch.roofline.
+    CollectiveInstr``), recorded here as the collective runs."""
+
+    name: str   # what issued it ("psum", "request_reply:q4_sj_sj0", ...)
+    kind: str   # all-to-all | all-reduce | all-gather | collective-permute
+    bytes: int  # operand bytes a node injects
+
+
+# The program-ordered collective record of every collective since the last
+# reset (the per-kind byte totals of ``exchange.wire_bytes`` sit beside
+# it).  It lives here, not in ``exchange``, so ``psum`` writes it without
+# importing the exchange layer (which imports this module).  Bounded: a
+# long-running server keeps the newest RECORD_MAX entries.
+RECORD_MAX = 1 << 16
+_RECORD: collections.deque = collections.deque(maxlen=RECORD_MAX)
+
+
+def record_collective(kind: str, x: torch.Tensor, name: str = "") -> None:
+    """Append one collective over the node-stacked operand ``x`` (P, ...)
+    to the record: its bytes per node are the operand's bytes over P."""
+    nodes = max(int(x.shape[0]), 1) if x.ndim else 1
+    _RECORD.append(CollectiveInstr(name or kind, kind,
+                                   x.numel() * x.element_size() // nodes))
+
+
+def collective_record() -> tuple:
+    """The collectives since the last :func:`reset_collective_record`,
+    program-ordered :class:`CollectiveInstr` records."""
+    return tuple(_RECORD)
+
+
+def reset_collective_record() -> None:
+    _RECORD.clear()
+
+
 def psum(x: torch.Tensor) -> torch.Tensor:
     """All-reduce (sum) of per-node partials: (P, ...) -> (...), summed in
-    node order."""
+    node order; recorded as one all-reduce."""
+    record_collective("all-reduce", x, "psum")
     return x.sum(0)
 
 

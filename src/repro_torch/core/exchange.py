@@ -29,7 +29,15 @@ all-to-alls.  Packed message row, in 32-bit words::
 
 ``all_to_all`` and ``allgather`` count the bytes each node injects (the
 operand's bytes over P, the JAX package's per-device operand): read them
-with :func:`wire_bytes`, reset them with :func:`reset_wire_bytes`.
+with :func:`wire_bytes`, reset them with :func:`reset_wire_bytes`.  Beside
+those totals every collective (the all-to-alls, whatever their schedule,
+the allgathers, ``engine.psum`` and the other all-reduces, each round's
+permutes of the butterfly) appends a program-ordered record of its kind,
+bytes per node and label, the counterpart of the collectives the JAX
+package parses out of its compiled HLO: read it with
+:func:`collective_record`, reset it with :func:`reset_collective_record`.
+EXPLAIN ANALYZE attributes its all-to-alls to the plan's request
+semi-joins.
 """
 from __future__ import annotations
 
@@ -39,7 +47,13 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core import compression
-from repro_torch.core.engine import psum
+from repro_torch.core.engine import (  # noqa: F401
+    CollectiveInstr,
+    collective_record,
+    psum,
+    record_collective,
+    reset_collective_record,
+)
 from repro_torch.kernels import ops
 
 INT32_MAX = 2 ** 31 - 1
@@ -57,8 +71,9 @@ def reset_wire_bytes() -> None:
         _BYTES[k] = 0
 
 
-def _count(kind: str, x: torch.Tensor, nodes: int) -> None:
+def _count(kind: str, x: torch.Tensor, nodes: int, label: str = "") -> None:
     _BYTES[kind] += x.numel() * x.element_size() // nodes
+    record_collective(kind, x, label)
 
 
 # ---------------------------------------------------------------------------
@@ -70,21 +85,23 @@ def allreduce_max(x):
     """MPI_Allreduce(MAX) of the per-node operands ``x`` (P, ...) over
     the node axis -> (...); a -inf sentinel survives only where every
     node holds it."""
+    record_collective("all-reduce", x, "allreduce_max")
     return x.amax(0)
 
 
 def allreduce_min(x):
     """MPI_Allreduce(MIN) over the node axis, as :func:`allreduce_max`
     (+inf sentinels)."""
+    record_collective("all-reduce", x, "allreduce_min")
     return x.amin(0)
 
 
-def allgather(x):
+def allgather(x, *, label: str = ""):
     """MPI_Allgather of the per-node operands ``x`` (P, ...): every node
     receives their concatenation, (P, P * ...) — a broadcast view, no
     copy."""
     P = x.shape[0]
-    _count("all-gather", x, P)
+    _count("all-gather", x, P, label)
     flat = x.reshape(1, -1)
     return flat.expand(P, flat.shape[1])
 
@@ -94,7 +111,7 @@ def broadcast_from(x, root: int):
     return x[root].expand_as(x)
 
 
-def all_to_all(x, *, backend: str = "xla"):
+def all_to_all(x, *, backend: str = "xla", label: str = ""):
     """Personalized all-to-all: ``x[s, d]`` is node s's message to node d;
     returns ``y`` with ``y[d, s] = x[s, d]``.
 
@@ -117,7 +134,7 @@ def all_to_all(x, *, backend: str = "xla"):
             out[v, u] = x[u, v]
     else:
         raise ValueError(f"unknown all_to_all backend: {backend}")
-    _count("all-to-all", x, P)
+    _count("all-to-all", x, P, label)
     return out
 
 
@@ -132,6 +149,8 @@ def butterfly_allreduce(state, merge: Callable):
     u = torch.arange(P, device=state[0].device)
     for r in range(P.bit_length() - 1):
         partner = u ^ (1 << r)
+        for s in state:   # one permute of each state tensor a round
+            record_collective("collective-permute", s, f"butterfly{r}")
         other = type(state)(*(s[partner] for s in state))
         state = merge(state, other)
     return state
@@ -279,9 +298,23 @@ def bucket_by_destination(keys, mask, owner, num_nodes: int, capacity: int):
 # ---------------------------------------------------------------------------
 
 
+def _codec_prediction(capacity: int, P: int, wf: WireFormat):
+    """Predicted (encode_ms, decode_ms) of this exchange's packed codec
+    under the port's wire calibration (``wirecal.cached``), for the
+    observer only, never for the computation; 0.0 on the raw wire (no
+    codec runs)."""
+    if not wf.packed:
+        return 0.0, 0.0
+    from repro_torch.core import wirecal  # wirecal imports compression
+
+    return wirecal.predict_codec_ms(int(capacity), int(P), wf.domain,
+                                    cal=wirecal.cached())
+
+
 def request_reply(keys, mask, owner, lookup: Callable, *, capacity: int,
                   backend: str = "xla", reply_dtype=None,
-                  wire: Optional[WireFormat] = None):
+                  wire: Optional[WireFormat] = None, observer=None,
+                  label: str = ""):
     """The paper's explicit remote request pattern (§3.2.2 Alt-1), for all
     nodes at once:
 
@@ -293,9 +326,28 @@ def request_reply(keys, mask, owner, lookup: Callable, *, capacity: int,
     On a packed ``wire`` the request buckets are Elias–Fano coded with the
     mask folded in (one request collective instead of two) and boolean
     replies travel back as bitsets.  Returns (replies aligned with
-    ``keys``, overflow flag)."""
+    ``keys``, overflow flag).
+
+    With an ``observer`` (an :class:`repro_torch.obs.Observer`) it records
+    an ``exchange.request_reply`` event with the exchange's static shape
+    and its predicted codec times, and those times in the
+    ``exchange.encode_ms`` / ``decode_ms`` histograms; the lowering passes
+    one once a lowered plan (the JAX package records once a trace).
+    ``label`` names the exchange in the event and the collective record."""
     P = keys.shape[0]
     wf = wire or WireFormat.raw()
+    if observer is not None:
+        enc_ms, dec_ms = _codec_prediction(capacity, P, wf)
+        observer.event(
+            "exchange.request_reply", cat="exchange", label=label,
+            capacity=int(capacity), wire=wf.kind,
+            key_bits=int(wf.key_bits), backend=backend,
+            collectives=2 if wf.packed else 3,
+            encode_ms=enc_ms, decode_ms=dec_ms,
+        )
+        observer.metrics.histogram("exchange.encode_ms").record(enc_ms)
+        observer.metrics.histogram("exchange.decode_ms").record(dec_ms)
+    tag = f"request_reply:{label}" if label else "request_reply"
     order = None
     if wf.packed:
         order, keys, mask, owner = _sort_by_key(keys, mask, owner)
@@ -303,13 +355,13 @@ def request_reply(keys, mask, owner, lookup: Callable, *, capacity: int,
             _bucket_presorted(keys, mask, owner, P, capacity))
         msg = encode_key_buckets(buckets, bucket_mask, wf)
         del buckets, bucket_mask       # the largest temporaries (q4_sj)
-        req, req_mask = decode_key_buckets(all_to_all(msg, backend=backend),
-                                           capacity, wf)
+        req, req_mask = decode_key_buckets(
+            all_to_all(msg, backend=backend, label=tag), capacity, wf)
     else:
         buckets, bucket_mask, (dest_of_key, slot_of_key), overflow = (
             bucket_by_destination(keys, mask, owner, P, capacity))
-        req = all_to_all(buckets, backend=backend)
-        req_mask = all_to_all(bucket_mask, backend=backend)
+        req = all_to_all(buckets, backend=backend, label=tag)
+        req_mask = all_to_all(bucket_mask, backend=backend, label=tag)
     replies = lookup(req.reshape(P, P * capacity),
                      req_mask.reshape(P, P * capacity))
     if reply_dtype is not None:
@@ -317,10 +369,11 @@ def request_reply(keys, mask, owner, lookup: Callable, *, capacity: int,
     replies = replies.reshape(P, P, capacity)
     if wf.packed and replies.dtype == torch.bool:
         folded = ops.mask_fold(replies.reshape(P * P, capacity))
-        back_words = all_to_all(folded.reshape(P, P, -1), backend=backend)
+        back_words = all_to_all(folded.reshape(P, P, -1), backend=backend,
+                                label=tag)
         back = ops.mask_unfold(back_words.reshape(P * P, -1), n=capacity)
     else:
-        back = all_to_all(replies, backend=backend)
+        back = all_to_all(replies, backend=backend, label=tag)
     # each key's reply sits at (its destination, its slot); masked keys
     # point at the clamped last destination and are zeroed
     at = dest_of_key.clamp(max=P - 1) * capacity + slot_of_key

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.columnar import PackedColumn
+from repro_torch.core.engine import record_collective
 from repro_torch.core.partitioning import RangePartitioning
 
 
@@ -32,6 +33,7 @@ def materialize(keys, valid, part: RangePartitioning, local_columns):
         else:
             vals = torch.gather(col, 1, local_idx)
         contrib = torch.where(mine, vals, torch.zeros_like(vals))
+        record_collective("all-reduce", contrib, "late_materialization")
         # exactly one node owns each key: the sum is that node's value
         out[name] = contrib.sum(0).to(vals.dtype)
     return out

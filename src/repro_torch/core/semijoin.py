@@ -21,18 +21,21 @@ from repro_torch.core.partitioning import RangePartitioning
 
 def alt1_request(keys, mask, part: RangePartitioning,
                  local_predicate: Callable, *, capacity: int,
-                 backend: str = "xla", wire=None):
+                 backend: str = "xla", wire=None, observer=None,
+                 label: str = ""):
     """Request-based semi-join over (P, n) keys: returns (bits aligned with
     keys, overflow).  ``local_predicate(local_indices, mask) -> bool bits``
     evaluates the remote predicate on the owners' partitions, given
-    (P, P * capacity) local row indices."""
+    (P, P * capacity) local row indices.  ``observer`` and ``label`` go to
+    :func:`exchange.request_reply`."""
     def lookup(req_keys, req_mask):
         return local_predicate(part.local_index(req_keys), req_mask)
 
     keys = keys.to(torch.int32)           # the wire carries int32 keys
     bits, overflow = exchange.request_reply(
         keys, mask, part.owner(keys), lookup, capacity=capacity,
-        backend=backend, reply_dtype=torch.bool, wire=wire)
+        backend=backend, reply_dtype=torch.bool, wire=wire,
+        observer=observer, label=label)
     return bits & mask, overflow
 
 
@@ -44,7 +47,8 @@ def alt2_bitset(local_bits):
     pad = (-local_bits.shape[1]) % 32
     if pad:
         local_bits = torch.nn.functional.pad(local_bits, (0, pad))
-    return exchange.allgather(compression.pack_bitset(local_bits))
+    return exchange.allgather(compression.pack_bitset(local_bits),
+                              label="alt2_bitset")
 
 
 def probe(global_bitset_words, keys, part: RangePartitioning):

@@ -21,19 +21,54 @@ report shows per-class p50/p95/p99 latency, sustained q/s and the
 engine's batching stats.  ``--clients N`` picks a closed loop (N clients
 back to back); ``--rate QPS`` an open loop (Poisson arrivals).
 
+--lint statically verifies every registry IR query, parameterized TPC-H
+form and cube serving query against the generated catalog
+(``query.verify``; rule catalog ``docs/RULES.md``) and exits nonzero on
+any error or warning; nothing is lowered or run.
+
 --metrics dumps the driver's metrics registry on exit; --trace PATH
 writes the structured trace as Chrome-trace JSON (Perfetto).
 
-The reference's ``--lint`` (the static plan verifier) is not ported yet:
-it needs the port's ``query/verify/``.  The P = 8 nodes are stacked on
-one device (``--device``, ``cuda`` by default; ``cpu`` runs the kernels'
-plain PyTorch versions).
+The P = 8 nodes are stacked on one device (``--device``, ``cuda`` by
+default; ``cpu`` runs the kernels' plain PyTorch versions).
 """
 from __future__ import annotations
 
 import argparse
 import sys
 import time
+
+
+def _lint(d) -> int:
+    """--lint: statically verify every registry IR query, parameterized
+    TPC-H form and cube serving query against the generated catalog
+    (``query.verify``); nothing is lowered or run.  Exit nonzero on any
+    error or warning; info advisories are allowed."""
+    from repro_torch.core.plans import REGISTRY
+    from repro_torch.query.ir import QueryError
+    from repro_torch.tpch import queries as tq
+
+    targets = [(name, qd.ir) for name, qd in REGISTRY.items()
+               if qd.ir is not None]
+    targets += [(f"{name}_param", make()) for name, make
+                in tq.PARAM_QUERIES.items()]
+    targets += [(name, make()) for name, make in tq.SERVING_QUERIES.items()]
+    failed = 0
+    for label, q in targets:
+        try:
+            rep = d.check(q)
+        except QueryError as e:
+            print(f"{label:>22s}  ERROR  verify failed: {e}")
+            failed += 1
+            continue
+        status = "clean" if rep.clean else ("WARN" if rep.ok else "FAIL")
+        print(f"{label:>22s}  {status}")
+        for x in rep.diagnostics:
+            print(f"{'':>24s}{x.format()}")
+        if not rep.clean:
+            failed += 1
+    print(f"\n{len(targets)} plans verified, {failed} with errors/warnings")
+    return 1 if failed else 0
 
 
 def _speedup_str(tier2_s: float, tier1_s: float) -> str:
@@ -145,6 +180,10 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default=None,
                    help="device the cluster runs on (default: cuda)")
+    p.add_argument("--lint", action="store_true",
+                   help="statically verify every registry IR query + cube "
+                        "serving preset (query.verify rule catalog: "
+                        "docs/RULES.md); exit nonzero on errors/warnings")
     p.add_argument("--cubes", action="store_true",
                    help="two-tier mode: build rollup cubes, report tier-1 vs "
                         "tier-2 latency per serving query")
@@ -189,6 +228,10 @@ def main(argv=None):
                    device=args.device)
     nodes = d.cluster.num_nodes
     try:
+        if args.lint:
+            print(f"cluster: {nodes} nodes | SF {args.sf} | "
+                  f"static plan verify")
+            return _lint(d)
         if args.serve:
             print(f"cluster: {nodes} nodes | SF {args.sf} | "
                   f"continuous-batching serving")

@@ -76,6 +76,7 @@ from repro_torch.core import (
     scancal,
     semijoin,
     topk,
+    wirecal,
 )
 from repro_torch.core.columnar import PackedColumn
 from repro_torch.core.compression import choose_semijoin_wire
@@ -131,19 +132,34 @@ class _SemiJoinPlan:
     wire: WireFormat = WireFormat.raw()  # wire format of the exchange
     table: str = ""     # semi-join target table
     gamma: float = 0.0  # predicted target-predicate selectivity
-    # the model's request capacity whatever the chosen alternative
+    # the model's request capacity whatever the chosen alternative (the
+    # static verifier compares it against the plan's for other bindings)
     derived_capacity: int = 0
+    # roofline predictions (core.wirecal) for the chosen alternative at
+    # its static shapes: codec time vs link volume + collective latency
+    codec_ms: float = 0.0
+    wire_ms: float = 0.0
 
 
 def _decide_semijoins(root, catalog: Catalog, query_name=None,
-                      wire: str = "packed", binding=None) -> dict:
+                      wire: str = "packed", binding=None, cal=None,
+                      predict_cal=None) -> dict:
     """Each SemiJoin's physical alternative and buffer capacity from the
     §3.2.2 model, with selectivities accumulated along the chain.  The
-    choice is byte-accurate: the static wire bytes of the Alt-1 exchange at
-    its derived capacity and packed widths under ``wire``, against the
-    Alt-2 bitset allgather.  ``binding`` resolves parameterized predicates
-    for the estimates; an unbound parameter is sized for the worst binding
-    in its declared range (``query.stats.estimate_selectivity``)."""
+    choice is byte-accurate by default: the static wire bytes of the Alt-1
+    exchange at its derived capacity and packed widths under ``wire``,
+    against the Alt-2 bitset allgather.  With a ``cal``
+    (:class:`repro_torch.core.wirecal.WireCalibration`) it is
+    latency-accurate (codec + link + per-collective roofline), and
+    ``wire="auto"`` lets the same model pick packed or raw per semi-join.
+    Every decision carries its predicted ``codec_ms`` / ``wire_ms`` for
+    EXPLAIN, computed with ``predict_cal`` (else ``cal``, else the
+    builtin rates): a calibration for predictions only never changes a
+    decision.  ``binding`` resolves parameterized predicates for the
+    estimates; an unbound parameter is sized for the worst binding in its
+    declared range (``query.stats.estimate_selectivity``)."""
+    pcal = (predict_cal if predict_cal is not None
+            else cal if cal is not None else wirecal.BUILTIN)
     decisions = {}
     base = None
     sel = 1.0
@@ -187,20 +203,28 @@ def _decide_semijoins(root, catalog: Catalog, query_name=None,
                 cap = qstats.request_capacity(tinfo.num_rows, sel,
                                               catalog.num_nodes)
             wf = qstats.wire_format_for(target.num_rows, catalog.num_nodes,
-                                        kind=wire)
+                                        kind=wire, capacity=cap, cal=cal)
             if alt == "auto":
                 if local_ok:
                     alt = "local"
                 else:
                     choice = choose_semijoin_wire(
                         cap, target.num_rows, P, domain=wf.domain,
-                        packed=wf.packed)
+                        packed=wf.packed, cal=cal)
                     alt = "request" if choice == 1 else "bitset"
+            if alt == "request":
+                codec_ms, wire_ms = wirecal.predict_alt1_ms(
+                    cap, P, wf.domain, packed=wf.packed, cal=pcal)
+            elif alt == "bitset":
+                codec_ms, wire_ms = wirecal.predict_alt2_ms(
+                    target.num_rows, P, cal=pcal)
+            else:
+                codec_ms, wire_ms = 0.0, 0.0
             decisions[id(node)] = _SemiJoinPlan(
                 alt=alt, capacity=cap if alt == "request" else 0,
                 key=f"{query_name or 'query'}_sj{len(decisions)}",
                 wire=wf, table=node.table, gamma=gamma,
-                derived_capacity=cap,
+                derived_capacity=cap, codec_ms=codec_ms, wire_ms=wire_ms,
             )
             sel *= gamma
     return decisions
@@ -210,11 +234,12 @@ def _decide_scans(root, catalog: Catalog, cal=None) -> dict:
     """Per-Filter predicate-on-packed decisions over compressed-resident
     base tables: each ``col op literal`` conjunct against a packed column
     rewrites into a code-space range test; the :mod:`scancal` roofline
-    arbitrates packed vs decode per column; same-column range tests fuse
-    into one scan.  Returns ``{id(filter): [(conjuncts_tuple,
-    [ScanDecision, ...]), ...]}`` for filters touching a packed column."""
+    (the port's saved calibration, else the builtin rates) arbitrates
+    packed vs decode per column; same-column range tests fuse into one
+    scan.  Returns ``{id(filter): [(conjuncts_tuple, [ScanDecision,
+    ...]), ...]}`` for filters touching a packed column."""
     if cal is None:
-        cal = scancal.BUILTIN
+        cal = scancal.load(strict=False)
     decisions = {}
     base = None
     for node in _chain(root):
@@ -236,6 +261,81 @@ def _decide_scans(root, catalog: Catalog, cal=None) -> dict:
         if any(ds for _, ds in per):
             decisions[id(node)] = qstats.merge_scan_conjuncts(per)
     return decisions
+
+
+# stable public entry points for the static verifier (query.verify): the
+# same decision passes the lowering runs, usable without lowering
+decide_semijoins = _decide_semijoins
+SemiJoinPlan = _SemiJoinPlan
+decide_scans = _decide_scans
+
+
+def explain_chain(query: Query, catalog: Catalog, *, wire: str = "packed",
+                  binding=None, cal=None, predict_cal=None) -> list:
+    """Scan-first per-operator annotations for EXPLAIN: each operator as a
+    dict carrying the cost model's view of it — predicted selectivity for
+    filters and probes, the chosen alternative / derived capacity / wire
+    format for semi-joins (what :func:`lower` decides, through the same
+    ``_decide_semijoins``), the group and aggregate shape of the root.
+    Nothing is lowered or run."""
+    root = query.root
+    validate(root, catalog)
+    decisions = _decide_semijoins(root, catalog, query_name=query.name,
+                                  wire=wire, binding=binding, cal=cal,
+                                  predict_cal=predict_cal)
+    scan_plans = _decide_scans(root, catalog)
+    rows = []
+    base, sel = None, 1.0
+    for node in _chain(root):
+        if isinstance(node, Scan):
+            base, sel = node.table, 1.0
+            tinfo = catalog.table(node.table)
+            rows.append({"op": "Scan", "table": node.table,
+                         "rows": tinfo.num_rows,
+                         "packed_cols": sorted(tinfo.packed)})
+            continue
+        tinfo = catalog.table(base)
+        if isinstance(node, Filter):
+            s = qstats.estimate_selectivity(node.pred, tinfo.stats, binding)
+            sel *= s
+            rows.append({"op": "Filter", "pred": node.pred, "sel": s,
+                         "cum_sel": sel,
+                         "scans": [d for _, ds in scan_plans.get(id(node), [])
+                                   for d in ds]})
+        elif isinstance(node, Project):
+            rows.append({"op": "Project",
+                         "cols": [n for n, _ in node.cols]})
+        elif isinstance(node, SemiJoin):
+            d = decisions[id(node)]
+            sel *= d.gamma
+            rows.append({
+                "op": "SemiJoin", "table": node.table, "key": node.key,
+                "pred": node.pred, "alt": d.alt, "capacity": d.capacity,
+                "capacity_key": d.key, "wire": d.wire, "gamma": d.gamma,
+                "codec_ms": d.codec_ms, "wire_ms": d.wire_ms,
+                "cum_sel": sel,
+            })
+        elif isinstance(node, Exists):
+            sel *= qstats.DEFAULT_SELECTIVITY
+            rows.append({"op": "Exists", "table": node.table,
+                         "sel": qstats.DEFAULT_SELECTIVITY, "cum_sel": sel})
+        elif isinstance(node, GroupAggByKey):
+            base, sel = node.into, 1.0
+            rows.append({"op": "GroupAggByKey", "into": node.into,
+                         "aggs": [a.name for a in node.aggs]})
+        elif isinstance(node, GroupAgg):
+            groups = (math.prod(k.cardinality for k in node.keys)
+                      if node.keys else 1)
+            method = node.method
+            if method == "auto":
+                method = "onehot" if groups <= ONEHOT_MAX_GROUPS else "dense"
+            rows.append({"op": "GroupAgg", "groups": groups,
+                         "method": method,
+                         "keys": [k.name for k in node.keys],
+                         "aggs": [a.name for a in node.aggs]})
+        elif isinstance(node, TopK):
+            rows.append({"op": "TopK", "k": node.k})
+    return rows
 
 
 def _has_division(e) -> bool:
@@ -377,12 +477,18 @@ def lower(query: Query, catalog: Catalog, *, wire: str = "packed",
     its buffers as the literal plan would.  The plan's parameter
     signature is ``plan.params``.
 
+    ``wire="auto"`` picks packed or raw per request semi-join by the
+    latency model under the port's saved wire calibration
+    (``core.wirecal``).
+
     ``obs`` (an :class:`repro_torch.obs.Observer`) records the lowering's
-    decisions as a trace event.
+    decisions as a trace event, and each request exchange's
+    ``exchange.request_reply`` event and codec histograms on the plan's
+    first run (once a lowered plan).
 
     Raises :class:`IRValidationError` for malformed IR and
     :class:`LoweringError` for valid-but-uncompilable queries (min/max
-    aggregates, kernel-ineligible shapes, other roots, ``wire="auto"``)."""
+    aggregates, kernel-ineligible shapes, other roots)."""
     root = query.root
     validate(root, catalog)
     params = query_params(root)
@@ -422,6 +528,8 @@ def lower(query: Query, catalog: Catalog, *, wire: str = "packed",
             semijoins=" ".join(f"{d.key}:{d.alt}" for d in sj_plans.values())
             or "none",
         )
+    # request exchanges that have reported to ``obs`` (once a plan)
+    observed = set()
 
     def _eval(node, ctx, t, pv, scan, cache) -> _Stream:
         if isinstance(node, Scan):
@@ -489,13 +597,16 @@ def lower(query: Query, catalog: Catalog, *, wire: str = "packed",
                 mask = (s.mask if s.mask is not None
                         else torch.ones(key.shape, dtype=torch.bool,
                                         device=key.device))
+                observer = obs if sj.key not in observed else None
+                observed.add(sj.key)
                 bits, ovf = semijoin.alt1_request(
                     key, mask, part, pred_fn,
                     # the derived capacity, unless the context overrides
                     # it under this semi-join's key
                     capacity=ctx.cap(sj.key, sj.capacity),
                     backend=ctx.backend,
-                    wire=sj.wire if ctx.wire != "raw" else WireFormat.raw())
+                    wire=sj.wire if ctx.wire != "raw" else WireFormat.raw(),
+                    observer=observer, label=sj.key)
                 s.and_mask(bits)
                 s.overflow = s.overflow | ovf
             return s

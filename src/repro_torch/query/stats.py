@@ -149,22 +149,33 @@ def request_capacity(table_rows: int, selectivity: float,
 
 
 def wire_format_for(table_rows: int, num_nodes: int,
-                    kind: str = "packed") -> WireFormat:
+                    kind: str = "packed", *, capacity: int = 0,
+                    cal=None) -> WireFormat:
     """Wire format of an exchange addressing the owners of a table
     range-partitioned over ``num_nodes``: the per-destination key domain
-    is ``rows_per_node``.  ``"auto"`` — the JAX package's latency choice
-    between packed and raw — needs a wire calibration of the card, which
-    the port does not have yet."""
+    is ``rows_per_node`` and its ``required_width`` fixes the packed key
+    width.
+
+    ``kind="auto"`` asks the latency model: packed only where the roofline
+    (``core.wirecal``) predicts the byte reduction buys back the codec
+    time, i.e. the exchange is network-bound, not codec-bound.  It needs
+    the exchange ``capacity``; ``cal`` defaults to the port's saved
+    calibration (``wirecal.load()``: the card's where one was measured,
+    else the builtin rates)."""
     if kind == "auto":
-        raise LoweringError(
-            "wire='auto' needs a wire calibration of the card (codec and "
-            "link rates), which the port does not have yet; pass "
-            "wire='packed' or wire='raw'")
+        from repro_torch.core import wirecal
+
+        wf = WireFormat.packed_for(table_rows, num_nodes)
+        kind = wirecal.choose_wire_kind(
+            int(capacity), num_nodes, wf.domain,
+            cal=cal if cal is not None else wirecal.load())
+        return wf if kind == "packed" else WireFormat.raw()
     if kind == "raw":
         return WireFormat.raw()
     if kind != "packed":
         raise LoweringError(f"unknown wire format {kind!r}")
     return WireFormat.packed_for(table_rows, num_nodes)
+
 
 _I32_MIN, _I32_MAX = -(2 ** 31), 2 ** 31 - 1
 
@@ -348,7 +359,8 @@ def scan_rewrite(conjunct: Expr,
 @dataclasses.dataclass(frozen=True)
 class ScanDecision:
     """Per-(filter conjunct, packed column) scan strategy, decided at
-    lower time by the :mod:`repro_torch.core.scancal` roofline."""
+    lower time by the :mod:`repro_torch.core.scancal` roofline and
+    rendered by EXPLAIN."""
 
     table: str
     column: str
@@ -359,6 +371,10 @@ class ScanDecision:
     raw_bytes: int                 # raw-residency bytes for the same scan
     rewrite: Optional[ScanRewrite] = None
     reason: str = ""
+
+    @property
+    def rewritable(self) -> bool:
+        return self.rewrite is not None
 
 
 def decide_scan_conjunct(conjunct: Expr, table_name: str,

@@ -1,14 +1,14 @@
 """Hand-plan exchange capacities derived from the §3.2.2 selectivity model.
 
-Counterpart of ``derive`` and ``wire_formats`` of ``repro.tpch.capacities``
-(``wire_predictions`` needs the wire calibration, ``core/wirecal.py``,
-which the port does not have yet).  Each capacity is ``capacity_for(the
-expected per-destination message count)``, from the same selectivity
-estimates the IR lowering uses: requests after local filtering spread
+Counterpart of ``repro.tpch.capacities``.  Each capacity is
+``capacity_for(the expected per-destination message count)``, from the
+same selectivity estimates the IR lowering uses: requests after local filtering spread
 uniformly over P destinations, plus a 6-sigma binomial tail margin.  Run-
 time overflow flags in the exchange layer catch any under-estimate.
 :func:`wire_formats` derives each hand-plan exchange's packed wire format
-(target table rows -> per-destination key domain -> key bits).
+(target table rows -> per-destination key domain -> key bits), and
+:func:`wire_predictions` the latency model's wire choice and predicted
+times for each under the port's wire calibration (``core.wirecal``).
 
 Knobs that are NOT exchange buffers (lazy-top-k chunk/round counts, the
 §3.2.5 codec group/candidate sizes) remain explicit algorithm parameters.
@@ -89,3 +89,27 @@ def wire_formats(tables, num_nodes: int) -> dict:
         name: wire_format_for(int(tables[target].num_rows), num_nodes)
         for name, target in _EXCHANGE_TARGETS.items()
     }
+
+
+def wire_predictions(tables, num_nodes: int, capacities: dict,
+                     cal=None) -> dict:
+    """Roofline latency predictions per hand-plan exchange: name ->
+    ``{"kind", "codec_ms", "wire_ms"}`` under the wire calibration
+    (``core.wirecal``: the port's saved one, else the builtin rates, when
+    None).  ``kind`` is what the latency model would CHOOSE for that
+    exchange: hand plans run with a fixed wire can be audited against it
+    (rule WIRE001)."""
+    from repro_torch.core import wirecal
+
+    cal = cal if cal is not None else wirecal.load()
+    out = {}
+    for name, target in _EXCHANGE_TARGETS.items():
+        cap = int(capacities.get(name, 0))
+        if cap <= 0:
+            continue
+        wf = wire_format_for(int(tables[target].num_rows), num_nodes)
+        kind = wirecal.choose_wire_kind(cap, num_nodes, wf.domain, cal=cal)
+        codec_ms, wire_ms = wirecal.predict_alt1_ms(
+            cap, num_nodes, wf.domain, packed=kind == "packed", cal=cal)
+        out[name] = {"kind": kind, "codec_ms": codec_ms, "wire_ms": wire_ms}
+    return out

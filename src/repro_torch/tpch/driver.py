@@ -1,16 +1,15 @@
 """TPC-H driver: generate, place, route, lower and run queries on the
 node-stacked cluster.
 
-Counterpart of ``repro.tpch.driver.TPCHDriver`` without EXPLAIN and the
-static verifier.  The constructor generates the tables (packed by
-default), holds them to the resident budget, builds the catalog with each
-packed column's encoding, derives the hand plans' exchange capacities and
-wire formats (``tpch.capacities``), and places the tables on the device
-once.  ``run(name)`` runs a registered query (``core.plans.REGISTRY``):
-its hand-written plan where it has one, else its lowered IR; ``run_ir``
-always lowers.  The exchange settings (``capacities`` overrides, the
-all-to-all ``backend``, the ``wire`` format) are threaded into the plan
-context.
+Counterpart of ``repro.tpch.driver.TPCHDriver``.  The constructor
+generates the tables (packed by default), holds them to the resident
+budget, builds the catalog with each packed column's encoding, derives the
+hand plans' exchange capacities and wire formats (``tpch.capacities``),
+and places the tables on the device once.  ``run(name)`` runs a
+registered query (``core.plans.REGISTRY``): its hand-written plan where it
+has one, else its lowered IR; ``run_ir`` always lowers.  The exchange
+settings (``capacities`` overrides, the all-to-all ``backend``, the
+``wire`` format) are threaded into the plan context.
 
 Two tiers: ``query()`` takes ONE type (an IR ``Query``, or a registered
 name as sugar for its definition) and routes it
@@ -23,6 +22,15 @@ name as sugar for its definition) and routes it
 One ``Observer`` (``driver.obs``) records the spans of each query (route,
 lowering, execute) and the metrics of the driver, the plan cache, the
 router and the storage.
+
+Static checks and EXPLAIN: ``check(q)`` runs the static plan verifier
+(``query.verify``) over the prepared shape, nothing lowered or run;
+``explain(q)`` renders the route, the cost model's per-operator
+predictions (with the roofline's codec and wire times under the port's
+wire calibration, ``driver.wire_cal``) and the verifier's diagnostics;
+``explain_analyze(q)`` adds one measured run: tier, lowering and execute
+ms, overflow, counters, and the all-to-all bytes of the run's collective
+record attributed to its request semi-joins.
 
 Prepared statements (the paper's §2/§3.1 compile-once model): every IR
 query is canonicalized into a parameterized SHAPE plus a literal binding
@@ -46,11 +54,16 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import plans
+from repro_torch.core import exchange, plans, wirecal
 from repro_torch.core.columnar import PackedColumn, Table
 from repro_torch.core.engine import Cluster
 from repro_torch.cube import CubeRouter, build_cube
-from repro_torch.obs import Observer
+from repro_torch.obs import (
+    ExplainReport,
+    Observer,
+    SemiJoinInfo,
+    attribute_semijoin_bytes,
+)
 from repro_torch.query.ir import (
     LoweringError,
     PackedInfo,
@@ -63,7 +76,7 @@ from repro_torch.query.ir import (
     same_query,
     validate,
 )
-from repro_torch.query.lower import lower
+from repro_torch.query.lower import explain_chain, lower
 from repro_torch.query.params import parameterize
 from repro_torch.tpch import capacities as tpch_capacities
 from repro_torch.tpch import dbgen, reference
@@ -382,6 +395,9 @@ class TPCHDriver:
         self.storage = storage
         self.backend = backend
         self.wire = wire
+        # the wire calibration for EXPLAIN's roofline predictions (saved by
+        # ``python -m repro_torch.core.wirecal``; builtin rates otherwise)
+        self.wire_cal = wirecal.load()
         # host-side generation + packing; ``resident`` is what the cluster
         # holds, ``tables`` a DECODED global numpy view (bit-identical to
         # the packed codes) for the oracle and the catalog statistics
@@ -697,6 +713,147 @@ class TPCHDriver:
             raise TypeError(f"query() takes a repro_torch.query Query (or "
                             f"a registered plan name), got {type(q)}")
         return self.prepare(q, wire=wire, backend=backend).execute(params)
+
+    # -- static verification (query.verify) ----------------------------------
+    def check(self, q, params=None):
+        """Statically verify a query (or registered IR name) against this
+        driver's catalog, wire format and capacity overrides: nothing is
+        lowered or run.  ``params`` overrides the prepared defaults, so a
+        binding can be vetted BEFORE ``prepare(q).execute(params)`` (an
+        undersized exchange shows up as a ``CAP001`` error naming the
+        worst-case binding).  Returns a
+        :class:`repro_torch.query.verify.VerifyReport`; the rule catalog
+        is ``docs/RULES.md``."""
+        from repro_torch.query.verify import verify
+
+        prep = self.prepare(q)
+        if params:
+            names = {p.name for p in prep.params}
+            unknown = sorted(set(params) - names)
+            if unknown:
+                raise UnboundParamError(
+                    f"unknown parameter(s) {unknown} for query "
+                    f"{prep.source!r} (parameters: {sorted(names)})")
+        binding = dict(prep.defaults)
+        binding.update(params or {})
+        return verify(
+            prep.entry.shape, self.catalog, wire=self.wire,
+            binding=binding, stats_binding=prep.entry.stats_binding,
+            capacities=self.capacities)
+
+    # -- EXPLAIN / EXPLAIN ANALYZE (obs.explain) ------------------------------
+    def _explain(self, q, params=None):
+        """Shared front half: prepare, route-match, predicted plan rows."""
+        from repro_torch.query.verify import verify
+
+        prep = self.prepare(q)
+        entry = prep.entry
+        binding = dict(prep.defaults)
+        if params:
+            binding.update(params)
+        match = None
+        if self.router is not None:
+            if entry.route[0] is not self.router:
+                entry.route = (self.router,
+                               self.router.route_query(entry.shape))
+            match = entry.route[1]
+        tier = 1 if match is not None else 2
+        source = (match.route.cube.spec.name if match is not None
+                  else prep.source)
+        rows, sjs, err = [], [], None
+        try:
+            rows = explain_chain(entry.shape, self.catalog, wire=self.wire,
+                                 binding=binding, predict_cal=self.wire_cal)
+        except (LoweringError, QueryError) as e:
+            err = str(e)
+        for r in rows:
+            if r["op"] != "SemiJoin":
+                continue
+            wf = r["wire"]
+            kind = "packed" if (self.wire != "raw" and wf.packed) else "raw"
+            sjs.append(SemiJoinInfo(
+                index=len(sjs), table=r["table"], alt=r["alt"],
+                capacity=r["capacity"], capacity_key=r["capacity_key"],
+                wire_kind=kind, key_bits=wf.key_bits, gamma=r["gamma"],
+                codec_ms=r["codec_ms"], wire_ms=r["wire_ms"]))
+        diagnostics = []
+        try:
+            diagnostics = list(verify(
+                entry.shape, self.catalog, wire=self.wire, binding=binding,
+                stats_binding=entry.stats_binding,
+                capacities=self.capacities).diagnostics)
+        except QueryError:
+            pass  # plan_error already carries the lowering failure
+        report = ExplainReport(
+            query=prep.source, route_tier=tier, route_source=source,
+            cache="hit" if prep.cache_hit else "miss", params=binding,
+            plan_rows=rows, semijoins=sjs, plan_error=err,
+            diagnostics=diagnostics)
+        return report, prep
+
+    def explain(self, q, params=None) -> ExplainReport:
+        """Static EXPLAIN: the route the query WOULD take (a tier-1 cube
+        match or the tier-2 plan), the plan cache's state, and the cost
+        model's per-operator predictions; nothing is lowered or run."""
+        report, _ = self._explain(q, params)
+        return report
+
+    def explain_analyze(self, q, params=None) -> ExplainReport:
+        """EXPLAIN plus a measured execution: the tier that served it,
+        lowering vs execute milliseconds (the query runs cold, and again
+        warm when the first run lowered its plan, so the difference is the
+        lowering), the run's overflow, the registry counters, and for a
+        tier-2 run the collectives of the measured run
+        (``exchange.collective_record``, reset before it) with its
+        all-to-all bytes attributed to the plan's request semi-joins in
+        program order.  An execute returns with the card done (the
+        driver's dispatch waits on it), so each time is the whole run."""
+        report, prep = self._explain(q, params)
+        mreg = self.obs.metrics
+        ev0 = len(self.compile_events)
+        exchange.reset_collective_record()
+        t0 = time.perf_counter()
+        ans = prep.execute(params)
+        cold_s = time.perf_counter() - t0
+        lowerings = len(self.compile_events) - ev0
+        observed = {
+            "tier": ans.tier,
+            "source": ans.source,
+            "overflow": bool(np.asarray(ans.overflow).any()),
+        }
+        if lowerings:
+            exchange.reset_collective_record()
+            t0 = time.perf_counter()
+            ans = prep.execute(params)
+            warm_s = time.perf_counter() - t0
+            observed["compile_ms"] = max(cold_s - warm_s, 0.0) * 1e3
+            observed["lowerings"] = lowerings
+            observed["execute_ms"] = warm_s * 1e3
+        else:
+            observed["compile_ms"] = None
+            observed["lowerings"] = 0
+            observed["execute_ms"] = cold_s * 1e3
+        record = exchange.collective_record()
+        observed["overflow_count"] = mreg.value("exchange.overflow")
+        observed["compile_events"] = mreg.value("plan.compile_events")
+        observed["bytes_scanned"] = mreg.value("storage.bytes_scanned")
+        observed["bytes_resident"] = mreg.value("storage.bytes_resident")
+        # the codec predictions the exchange layer recorded (one record a
+        # request exchange a lowered plan)
+        for hname in ("exchange.encode_ms", "exchange.decode_ms"):
+            h = mreg.get(hname)
+            if h is not None and h.count:
+                observed[hname] = h.snapshot()
+        if ans.tier == 2 and report.plan_error is None:
+            by_op, count_by_op = {}, {}
+            for instr in record:
+                by_op[instr.kind] = by_op.get(instr.kind, 0) + instr.bytes
+                count_by_op[instr.kind] = count_by_op.get(instr.kind, 0) + 1
+            observed["collective_bytes_by_op"] = by_op
+            observed["collective_count_by_op"] = count_by_op
+            attribute_semijoin_bytes(record, report.semijoins)
+        report.observed = observed
+        return report
 
     def oracle(self, name: str, **kw):
         """Float64 numpy reference for a registered query or a forced

@@ -50,6 +50,33 @@ MASKS = {
 }
 
 
+def _attention_f64(q, k, v, causal=True, window=None, prefix=0):
+    """float64 numpy attention of grouped q (BKV, G, S, D) against k, v
+    (BKV, Sk, D), masked as the kernels mask: (out, lse)."""
+    q, k, v = (np.asarray(a, np.float64) for a in (q, k, v))
+    S, D, Sk = q.shape[2], q.shape[3], k.shape[1]
+    s = np.einsum("bgsd,btd->bgst", q / np.sqrt(D), k)
+    if causal:
+        qp, kp = np.arange(S)[:, None], np.arange(Sk)[None, :]
+        vis = kp <= qp
+        if window is not None:
+            vis &= kp > qp - window
+        if prefix:
+            vis |= kp < prefix
+        s = np.where(vis, s, -np.inf)
+    m = s.max(axis=-1, keepdims=True)
+    p = np.exp(s - m)
+    lse = m[..., 0] + np.log(p.sum(axis=-1))
+    return np.einsum("bgst,btd->bgsd", p / p.sum(-1, keepdims=True), v), lse
+
+
+def _distances(got, want, exact) -> str:
+    """Each side's largest distance from the float64 answer."""
+    return (f"largest distance from the float64 answer: port "
+            f"{np.abs(got - exact).max():.3e}, Pallas "
+            f"{np.abs(want - exact).max():.3e}")
+
+
 @pytest.mark.parametrize("mask", list(MASKS))
 @pytest.mark.parametrize("H,KV", [(4, 4), (8, 2), (8, 1)])
 def test_flash_plain_matches_pallas(H, KV, mask):
@@ -60,8 +87,11 @@ def test_flash_plain_matches_pallas(H, KV, mask):
                                bq=16, bk=16, interpret=True, **kw)
     got_o, got_l = ops.flash_attention_fwd(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), **kw)
-    np.testing.assert_allclose(_np(got_o), np.asarray(want_o), **F32_TOL)
-    np.testing.assert_allclose(_np(got_l), np.asarray(want_l), **F32_TOL)
+    exact_o, exact_l = _attention_f64(q, k, v, **kw)
+    for got, want, exact in ((_np(got_o), np.asarray(want_o), exact_o),
+                             (_np(got_l), np.asarray(want_l), exact_l)):
+        np.testing.assert_allclose(got, want, **F32_TOL,
+                                   err_msg=_distances(got, want, exact))
     assert ops.launch_counts()["flash_attention_fwd"] == 0
 
 

@@ -239,10 +239,15 @@ def test_capacity_override_sets_overflow():
     assert d.query(tq.q14_promo_ir(alt="request")).overflow is True
 
 
-def test_wire_auto_names_the_missing_calibration(port_driver):
-    from repro_torch.query.ir import LoweringError
+def test_wire_auto_names_the_missing_calibration(port_driver, tmp_path,
+                                                monkeypatch):
+    """wire='auto' chooses by the port's wire calibration: one that
+    $REPRO_TORCH_WIRE_CAL names but that is missing raises, naming it."""
+    from repro_torch.core import wirecal
 
-    with pytest.raises(LoweringError, match="calibration of the card"):
+    missing = tmp_path / "no_card_calibration.json"
+    monkeypatch.setenv(wirecal.ENV_VAR, str(missing))
+    with pytest.raises(wirecal.WireCalError, match="no_card_calibration"):
         lower(tq.q14_promo_ir(), port_driver.catalog, wire="auto")
 
 

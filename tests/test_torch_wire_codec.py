@@ -245,11 +245,36 @@ def test_wire_cost_model_equals_jax(P):
                         == jc.choose_semijoin(n, m, gamma, P))
 
 
-def test_wire_calibration_is_not_ported():
+def test_calibrated_wire_choice_matches_jax():
+    """With a wire calibration the alternative and the wire kind follow
+    the latency model, as in the JAX package."""
+    from repro.core import wirecal as jwirecal
+    from repro.query import stats as jstats
+    from repro_torch.core import wirecal
     from repro_torch.query import stats
-    from repro_torch.query.ir import LoweringError
 
-    with pytest.raises(NotImplementedError, match="calibration of the card"):
-        tc.choose_semijoin_wire(64, 1000, 8, domain=125, cal=object())
-    with pytest.raises(LoweringError, match="calibration of the card"):
-        stats.wire_format_for(1000, 8, kind="auto")
+    rates = (dict(encode_gbps=0.002, decode_gbps=0.003, link_gbps=200.0,
+                  msg_ms=0.0),
+             dict(encode_gbps=300.0, decode_gbps=250.0, link_gbps=0.01,
+                  msg_ms=0.5),
+             {})
+    kinds = set()
+    for r in rates:
+        mine, theirs = (wirecal.WireCalibration(**r),
+                        jwirecal.WireCalibration(**r))
+        for P in (2, 8):
+            for cap in (64, 4096, 262_144):
+                for m in (1000, 1.5e7):
+                    kw = dict(domain=125, packed=True)
+                    assert (tc.choose_semijoin_wire(cap, m, P, **kw,
+                                                    cal=mine)
+                            == jc.choose_semijoin_wire(cap, m, P, **kw,
+                                                       cal=theirs))
+                wf = stats.wire_format_for(1_500_000, P, kind="auto",
+                                           capacity=cap, cal=mine)
+                jwf = jstats.wire_format_for(1_500_000, P, kind="auto",
+                                             capacity=cap, cal=theirs)
+                assert (wf.kind, wf.domain, wf.key_bits) == (
+                    jwf.kind, jwf.domain, jwf.key_bits)
+                kinds.add(wf.kind)
+    assert kinds == {"packed", "raw"}
