@@ -208,6 +208,19 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
    against the oracle as in phase 4, the launches the plan implies.  Then
    ``python -m repro_torch.launch.serve_olap --lint --sf 0.05`` as a
    subprocess exits 0; the phase's seconds.
+6h. The cluster across processes on the same driver.  (i) An NCCL
+   process group of one rank in this process (``tcp://localhost`` on a
+   free port) and a ``Cluster`` over it, which holds all eight nodes (L =
+   P / W = 8); q6, q1, q1_kernel, q4_sj (packed/xla, packed/one_factor),
+   q18_sj and q18, lowered as in phase 4, run once each through the
+   grouped cluster: answers equal phase 4's (integers, keys and validity
+   exactly, f32 within rtol 1e-5) and the oracle as in phase 4, launches
+   of B1-B3 equal phase 4's, at least one NCCL call a query
+   (``engine.dist_calls``); the group is destroyed.  (ii) ``python -m
+   torch.distributed.run --standalone --nproc-per-node 1 -m
+   repro_torch.launch.serve_olap --sf 0.1 --queries q6 q1 q4_sj q18`` as a
+   subprocess exits 0 and prints one timing line a query; the phase's
+   seconds beside the card's name and power limit.
 7. The language model, after the TPC-H phases have
    dropped what they placed on the card:
    a. B7's two CUDA variants.  The f32 CUDA-core ``flash_attention_fwd``
@@ -810,6 +823,9 @@ def tpch_phases(args, torch, smi: str):
     main_launches = dict(zero)
     import numpy as np
 
+    # the answers and launches of the queries phase 6h runs again through
+    # a process group
+    phase4 = {}
     for name, want in expected.items():
         ops.reset_launch_counts()
         out = drv.run_ir(name)["value"]
@@ -819,8 +835,9 @@ def tpch_phases(args, torch, smi: str):
             fail(f"{name} launched {got}, expected {want}")
         for k, v in got.items():
             main_launches[k] += v
-        value = out.cpu().numpy().astype(np.float64)
         oracle = np.asarray(drv.oracle(name), np.float64)
+        phase4[name] = ({"value": out.cpu().numpy()}, got, oracle)
+        value = out.cpu().numpy().astype(np.float64)
         if value.size != oracle.size or not np.isfinite(value).all():
             fail(f"{name}: shape {value.shape} / non-finite values")
         value = value.reshape(oracle.shape)
@@ -930,6 +947,9 @@ def tpch_phases(args, torch, smi: str):
         if bool(out.pop("overflow", False)):
             fail(f"{name}: an exchange buffer overflowed")
         oracle = drv.oracle(oracle_of)
+        if name in GROUPED_QUERIES:
+            phase4[name] = ({k: v.cpu().numpy() for k, v in out.items()},
+                            got, oracle)
         if name == "q18":
             o = {k: v.cpu().numpy() for k, v in out.items()}
             ov, ok = oracle
@@ -1141,6 +1161,8 @@ def tpch_phases(args, torch, smi: str):
     # -- 6g. calibrations, the verifier, EXPLAIN ANALYZE, wire="auto" ----------
     explain = explain_phase(torch, smi, drv, main_launches, zero,
                             codec_times)
+    # -- 6h. the cluster across processes: an NCCL group, serve_olap -------------
+    distributed = distributed_phase(torch, smi, drv, main_launches, phase4)
     for k in hand_kernels:
         k["launches"] = main_launches[k["name"]]
         if k["name"] == "predicate_bitset":
@@ -1188,7 +1210,8 @@ def tpch_phases(args, torch, smi: str):
     return kernels, {"queries_ms": query_ms, "hand_plans": hand,
                      "semijoin_plans": semijoin, "prepared": prepared,
                      "cubes": cubes, "serving": serving,
-                     "explain": explain, "gen_s": gen_s,
+                     "explain": explain, "distributed": distributed,
+                     "gen_s": gen_s,
                      "resident_bytes": drv.resident_bytes,
                      "lineitem_bytes": li_bytes, "sf": args.sf,
                      "nodes": NODES}
@@ -3216,6 +3239,187 @@ def explain_phase(torch, smi, drv, main_launches, zero, codec_times):
             "codec_predicted": predicted, "lint": lint,
             "explain_analyze": analyzed, "wire_auto": auto,
             "lint_launcher_s": launcher_s, "phase_s": phase_s}
+
+
+# ---------------------------------------------------------------------------
+# phase 6h: the cluster across processes (an NCCL group of one rank over the
+# eight nodes, serve_olap under torch.distributed.run)
+# ---------------------------------------------------------------------------
+
+# phase 4's queries that 6h runs again through the grouped Cluster:
+# name -> (registered IR name or exchange shape, wire, backend)
+GROUPED_QUERIES = {"q6": ("q6", "packed", "xla"),
+                   "q1": ("q1", "packed", "xla"),
+                   "q1_kernel": ("q1_kernel", "packed", "xla"),
+                   "q4_sj/packed/xla": ("q4_sj", "packed", "xla"),
+                   "q4_sj/packed/one_factor": ("q4_sj", "packed",
+                                               "one_factor"),
+                   "q18_sj/packed/xla": ("q18_sj", "packed", "xla"),
+                   "q18": ("q18", "packed", "xla")}
+TORCHRUN_SF = 0.1           # scale factor of serve_olap under torchrun
+TORCHRUN_QUERIES = ("q6", "q1", "q4_sj", "q18")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _hold_grouped(np, name, got: dict, want: dict) -> float:
+    """A grouped answer against phase 4's: integers, keys and validity
+    exactly, f32 within rtol 1e-5.  Returns the largest relative f32
+    difference."""
+    if sorted(got) != sorted(want):
+        fail(f"6h {name}: fields {sorted(got)} vs phase 4's {sorted(want)}")
+    rel = 0.0
+    for k, w in want.items():
+        g = got[k]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"6h {name} {k}: {g.dtype}{g.shape} vs phase 4's "
+                 f"{w.dtype}{w.shape}")
+        if w.dtype.kind == "f":
+            fin = np.isfinite(w)
+            if not (np.array_equal(fin, np.isfinite(g))
+                    and np.array_equal(g[~fin], w[~fin])
+                    and np.allclose(g[fin], w[fin], rtol=1e-5, atol=0)):
+                fail(f"6h {name} {k}: beyond rtol 1e-5 of phase 4's")
+            if fin.any():
+                d = np.abs(g[fin].astype(np.float64) - w[fin])
+                rel = max(rel, float(np.max(
+                    d / np.maximum(np.abs(w[fin]), 1e-30))))
+        elif not np.array_equal(g, w):
+            fail(f"6h {name} {k}: differs from phase 4's")
+    return rel
+
+
+def distributed_phase(torch, smi, drv, main_launches, phase4):
+    """Phase 6h: (i) an NCCL process group of one rank in this process,
+    a ``Cluster`` over it holding all eight nodes (L = P / W = 8) on the
+    SF data of phase 4, and phase 4's q6, q1, q1_kernel, q4_sj
+    (packed/xla, packed/one_factor), q18_sj and q18 lowered as phase 4
+    lowered them and run through the grouped cluster: answers equal phase
+    4's (integers and keys exactly, f32 within rtol 1e-5) and the
+    oracle's (phase 4's float64 oracle on the same tables), the same
+    launches of B1-B3, and NCCL collectives counted;
+    then the group is destroyed.  (ii) ``python -m torch.distributed.run
+    --standalone --nproc-per-node 1 -m repro_torch.launch.serve_olap
+    --sf 0.1 --queries q6 q1 q4_sj q18`` as a subprocess: exit 0, one
+    timing line per query from rank 0.  Returns the phase's record."""
+    import datetime
+    import os
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.core import engine
+    from repro_torch.kernels import ops
+    from repro_torch.tpch import queries as tq
+    from repro_torch.tpch.queries import IR_QUERIES
+
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=300))
+    grouped = {}
+    try:
+        t0 = time.perf_counter()
+        gcl = engine.Cluster(NODES, device="cuda", group=dist.group.WORLD)
+        topo = gcl.topology
+        if (topo.world, topo.local_nodes) != (1, NODES):
+            fail(f"6h: the grouped cluster holds {topo.local_nodes} nodes "
+                 f"on {topo.world} ranks, expected {NODES} on 1")
+        group_s = time.perf_counter() - t0
+        cols = drv.columns()
+        for name, (what, wire, backend) in GROUPED_QUERIES.items():
+            q = (IR_QUERIES[what] if what in IR_QUERIES
+                 else getattr(tq, f"{what}_ir")())
+            # the plan and binding phase 4 ran, bound to the grouped cluster
+            prep = drv.prepare(q, wire=wire, backend=backend)
+            plan = drv.compile_query(q, wire=wire, backend=backend).plan
+            ctx = gcl.context(drv.placed, drv.capacities, backend=backend,
+                              scale_factor=drv.sf, wire=wire,
+                              wires=drv.ctx.wires)
+            fn = gcl.compile(plan, ctx)
+            args = ((cols, prep._cast(prep.binding())) if prep.params
+                    else (cols,))
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            engine.reset_dist_calls()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            got = ops.launch_counts()
+            calls = engine.dist_calls()
+            want, want_launches, oracle = phase4[name]
+            if got != want_launches:
+                fail(f"6h {name} launched {got}, phase 4 {want_launches}")
+            for k, v in got.items():
+                main_launches[k] += v
+            if sum(calls.values()) < 1:
+                fail(f"6h {name}: no NCCL collective was called")
+            if bool(out.pop("overflow", False)):
+                fail(f"6h {name}: an exchange buffer overflowed")
+            want = {k: v for k, v in want.items() if k != "overflow"}
+            ans = {k: v.cpu().numpy() for k, v in out.items()}
+            rel = _hold_grouped(np, name, ans, want)
+            if name == "q18":
+                ov, ok = oracle
+                n = int(ans["valid"].sum())
+                if not (n == int(np.isfinite(ov).sum()) and n > 0
+                        and np.array_equal(ans["keys"][:n], ok[:n])
+                        and np.array_equal(ans["values"][:n], ov[:n])):
+                    fail("6h q18: keys or values differ from the oracle")
+            else:
+                value = ans["value"].astype(np.float64).reshape(-1)
+                o = np.asarray(oracle, np.float64).reshape(-1)
+                exact = what == "q4_sj"
+                if not (np.array_equal(value, o) if exact
+                        else np.allclose(value, o, rtol=2e-4, atol=0)):
+                    fail(f"6h {name}: {value} vs the oracle {o}")
+            grouped[name] = {"launches": {k: v for k, v in got.items() if v},
+                             "nccl_calls": calls, "max_rel_f32": rel}
+            print(f"6h {name} through an NCCL group of one rank (L = "
+                  f"{topo.local_nodes}): equals phase 4 (f32 max relative "
+                  f"difference {rel:.3e}) and the oracle; launches "
+                  f"{grouped[name]['launches']}; NCCL calls {calls}")
+    finally:
+        dist.destroy_process_group()
+    grouped_s = time.perf_counter() - t_phase
+
+    # -- (ii) serve_olap under torchrun, as a user runs it ---------------------
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), PYTHONHASHSEED="0")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "repro_torch.launch.serve_olap",
+           "--sf", str(TORCHRUN_SF), "--queries", *TORCHRUN_QUERIES]
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=str(ROOT), timeout=600)
+    torchrun_s = time.perf_counter() - t0
+    print(proc.stdout.rstrip())
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        fail(f"serve_olap under torch.distributed.run exited "
+             f"{proc.returncode}")
+    lines = proc.stdout.splitlines()
+    timed = [ln.split()[0] for ln in lines
+             if ln.split() and ln.split()[0] in TORCHRUN_QUERIES]
+    heads = [ln for ln in lines if ln.startswith("cluster: ")]
+    if timed != list(TORCHRUN_QUERIES) or len(heads) != 1:
+        fail(f"serve_olap under torch.distributed.run printed {timed} and "
+             f"{len(heads)} cluster lines, expected one line a query of "
+             f"{list(TORCHRUN_QUERIES)}")
+    print(f"serve_olap --sf {TORCHRUN_SF} under torch.distributed.run "
+          f"(1 rank, NCCL): exit 0, one line a query ({torchrun_s:.1f} s)")
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 6h (cluster across processes): {phase_s:.1f} s (group "
+          f"{group_s:.1f} s, grouped queries {grouped_s:.1f} s, torchrun "
+          f"{torchrun_s:.1f} s) on {smi}")
+    return {"card": smi, "queries": grouped, "group_s": group_s,
+            "grouped_s": grouped_s, "torchrun_s": torchrun_s,
+            "phase_s": phase_s}
 
 
 # ---------------------------------------------------------------------------

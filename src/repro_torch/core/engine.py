@@ -1,25 +1,37 @@
-"""Query execution driver, node-stacked.
+"""Query execution driver, node-stacked, in one process or across W.
 
 Counterpart of ``repro.core.engine``.  The paper's runtime is "a
 precompiled function per query, run on every node, synchronized by
-collectives".  In the port the P nodes of the cluster are stacked on the
+collectives".  In the port the nodes a process holds are stacked on the
 leading axis of every partitioned tensor on ONE device: a plan is a Python
-function ``plan(ctx, tables)`` whose body works on all nodes at once (one
-kernel launch covers every node; the node index is a grid dimension), and
-a collective is an operation over the node axis — ``psum(x)`` is
-``x.sum(0)``, the exchanges are in :mod:`repro_torch.core.exchange`.
-PyTorch runs eagerly, so ``Cluster.compile`` only binds the plan to its
-context and returns a callable.
+function ``plan(ctx, tables)`` whose body works on all of them at once
+(one kernel launch covers every node; the node index is a grid
+dimension).  PyTorch runs eagerly, so ``Cluster.compile`` only binds the
+plan to its context and returns a callable.
+
+Without a process group one process holds all P nodes and a collective is
+an operation over the node axis: ``psum(x)`` is ``x.sum(0)``, the
+exchanges are in :mod:`repro_torch.core.exchange`.  With a
+``torch.distributed`` group of W ranks (NCCL on CUDA, gloo on the CPU)
+rank r holds the ``L = P / W`` nodes ``[r*L, (r+1)*L)`` on its own device
+(:class:`Topology`); a collective reduces or exchanges over the local
+axis first and then across the ranks, and ``node_ids`` stands for
+``lax.axis_index``.  While a bound plan runs, its cluster's topology is
+the active one (:func:`active_topology`), which the collectives and the
+partitionings read.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
+import contextvars
 import dataclasses
-from typing import Callable, Mapping
+from typing import Any, Callable, Mapping, Optional
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.core.columnar import Table, decode_columns
+from repro_torch.core.columnar import PackedColumn, Table, decode_columns
 from repro_torch.core.partitioning import RangePartitioning
 
 
@@ -34,6 +46,156 @@ def resolve_device(device=None) -> torch.device:
                 "port on the CPU (plain PyTorch versions of the kernels)")
         device = "cuda"
     return torch.device(device)
+
+
+# ---------------------------------------------------------------------------
+# topology: which of the P nodes this process holds
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Topology:
+    """W ranks of a process group together hold P nodes; rank r holds the
+    ``local_nodes = P / W`` nodes from ``node_offset = r * L``.  Without a
+    group (``group`` None, W = 1) the process holds all P nodes."""
+
+    num_nodes: int          # P, the cluster's nodes
+    world: int = 1          # W, the ranks of the group
+    rank: int = 0           # this process's rank in the group
+    group: Any = None       # torch.distributed ProcessGroup, None in-process
+
+    def __post_init__(self):
+        if self.num_nodes % self.world:
+            raise ValueError(
+                f"{self.num_nodes} nodes do not split evenly over "
+                f"{self.world} ranks (P % W != 0)")
+
+    @property
+    def distributed(self) -> bool:
+        return self.group is not None
+
+    @property
+    def local_nodes(self) -> int:
+        return self.num_nodes // self.world
+
+    @property
+    def node_offset(self) -> int:
+        return self.rank * self.local_nodes
+
+    def node_ids(self, device=None) -> torch.Tensor:
+        """Global ids of the nodes this process holds: (L,) int64."""
+        return self.node_offset + torch.arange(self.local_nodes,
+                                               device=device)
+
+    def rank_of(self, node: int) -> int:
+        """The group rank that holds global node ``node``."""
+        return node // self.local_nodes
+
+    def global_rank(self, group_rank: int) -> int:
+        """``group_rank``'s rank in the default group (what the
+        point-to-point and broadcast calls name)."""
+        return dist.get_global_rank(self.group, group_rank)
+
+
+_ACTIVE: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_topology", default=None)
+
+
+def active_topology() -> Optional[Topology]:
+    """The distributed topology of the plan running in this context; None
+    in-process (the collectives then reduce over the node axis only)."""
+    return _ACTIVE.get()
+
+
+@contextlib.contextmanager
+def running_on(topology: Topology):
+    """Make ``topology`` the active one for the body (a no-op for an
+    in-process topology)."""
+    token = _ACTIVE.set(topology if topology.distributed else None)
+    try:
+        yield
+    finally:
+        _ACTIVE.reset(token)
+
+
+def node_ids(num_nodes: int, device=None) -> torch.Tensor:
+    """Global ids of the nodes this process holds of a ``num_nodes``-node
+    partitioning: the counterpart of ``lax.axis_index``.  The active
+    topology's ids where it has ``num_nodes`` nodes, else all of them
+    (in-process, or a replicated table's single partition)."""
+    topo = _ACTIVE.get()
+    if topo is not None and topo.num_nodes == num_nodes:
+        return topo.node_ids(device)
+    return torch.arange(num_nodes, device=device)
+
+
+def local_topology(local: int) -> Optional[Topology]:
+    """The active topology of a collective over ``local`` stacked nodes
+    (None in-process, where ``local`` is P); raises when the operand does
+    not hold the rank's L nodes."""
+    topo = _ACTIVE.get()
+    if topo is not None and local != topo.local_nodes:
+        raise ValueError(
+            f"a collective over {local} stacked nodes on rank {topo.rank}, "
+            f"which holds {topo.local_nodes} of {topo.num_nodes}")
+    return topo
+
+
+def cluster_nodes(local: int) -> int:
+    """P for an operand over ``local`` stacked nodes."""
+    topo = local_topology(local)
+    return local if topo is None else topo.num_nodes
+
+
+# torch.distributed calls the collectives made, by kind, since the last
+# reset (0 in-process): what shows that a run crossed the process group
+_DIST_CALLS: collections.Counter = collections.Counter()
+
+
+def dist_calls() -> dict:
+    """Kind -> torch.distributed calls since :func:`reset_dist_calls`."""
+    return dict(_DIST_CALLS)
+
+
+def reset_dist_calls() -> None:
+    _DIST_CALLS.clear()
+
+
+def wire_view(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the process group ships it: bools as bytes (gloo has no
+    bool type), everything else as it is."""
+    return t.view(torch.uint8) if t.dtype == torch.bool else t
+
+
+def all_reduce(t: torch.Tensor, op: str, topo: Topology) -> torch.Tensor:
+    """In-place all-reduce (``op`` "sum", "max" or "min") of ``t`` over
+    the topology's group; bools reduce as bytes."""
+    _DIST_CALLS["all_reduce"] += 1
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+           "min": dist.ReduceOp.MIN}[op]
+    dist.all_reduce(wire_view(t), op=red, group=topo.group)
+    return t
+
+
+def all_gather(out: torch.Tensor, inp: torch.Tensor, group) -> None:
+    """``out`` (W * n,) = every rank's ``inp`` (n,) in rank order:
+    ``all_gather_single`` where this torch has it, else its older name
+    ``all_gather_into_tensor``; bools as bytes."""
+    _DIST_CALLS["all_gather"] += 1
+    fn = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    fn(wire_view(out), wire_view(inp), group=group)
+
+
+def any_across(flag: torch.Tensor) -> torch.Tensor:
+    """A 0-d bool flag, True where any rank of the active topology has it
+    (an overflow or go-on flag; not a plan's collective, so not recorded).
+    In-process it is the flag itself."""
+    topo = _ACTIVE.get()
+    if topo is None:
+        return flag
+    t = flag.reshape(1).to(torch.int32)
+    return all_reduce(t, "max", topo)[0].bool()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,8 +219,9 @@ _RECORD: collections.deque = collections.deque(maxlen=RECORD_MAX)
 
 
 def record_collective(kind: str, x: torch.Tensor, name: str = "") -> None:
-    """Append one collective over the node-stacked operand ``x`` (P, ...)
-    to the record: its bytes per node are the operand's bytes over P."""
+    """Append one collective over the node-stacked operand ``x`` (L, ...)
+    to the record: its bytes per node are the operand's bytes over L, so
+    a rank of a group records what one process records."""
     nodes = max(int(x.shape[0]), 1) if x.ndim else 1
     _RECORD.append(CollectiveInstr(name or kind, kind,
                                    x.numel() * x.element_size() // nodes))
@@ -74,11 +237,16 @@ def reset_collective_record() -> None:
     _RECORD.clear()
 
 
-def psum(x: torch.Tensor) -> torch.Tensor:
-    """All-reduce (sum) of per-node partials: (P, ...) -> (...), summed in
-    node order; recorded as one all-reduce."""
-    record_collective("all-reduce", x, "psum")
-    return x.sum(0)
+def psum(x: torch.Tensor, name: str = "psum") -> torch.Tensor:
+    """All-reduce (sum) of per-node partials: (L, ...) -> (...), summed in
+    node order on each rank, then across the ranks; recorded as one
+    all-reduce under ``name``."""
+    record_collective("all-reduce", x, name)
+    out = x.sum(0)
+    topo = local_topology(x.shape[0])
+    if topo is not None:
+        all_reduce(out, "sum", topo)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +262,20 @@ class PlanContext:
     wire: str = "packed"      # exchange wire format: "packed" | "raw"
     # hand-plan exchange name -> exchange.WireFormat (tpch.capacities)
     wires: Mapping[str, object] = dataclasses.field(default_factory=dict)
+    # which nodes this process holds (None: all of them, in-process)
+    topology: Optional[Topology] = None
+
+    @property
+    def local_nodes(self) -> int:
+        """L, the nodes stacked on this process's device."""
+        return (self.num_nodes if self.topology is None
+                else self.topology.local_nodes)
+
+    def node_ids(self, device=None) -> torch.Tensor:
+        """Global ids of the local nodes (``lax.axis_index``): (L,)."""
+        if self.topology is None:
+            return torch.arange(self.num_nodes, device=device)
+        return self.topology.node_ids(device)
 
     def part(self, table: str) -> RangePartitioning:
         return self.parts[table]
@@ -111,20 +293,74 @@ class PlanContext:
         return self.wires.get(name, WireFormat.raw())
 
 
+def _default_group(group, device: torch.device):
+    """The group a cluster spans: the one given, else the default group
+    when ``torch.distributed`` is initialised, else one formed from
+    torchrun's environment (``launch.mesh.init_from_env``), else None."""
+    if group is not None or not dist.is_available():
+        return group
+    if dist.is_initialized():
+        return dist.group.WORLD
+    from repro_torch.launch import mesh  # launch imports the core
+
+    if mesh.under_torchrun():
+        return mesh.init_from_env(device)
+    return None
+
+
+def _group_topology(num_nodes: int, group, device: torch.device
+                    ) -> Topology:
+    """The topology of a ``num_nodes``-node cluster over ``group``: raises
+    when the group's backend cannot serve ``device`` (NCCL for CUDA, gloo
+    for the CPU), when the ranks disagree on P, or when P % W != 0."""
+    backend = str(dist.get_backend(group))
+    need = "nccl" if device.type == "cuda" else "gloo"
+    if need not in backend:
+        raise ValueError(
+            f"a {backend!r} process group cannot serve a cluster on "
+            f"{device}: its collectives need {need}")
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    # every rank must agree on P before any plan runs (this first call
+    # also opens the group's communicator on every rank)
+    mine = torch.tensor([num_nodes], dtype=torch.int64, device=device)
+    every = torch.empty(world, dtype=torch.int64, device=device)
+    all_gather(every, mine, group)
+    if (every != num_nodes).any():
+        raise ValueError(f"the ranks disagree on the cluster's nodes: "
+                         f"{every.tolist()}")
+    return Topology(num_nodes, world, rank, group)
+
+
+def _rows_per_node(t: Table) -> int:
+    col = next(iter(t.columns.values()))
+    return col.rows if isinstance(col, PackedColumn) else int(col.shape[1])
+
+
 class Cluster:
     """A shared-nothing cluster of ``num_nodes`` nodes, stacked on the
-    leading axis of tensors on one ``device``.
+    leading axis of tensors on ``device``: all of them in one process, or,
+    with a process ``group`` of W ranks (the default group when
+    ``torch.distributed`` is initialised, or one formed from torchrun's
+    environment), the rank's L = P / W of them on each rank's device.
 
     Constructing a ``Cluster`` turns TF32 off for the whole process
     (``torch.backends.cuda.matmul.allow_tf32`` and
     ``torch.backends.cudnn.allow_tf32`` set to False), which every other
     float32 matmul and convolution in the process then sees."""
 
-    def __init__(self, num_nodes: int = 8, device=None):
+    def __init__(self, num_nodes: int = 8, device=None, group=None):
         if num_nodes < 1:
             raise ValueError(f"num_nodes must be >= 1, got {num_nodes}")
         self.num_nodes = num_nodes
-        self.device = resolve_device(device)
+        device = resolve_device(device)
+        group = _default_group(group, device)
+        if group is None:
+            self.topology = Topology(num_nodes)
+        else:
+            self.topology = _group_topology(num_nodes, group, device)
+            if device.type == "cuda" and device.index is None:
+                device = torch.device("cuda", torch.cuda.current_device())
+        self.device = device
         # f32 aggregates must not run in TF32 (about three decimal digits):
         # the q1 sums would miss the float64 oracle's 2e-4 tolerance
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -132,29 +368,44 @@ class Cluster:
 
     # -- data placement ----------------------------------------------------
     def load(self, table: Table) -> Table:
-        """Place a node-stacked host table on the cluster's device."""
-        if not table.replicated:
-            for name, col in table.columns.items():
-                if col.shape[0] != self.num_nodes:
-                    raise ValueError(
-                        f"column {table.name}.{name} is stacked over "
-                        f"{col.shape[0]} nodes, the cluster has "
-                        f"{self.num_nodes}")
+        """Place a node-stacked host table (all P nodes) on the cluster's
+        device: a replicated table whole, a partitioned one's L rows of
+        this rank."""
+        if table.replicated:
+            return table.to(self.device)
+        for name, col in table.columns.items():
+            if col.shape[0] != self.num_nodes:
+                raise ValueError(
+                    f"column {table.name}.{name} is stacked over "
+                    f"{col.shape[0]} nodes, the cluster has "
+                    f"{self.num_nodes}")
+        topo = self.topology
+        if topo.distributed:
+            lo, hi = topo.node_offset, topo.node_offset + topo.local_nodes
+            cols = {n: (dataclasses.replace(c, words=c.words[lo:hi],
+                                            num_nodes=hi - lo)
+                        if isinstance(c, PackedColumn) else c[lo:hi])
+                    for n, c in table.columns.items()}
+            table = Table(table.name, cols, table.dictionaries)
         return table.to(self.device)
 
     def context(self, tables: Mapping[str, Table], capacities=None, *,
                 backend: str = "xla", scale_factor: float = 1.0,
                 wire: str = "packed", wires=None) -> PlanContext:
+        """The plan context over placed ``tables`` (each rank's own rows;
+        the partitionings are global)."""
         parts = {
-            name: RangePartitioning(t.num_rows,
-                                    1 if t.replicated else self.num_nodes)
+            name: (RangePartitioning(t.num_rows, 1) if t.replicated else
+                   RangePartitioning(_rows_per_node(t) * self.num_nodes,
+                                     self.num_nodes))
             for name, t in tables.items()
         }
         return PlanContext(num_nodes=self.num_nodes, parts=parts,
                            capacities=dict(capacities or {}),
                            device=self.device, scale_factor=scale_factor,
                            backend=backend, wire=wire,
-                           wires=dict(wires or {}))
+                           wires=dict(wires or {}),
+                           topology=self.topology)
 
     # -- compilation -------------------------------------------------------
     def compile(self, plan: Callable, ctx: PlanContext, *,
@@ -175,7 +426,11 @@ class Cluster:
         that declares ``handles_packed`` (the IR lowering) receives them
         as-is and scans the packed words directly; every other plan gets
         its columns decoded at plan entry, each when the plan first reads
-        it (``columnar.decode_columns``)."""
+        it (``columnar.decode_columns``).
+
+        The returned function runs under the cluster's topology: with a
+        process group every rank calls it, in the same order as every
+        other bound plan, and the collectives cross the group."""
         params = tuple(getattr(plan, "params", ()) or ())
         if batch and not params:
             raise ValueError("batch=True requires a parameterized plan")
@@ -189,12 +444,15 @@ class Cluster:
             def entry(columns):
                 return {t: decode_columns(c) for t, c in columns.items()}
 
+        topo = self.topology
         if params:
             def run(columns, pvals):
-                return plan(ctx, entry(columns), pvals)
+                with running_on(topo):
+                    return plan(ctx, entry(columns), pvals)
         else:
             def run(columns):
-                return plan(ctx, entry(columns))
+                with running_on(topo):
+                    return plan(ctx, entry(columns))
 
         run.plan = plan
         return run

@@ -4,7 +4,9 @@ Counterpart of ``repro.core.partitioning``.  All tables are range-partitioned
 on their primary key: node i owns keys ``[i * rows_per_node, (i+1) *
 rows_per_node)`` (0-based dense keys).  In the node-stacked cluster every
 per-node quantity carries a leading node axis, so ``my_base`` is the column
-``arange(P)[:, None] * rows_per_node`` instead of one device's scalar.
+``node_ids[:, None] * rows_per_node`` instead of one device's scalar: the
+ids of the nodes this process holds (``engine.node_ids``; all P of them
+in-process).
 """
 from __future__ import annotations
 
@@ -41,12 +43,15 @@ class RangePartitioning:
         return node * self.rows_per_node
 
     def my_base(self, device=None) -> torch.Tensor:
-        """First key owned by each node: (P, 1) int64."""
-        return (torch.arange(self.num_nodes, device=device)[:, None]
+        """First key owned by each local node: (L, 1) int64."""
+        from repro_torch.core.engine import node_ids  # engine imports us
+
+        return (node_ids(self.num_nodes, device)[:, None]
                 * self.rows_per_node)
 
     def global_keys(self, device=None) -> torch.Tensor:
-        """Dense keys of every node's partition: (P, rows_per_node) int64."""
+        """Dense keys of each local node's partition: (L, rows_per_node)
+        int64."""
         return self.my_base(device) + torch.arange(self.rows_per_node,
                                                    device=device)
 

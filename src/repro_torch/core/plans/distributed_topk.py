@@ -136,13 +136,13 @@ def _q21_qualify(ctx, t):
 
 
 def _q21_finish(ctx, t, partials, k):
-    """Route dense per-supplier partial counts (P, NS) to their owners,
+    """Route dense per-supplier partial counts (L, NS) to their owners,
     aggregate, global top-k by (numwait desc, suppkey asc).  The local
     top-k is masked, so it stays on the sort."""
     P = ctx.num_nodes
     NS = ctx.part("supplier").total_rows
-    recv = exchange.all_to_all(partials.reshape(P, P, NS // P),
-                               backend=ctx.backend)
+    recv = exchange.all_to_all(
+        partials.reshape(ctx.local_nodes, P, NS // P), backend=ctx.backend)
     numwait = sum_sources(recv)
     local = topk.local_topk(numwait, my_keys(ctx, "supplier"), k,
                             numwait > 0)

@@ -20,6 +20,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.core import exchange
+from repro_torch.core.engine import any_across
 
 NEG_INF = float("-inf")
 
@@ -65,7 +66,8 @@ def merge_topk(a: TopK, b: TopK) -> TopK:
 
 def topk_allreduce(local: TopK) -> TopK:
     """§3.2.3 merging reduction as a recursive-doubling butterfly over the
-    node axis; every node's row ends with the global top-k."""
+    nodes (across ranks too); every node's row ends with the global
+    top-k."""
     return exchange.butterfly_allreduce(local, merge_topk)
 
 
@@ -88,7 +90,8 @@ def lazy_filtered_topk(values, keys, mask, remote_filter: Callable, k: int,
     survivors, while any node has fewer than k and unexamined candidates
     (nodes that are done send an empty request: the exchange is
     collective), at most ``max_rounds`` rounds.  Whether to go on is one
-    host read a round.  One merging reduction then finds the global
+    host read a round, of a flag reduced across ranks first (as the
+    reference's ``psum``), so every rank runs the same rounds.  One merging reduction then finds the global
     winners.  Returns (the per-node TopK of ``topk_allreduce``, overflow).
 
     A round whose chunk runs past the row pads it with the last key,
@@ -107,7 +110,7 @@ def lazy_filtered_topk(values, keys, mask, remote_filter: Callable, k: int,
     slots = torch.arange(chunk, device=dev)
     for i in range(max_rounds):
         done = (passed & examined).sum(1) >= k
-        if not bool((~done & (svalid & ~examined).any(1)).any()):
+        if not bool(any_across((~done & (svalid & ~examined).any(1)).any())):
             break
         start = i * chunk
         idx = (start + slots).clamp(max=n - 1)

@@ -30,7 +30,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import exchange, topk as topk_mod
-from repro_torch.core.engine import psum
+from repro_torch.core.engine import any_across, cluster_nodes, node_ids, psum
 from repro_torch.kernels import ops, ref
 
 
@@ -66,22 +66,23 @@ def sum_sources(x):
 
 
 def owner_keys(num_nodes: int, kp: int, device):
-    """Global keys of each owner's range: (P, Kp) int32, ascending."""
-    return (torch.arange(num_nodes, device=device)[:, None] * kp
+    """Global keys of each local owner's range: (L, Kp) int32,
+    ascending."""
+    return (node_ids(num_nodes, device)[:, None] * kp
             + torch.arange(kp, device=device)).to(torch.int32)
 
 
 def local_topk_blocks(values, keys, k: int, block: int = 4096):
     """``topk.local_topk(values, keys, k)`` for UNMASKED finite values
-    (P, n) whose keys ascend with the row, through the block top-k kernel
+    (L, n) whose keys ascend with the row, through the block top-k kernel
     (B4): every block's k best by (value desc, index asc) are its k best by
     (value desc, key asc), so ranking the blocks' candidates gives the
     same k rows bit for bit.  A masked top-k must stay on the sort: on a
     block that runs out of unmasked rows B4 repeats a key."""
-    P = values.shape[0]
+    L = values.shape[0]
     cand_v, cand_k = ops.block_topk(values.contiguous(), keys.contiguous(),
                                     k=k, block=block)
-    return topk_mod.local_topk(cand_v.reshape(P, -1), cand_k.reshape(P, -1),
+    return topk_mod.local_topk(cand_v.reshape(L, -1), cand_k.reshape(L, -1),
                                k)
 
 
@@ -95,10 +96,12 @@ def approx_topk_distributed(partials, k: int, *, m: int = 8,
                             backend: str = "xla"):
     """§3.2.5 end to end over the node-stacked cluster.
 
-    partials: (P, K) f32 per node, NON-NEGATIVE partial sums over the
-        global key space (K divisible by P * group, keys range-partitioned).
+    partials: (L, K) f32 per local node, NON-NEGATIVE partial sums over
+        the global key space (K divisible by P * group, keys
+        range-partitioned).
     Returns (TopK over global totals, (k,) each; stats; overflow)."""
-    P, K = partials.shape
+    L, K = partials.shape
+    P = cluster_nodes(L)
     if K % P:
         raise ValueError("key space must be divisible by node count")
     Kp = K // P
@@ -115,7 +118,7 @@ def approx_topk_distributed(partials, k: int, *, m: int = 8,
                     float(1 << _QUANT_BITS)).to(torch.int32)
 
     # ---- steps 1-2: encode + pack per destination (B6), all-to-all ------
-    words, shifts = ops.mbit_encode(q.reshape(P, P, Kp), m=m, group=group)
+    words, shifts = ops.mbit_encode(q.reshape(L, P, Kp), m=m, group=group)
     recv_words = exchange.all_to_all(words, backend=backend)
     recv_shifts = exchange.all_to_all(shifts, backend=backend)
 
@@ -144,13 +147,13 @@ def approx_topk_distributed(partials, k: int, *, m: int = 8,
                        stable=True).indices[:, :C]
     cand_valid = torch.gather(cand_mask, 1, order)
     cand_keys = torch.where(cand_valid, torch.gather(keys, 1, order), 0)
-    overflow = (counts > C).any()
+    overflow = any_across((counts > C).any())
     # everyone learns everyone's candidates, answers with its exact partials
-    all_cand = exchange.allgather(cand_keys).reshape(P, P, C)
-    all_valid = exchange.allgather(cand_valid).reshape(P, P, C)
+    all_cand = exchange.allgather(cand_keys).reshape(L, P, C)
+    all_valid = exchange.allgather(cand_valid).reshape(L, P, C)
     replies = torch.gather(partials, 1,
-                           all_cand.reshape(P, -1).to(torch.int64))
-    replies = torch.where(all_valid, replies.reshape(P, P, C), 0.0)
+                           all_cand.reshape(L, -1).to(torch.int64))
+    replies = torch.where(all_valid, replies.reshape(L, P, C), 0.0)
     exact_totals = sum_sources(exchange.all_to_all(replies, backend=backend))
 
     # ---- step 6: global top-k over exact candidate totals (masked: sort) -
@@ -170,11 +173,12 @@ def approx_topk_distributed(partials, k: int, *, m: int = 8,
 
 def simple_topk_distributed(partials, k: int, *, backend: str = "xla"):
     """The paper's naive baseline (Q15 variants 1/2): all-to-all ALL
-    partial sums (P, K) to each key's owner, aggregate, then select the
+    partial sums (L, K) to each key's owner, aggregate, then select the
     top-k (B4 and a rank of its candidates).  Returns a TopK of (k,)."""
-    P, K = partials.shape
+    L, K = partials.shape
+    P = cluster_nodes(L)
     Kp = K // P
-    recv = exchange.all_to_all(partials.reshape(P, P, Kp), backend=backend)
+    recv = exchange.all_to_all(partials.reshape(L, P, Kp), backend=backend)
     totals = sum_sources(recv)
     local = local_topk_blocks(totals, owner_keys(P, Kp, partials.device), k)
     return _first_row(topk_mod.topk_allreduce(local))

@@ -1,0 +1,83 @@
+"""The cluster's process group: the counterpart of ``repro.launch.mesh``'s
+``olap_cluster``.
+
+The JAX package views its chips as a flat P-way ``nodes`` mesh.  The
+port's cluster spans the W ranks of a ``torch.distributed`` process
+group, rank r holding the L = P / W nodes ``[r*L, (r+1)*L)`` on its own
+device (``core.engine.Topology``); without a group one process holds all
+P.  Under ``python -m torch.distributed.run`` (torchrun) the entry points
+(``Cluster``, ``TPCHDriver``, ``launch/serve_olap``) form the default
+group themselves through :func:`init_from_env`: NCCL on
+``cuda:LOCAL_RANK``, gloo on the CPU, a bounded timeout, the group
+destroyed at exit.
+
+Every rank generates the same tables, and ``tpch/dbgen`` seeds with
+``hash(table)``, so every rank needs the same ``PYTHONHASHSEED``
+(``TPCHDriver`` checks the data and raises on a mismatch); torchrun
+passes its own environment on to the ranks::
+
+    PYTHONHASHSEED=0 PYTHONPATH=src python -m torch.distributed.run \\
+        --standalone --nproc-per-node 4 -m repro_torch.launch.serve_olap \\
+        --device cpu --sf 0.01 --queries q6 q1 q4_sj q18
+
+The reference module's LM meshes and ``hardware_constants`` have no
+counterpart here yet: they come with the sharded trainer (ROADMAP item
+11.1).
+"""
+from __future__ import annotations
+
+import atexit
+import datetime
+import os
+
+import torch
+import torch.distributed as dist
+
+# how long a collective may wait for the other ranks: generation at SF 10
+# takes about a minute a rank before the first one
+TIMEOUT_S = 600.0
+
+_TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                 "MASTER_PORT")
+
+
+def under_torchrun() -> bool:
+    """True in a process that torchrun started (its rendezvous variables
+    are all set)."""
+    return all(k in os.environ for k in _TORCHRUN_ENV)
+
+
+def _destroy() -> None:
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def init_from_env(device=None, timeout_s: float = TIMEOUT_S):
+    """Form the default process group from torchrun's environment and
+    return it: NCCL for a CUDA ``device`` (the current device set to
+    ``cuda:LOCAL_RANK`` first), gloo for the CPU.  The group is destroyed
+    at exit, so the process ends cleanly."""
+    if not under_torchrun():
+        raise RuntimeError(
+            f"no torchrun environment: set {', '.join(_TORCHRUN_ENV)} or "
+            f"launch with python -m torch.distributed.run")
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+        backend = "nccl"
+    else:
+        backend = "gloo"
+    dist.init_process_group(
+        backend, init_method="env://",
+        timeout=datetime.timedelta(seconds=timeout_s))
+    atexit.register(_destroy)
+    return dist.group.WORLD
+
+
+def olap_cluster(num_nodes: int = 8, device=None, group=None):
+    """The paper's P-node shared-nothing cluster over ``group`` (the
+    default group when ``torch.distributed`` is initialised, one formed
+    from torchrun's environment, else none: one process)."""
+    from repro_torch.core.engine import Cluster
+
+    return Cluster(num_nodes, device=device, group=group)

@@ -6,8 +6,9 @@ concurrent load.
       --queries q1 q3 q15_approx --repeat 3 [--device cuda]
 
 The default mode runs each named hand plan (every registered one without
-``--queries``) once to warm it, then ``--repeat`` times, the card
-synchronized around each run, and prints its best time.
+``--queries``; ``q4_sj`` and ``q18_sj`` name the lowered exchange shapes)
+once to warm it, then ``--repeat`` times, the card synchronized around
+each run, and prints its best time.
 
 --cubes enables two-tier serving: the tier-1 rollup cubes are built up
 front (one scan each) and every serving query is reported with its
@@ -30,11 +31,24 @@ any error or warning; nothing is lowered or run.
 writes the structured trace as Chrome-trace JSON (Perfetto).
 
 The P = 8 nodes are stacked on one device (``--device``, ``cuda`` by
-default; ``cpu`` runs the kernels' plain PyTorch versions).
+default; ``cpu`` runs the kernels' plain PyTorch versions).  Under
+torchrun the W ranks hold P / W nodes each (NCCL on ``cuda:LOCAL_RANK``,
+gloo with ``--device cpu``; ``launch/mesh.py``); every rank runs the
+queries and rank 0 alone prints, the same lines as one process.  The
+ranks need one ``PYTHONHASHSEED`` (the driver checks their data)::
+
+    PYTHONHASHSEED=0 PYTHONPATH=src python -m torch.distributed.run \
+        --standalone --nproc-per-node 2 -m repro_torch.launch.serve_olap \
+        --device cpu --sf 0.01 --queries q6 q1 q4_sj q18
+
+``--serve``, ``--cubes`` and ``--lint`` run in one process only and
+raise under W > 1: the engine's batches follow host timing, which differs
+between ranks (ROADMAP item 9).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -164,6 +178,20 @@ def _serve_engine(d, args):
     return 0
 
 
+def _world() -> int:
+    """The ranks this process runs among: the initialised group's, else
+    torchrun's ``WORLD_SIZE``, else 1."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    if mesh.under_torchrun():
+        return int(os.environ["WORLD_SIZE"])
+    return 1
+
+
 def _sync(device) -> None:
     import torch
 
@@ -211,22 +239,41 @@ def main(argv=None):
                         "(loadable in Perfetto) on exit")
     args = p.parse_args(argv)
 
+    from repro_torch.core.engine import resolve_device
     from repro_torch.core.plans import PLANS
-    from repro_torch.tpch.driver import TPCHDriver
+    from repro_torch.tpch import queries as tq
+    from repro_torch.tpch.driver import SingleProcessError, TPCHDriver
 
+    # the lowered exchange shapes, beside the registry's hand plans
+    exchange_queries = {"q4_sj": tq.q4_sj_ir, "q18_sj": tq.q18_sj_ir}
     # validate query names BEFORE paying for data generation + placement
     if args.queries:
-        unknown = sorted(set(args.queries) - set(PLANS))
+        valid = set(PLANS) | set(exchange_queries)
+        unknown = sorted(set(args.queries) - valid)
         if unknown:
             print(f"unknown query name(s): {', '.join(unknown)}",
                   file=sys.stderr)
-            print(f"valid --queries names: {', '.join(sorted(PLANS))}",
+            print(f"valid --queries names: {', '.join(sorted(valid))}",
                   file=sys.stderr)
             return 2
+    world = _world()
+    mode = next((f"--{m}" for m in ("serve", "cubes", "lint")
+                 if getattr(args, m)), None)
+    if world > 1 and mode is not None:
+        raise SingleProcessError(
+            f"{mode} runs in one process only, not on {world} ranks: the "
+            f"engine's batch choices follow host timing, which differs "
+            f"between ranks (ROADMAP item 9)")
 
     d = TPCHDriver(sf=args.sf, seed=args.seed, backend=args.backend,
                    device=args.device)
     nodes = d.cluster.num_nodes
+    rank = d.cluster.topology.rank
+
+    def say(*a, **kw):
+        if rank == 0:
+            print(*a, **kw)
+
     try:
         if args.lint:
             print(f"cluster: {nodes} nodes | SF {args.sf} | "
@@ -244,14 +291,17 @@ def main(argv=None):
             return _serve_cubes(d, args.repeat)
         names = args.queries or list(PLANS)
         device = d.cluster.device
-        print(f"cluster: {nodes} nodes on {device} | SF {args.sf} | "
-              f"backend {args.backend}")
-        print(f"{'query':>14s} {'compile[s]':>10s} {'run[ms]':>9s}")
+        # the device as one process names it (a rank's carries its index)
+        shown = resolve_device(args.device)
+        say(f"cluster: {nodes} nodes on {shown} | SF {args.sf} | "
+            f"backend {args.backend}")
+        say(f"{'query':>14s} {'compile[s]':>10s} {'run[ms]':>9s}")
         run_hist = d.obs.metrics.histogram("serve.run_us")
         for name in names:
             with d.obs.span("serve", cat="serve", query=name) as sp:
                 t0 = time.monotonic()
-                fn = d.compile(name)
+                fn = (d.compile(name) if name in PLANS
+                      else d.compile_query(exchange_queries[name]()))
                 compile_s = time.monotonic() - t0
                 cols = d.columns()
                 with d.obs.span("warmup", cat="exec"):
@@ -266,12 +316,12 @@ def main(argv=None):
                         times.append(time.monotonic() - t0)
                     run_hist.record(times[-1] * 1e6)
                 sp.set(compile_s=compile_s, best_ms=min(times) * 1e3)
-            print(f"{name:>14s} {compile_s:10.2f} {min(times)*1e3:9.2f}")
+            say(f"{name:>14s} {compile_s:10.2f} {min(times)*1e3:9.2f}")
         return 0
     finally:
         if args.metrics:
-            print("\n" + d.obs.metrics.report())
-        if args.trace:
+            say("\n" + d.obs.metrics.report())
+        if args.trace and rank == 0:
             print(f"\ntrace written to {d.obs.save_chrome_trace(args.trace)}")
 
 

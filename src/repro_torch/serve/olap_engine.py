@@ -118,6 +118,8 @@ class OLAPEngine:
                  max_inflight: int = 2, pad_batches: bool = True):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
+        # batch choices follow host timing, which differs between ranks
+        driver._single_process("the serving engine")
         self.driver = driver
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_us) * 1e-6

@@ -23,6 +23,19 @@ One ``Observer`` (``driver.obs``) records the spans of each query (route,
 lowering, execute) and the metrics of the driver, the plan cache, the
 router and the storage.
 
+Across processes: with a process group of W ranks (``group=``, the
+default group, or torchrun's environment; see ``core.engine.Cluster``)
+every rank generates the same host tables and catalog, so every rank
+chooses the same plans, capacities and wire formats and issues the same
+collectives in the same order; each places only its L = P / W nodes.  The
+constructor all-gathers a fingerprint of the data and raises when a rank's
+differs from rank 0's (``dbgen`` seeds with ``hash(table)``: the ranks
+need one ``PYTHONHASHSEED``).  Every rank answers every query, the same
+answer.  Every rank holds the whole host data at generation, so the
+host's memory then grows W-fold (per-node generation: ROADMAP item 9).
+The cubes, prepared batches, EXPLAIN ANALYZE and the serving engine run
+in one process only (they raise under W > 1; ROADMAP item 9).
+
 Static checks and EXPLAIN: ``check(q)`` runs the static plan verifier
 (``query.verify``) over the prepared shape, nothing lowered or run;
 ``explain(q)`` renders the route, the cost model's per-operator
@@ -46,6 +59,7 @@ flag surfaces any binding that exceeds them.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
 import threading
 import time
@@ -56,7 +70,7 @@ import torch
 
 from repro_torch.core import exchange, plans, wirecal
 from repro_torch.core.columnar import PackedColumn, Table
-from repro_torch.core.engine import Cluster
+from repro_torch.core.engine import Cluster, all_gather
 from repro_torch.cube import CubeRouter, build_cube
 from repro_torch.obs import (
     ExplainReport,
@@ -105,6 +119,11 @@ class ResidentBudgetError(MemoryError):
     cannot hold this scale factor in the chosen storage format.  The
     message reports both formats' footprints; switching to
     ``storage="packed"`` is the usual fix."""
+
+
+class SingleProcessError(QueryError):
+    """A driver feature that runs in one process only was called on a
+    rank of a process group of W > 1 (ROADMAP item 9)."""
 
 
 def _split_overflow(out):
@@ -306,6 +325,7 @@ class PreparedQuery:
         repeating the last binding (counted in ``driver.batch_pad_lanes``);
         the outputs are cut back to B.  A batch always runs the plan
         (tier 2): a cube's exactness is decided binding by binding."""
+        self.driver._single_process("execute_batch")
         if not self.entry.params:
             raise QueryError(
                 f"prepared query {self.source!r} has no parameters — "
@@ -381,14 +401,16 @@ class TPCHDriver:
     the spans, the metrics stay).  ``resident_budget`` (else
     ``REPRO_RESIDENT_BUDGET_BYTES``) caps the resident bytes: above it
     the constructor raises :class:`ResidentBudgetError` before placing
-    anything on the device."""
+    anything on the device.  ``group`` is the process group the cluster
+    spans (see the module docstring; by default the initialised default
+    group, or none)."""
 
     def __init__(self, sf: float, num_nodes: int = 8, seed: int = 0,
                  storage: str = "packed", device=None, capacities=None,
                  backend: str = "xla", wire: str = "packed",
                  obs: Optional[Observer] = None,
-                 resident_budget: Optional[int] = None):
-        self.cluster = Cluster(num_nodes, device=device)
+                 resident_budget: Optional[int] = None, group=None):
+        self.cluster = Cluster(num_nodes, device=device, group=group)
         self.obs = obs if obs is not None else Observer()
         self.sf = sf
         self.seed = seed
@@ -423,6 +445,8 @@ class TPCHDriver:
         }
         self.catalog = build_catalog(self.tables, num_nodes=num_nodes,
                                      packed=packed_meta)
+        if self.cluster.topology.distributed:
+            self._check_same_data()
         # resident footprint and the node memory budget: exceeding it is
         # the out-of-memory the packed format pushes out by about the
         # compression ratio
@@ -470,6 +494,48 @@ class TPCHDriver:
                                   # shape ("<name>" / "<name>@batch")
         self.cubes = {}
         self.router: Optional[CubeRouter] = None
+
+    def _fingerprint(self) -> int:
+        """63 bits of a digest of the catalog (every column's bounds and
+        encoding), the replicated tables and a strided sample of every
+        partitioned column."""
+        h = hashlib.sha256(repr(self.catalog).encode())
+        for name in sorted(self.tables):
+            t = self.tables[name]
+            for cname in sorted(t.columns):
+                col = np.ascontiguousarray(t.columns[cname])
+                if not t.replicated:
+                    col = np.ascontiguousarray(
+                        col[::max(1, col.size // 4096)])
+                h.update(col.tobytes())
+        return int.from_bytes(h.digest()[:8], "little") >> 1
+
+    def _check_same_data(self) -> None:
+        """All-gather every rank's fingerprint of the data; every rank
+        raises when any differs from rank 0's."""
+        topo = self.cluster.topology
+        mine = torch.tensor([self._fingerprint()], dtype=torch.int64,
+                            device=self.cluster.device)
+        every = torch.empty(topo.world, dtype=torch.int64,
+                            device=self.cluster.device)
+        all_gather(every, mine, topo.group)
+        every = every.tolist()
+        bad = [r for r, f in enumerate(every) if f != every[0]]
+        if bad:
+            raise ValueError(
+                f"ranks {bad} generated other data than rank 0 (data "
+                f"fingerprints {every}): tpch/dbgen seeds with "
+                f"hash(table), so every rank needs the same PYTHONHASHSEED "
+                f"(this rank's: "
+                f"{os.environ.get('PYTHONHASHSEED', 'unset')})")
+
+    def _single_process(self, what: str) -> None:
+        """Raise :class:`SingleProcessError` for ``what`` under W > 1."""
+        world = self.cluster.topology.world
+        if world > 1:
+            raise SingleProcessError(
+                f"{what} runs in one process only, not on {world} ranks "
+                f"of a process group (ROADMAP item 9)")
 
     @staticmethod
     def _host_column(col) -> np.ndarray:
@@ -671,6 +737,7 @@ class TPCHDriver:
         """Materialize Tier-1 rollup cubes (one scan per spec) and install
         the query router.  Defaults to the TPC-H presets
         (``tpch.cubes.default_specs``)."""
+        self._single_process("build_cubes")
         if specs is None:
             from repro_torch.tpch import cubes as tpch_cubes
 
@@ -808,6 +875,7 @@ class TPCHDriver:
         all-to-all bytes attributed to the plan's request semi-joins in
         program order.  An execute returns with the card done (the
         driver's dispatch waits on it), so each time is the whole run."""
+        self._single_process("explain_analyze")
         report, prep = self._explain(q, params)
         mreg = self.obs.metrics
         ev0 = len(self.compile_events)

@@ -1,0 +1,301 @@
+"""One rank of the port's cluster across processes, for
+``tests/test_torch_distributed.py``.
+
+    python tests/fixtures/torch_dist_worker.py SPAWN RANK WORLD STORE OUT
+
+joins a gloo group of WORLD ranks through the file store STORE, runs the
+SPAWN's tasks and pickles what it saw to ``OUT/rank{RANK}.pkl``:
+
+- ``collectives``: every case of :data:`CASES` on the rank's L = P / W
+  rows of inputs made from a numpy seed, over the default group (and,
+  in spawn ``w2``, over a group of one rank, its own), with the
+  collective record and ``wire_bytes()`` of each;
+- ``queries``: every query of :data:`QUERIES` through a ``TPCHDriver``
+  over the group (SF 0.01, P = 8), with the same records;
+- ``errors``: what must raise under W > 1 (P % W != 0, a gloo group on
+  CUDA, the single-process features of the driver and the launcher);
+- ``reference`` (rank 0 of ``w2``, after the group is gone): the same
+  queries through the one-process port driver and the JAX driver in this
+  process, and the float64 oracle;
+- ``mismatch``: a ``TPCHDriver`` whose ranks have different
+  ``PYTHONHASHSEED`` values (the caller sets them) must raise.
+
+Every rank of a spawn shares the caller's ``PYTHONHASHSEED`` (except in
+``mismatch``), so every rank, and the reference, see the same tables.
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import pickle
+import sys
+import traceback
+
+import numpy as np
+import torch
+
+P = 8
+SF = 0.01
+
+# case -> (function of the local operands, input makers (P, ...) of a
+# numpy generator); every case runs over the node axis, the same function
+# the test runs over all P nodes in one process
+
+
+def _topk(v, k):
+    from repro_torch.core import topk
+
+    local = topk.local_topk(v, k, 5, v > 0.2)
+    return topk.topk_allreduce(local)
+
+
+def _cases():
+    from repro_torch.core import exchange
+    from repro_torch.core.engine import psum
+
+    f32 = (lambda shape: lambda g: g.standard_normal(shape).astype(
+        np.float32))
+    i32 = (lambda shape: lambda g: g.integers(-1000, 1000, shape,
+                                              dtype=np.int32))
+    return {
+        "psum_f32": (psum, [f32((P, 6, 6))]),
+        "psum_i64": (psum, [lambda g: g.integers(0, 1 << 40, (P, 5))]),
+        "all_to_all_xla": (exchange.all_to_all, [i32((P, P, 7))]),
+        "all_to_all_one_factor": (
+            lambda x: exchange.all_to_all(x, backend="one_factor"),
+            [f32((P, P, 3))]),
+        "all_to_all_bool": (exchange.all_to_all,
+                            [lambda g: g.random((P, P, 33)) < 0.5]),
+        "allgather": (exchange.allgather, [i32((P, 40))]),
+        "allreduce_max": (exchange.allreduce_max, [f32((P, 10))]),
+        "allreduce_min": (exchange.allreduce_min, [f32((P, 10))]),
+        "broadcast_from": (lambda x: exchange.broadcast_from(x, 5),
+                           [f32((P, 4))]),
+        "butterfly_topk": (_topk, [lambda g: g.random((P, 64), np.float32),
+                                   lambda g: g.permutation(P * 64).reshape(
+                                       P, 64)]),
+    }
+
+
+CASE_NAMES = ("psum_f32", "psum_i64", "all_to_all_xla",
+              "all_to_all_one_factor", "all_to_all_bool", "allgather",
+              "allreduce_max", "allreduce_min", "broadcast_from",
+              "butterfly_topk")
+
+
+def case_inputs(name: str) -> list:
+    """The case's global (P, ...) inputs, from its own numpy seed."""
+    g = np.random.default_rng(CASE_NAMES.index(name))
+    return [np.asarray(make(g)) for make in _cases()[name][1]]
+
+
+def run_case(name: str, inputs) -> tuple:
+    """(flattened output, wire bytes, collective record) of one case over
+    the given stacked operands, under whatever topology is active."""
+    from repro_torch.core import exchange
+
+    exchange.reset_wire_bytes()
+    exchange.reset_collective_record()
+    out = _cases()[name][0](*(torch.from_numpy(a) for a in inputs))
+    return (flat(out), exchange.wire_bytes(),
+            list(exchange.collective_record()))
+
+
+# q18's quantity with winners at SF 0.01 (none pass the default 300)
+Q18_QUANTITY = 150.0
+
+# query -> (how it runs, registry or IR name, wire, backend, oracle)
+QUERIES = {
+    "q6": ("ir", "q6", None, None, "q6"),
+    "q1": ("ir", "q1", None, None, "q1"),
+    "q1_kernel": ("ir", "q1_kernel", None, None, "q1"),
+    "q4_sj/packed/xla": ("sj", "q4_sj", "packed", "xla", "q4_sj_request"),
+    "q4_sj/packed/one_factor": ("sj", "q4_sj", "packed", "one_factor",
+                                "q4_sj_request"),
+    "q4_sj/raw/xla": ("sj", "q4_sj", "raw", "xla", "q4_sj_request"),
+    "q18_sj": ("sj", "q18_sj", "packed", "xla", "q18_sj_request"),
+    "q14_promo": ("ir", "q14_promo", None, None, "q14_promo"),
+    "q4": ("ir", "q4", None, None, "q4"),
+    "q18": ("q18", "q18", None, None, "q18"),
+    "q3_lazy": ("hand", "q3_lazy", None, None, "q3_lazy"),
+    "q15_approx": ("hand", "q15_approx", None, None, "q15_approx"),
+    "q21": ("hand", "q21", None, None, "q21"),
+}
+
+
+def flat(tree, key: str = "out") -> dict:
+    """Tensors (in dicts, tuples and NamedTuples) -> {path: numpy}."""
+    if hasattr(tree, "_fields"):
+        items = zip(tree._fields, tree)
+    elif isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (tuple, list)):
+        items = enumerate(tree)
+    else:
+        return {key: np.asarray(tree)}
+    out = {}
+    for k, v in items:
+        out.update(flat(v, f"{key}.{k}"))
+    return out
+
+
+def _q18_params():
+    from repro_torch.tpch.schema import DEFAULT_PARAMS as DP
+
+    return dataclasses.replace(DP, q18_quantity=Q18_QUANTITY)
+
+
+def oracle(drv, name: str):
+    """The float64 oracle of one query of :data:`QUERIES`."""
+    kw = {"p": _q18_params()} if QUERIES[name][0] == "q18" else {}
+    return drv.oracle(QUERIES[name][4], **kw)
+
+
+def run_port_query(drv, name: str) -> tuple:
+    """(flattened answer, wire bytes, collective record) of one query."""
+    from repro_torch.core import exchange
+    from repro_torch.tpch import queries as tq
+
+    how, what, wire, backend, _ = QUERIES[name]
+    exchange.reset_wire_bytes()
+    exchange.reset_collective_record()
+    if how == "ir":
+        out = drv.run_ir(what)
+    elif how == "q18":
+        out = drv.compile_query(tq.q18_ir(p=_q18_params()))(drv.columns())
+    elif how == "sj":
+        q = getattr(tq, f"{what}_ir")()
+        out = drv.compile_query(q, wire=wire, backend=backend)(drv.columns())
+    else:
+        out = drv.run(what)
+    return (flat(out), exchange.wire_bytes(),
+            list(exchange.collective_record()))
+
+
+def run_jax_query(jd, name: str) -> dict:
+    """The JAX driver's answer, prepared as its ``query`` prepares it and
+    lowered under the query's wire (the backend does not change it)."""
+    import jax.numpy as jnp
+    from repro.query import parameterize
+    from repro.query.lower import lower
+    from repro.tpch import queries as jq
+    from repro.tpch.schema import DEFAULT_PARAMS as JDP
+
+    how, what, wire, _, _ = QUERIES[name]
+    if how == "ir":
+        return flat(jd.run_ir(what))
+    if how == "hand":
+        return flat(jd.run(what))
+    if how == "q18":
+        q = jq.q18_ir(p=dataclasses.replace(JDP, q18_quantity=Q18_QUANTITY))
+        return flat(jd.compile_query(q)(jd._columns()))
+
+    shape, binding = parameterize(getattr(jq, f"{what}_ir")())
+    plan = lower(shape, jd.catalog, wire=wire, binding=binding)
+    ctx = dataclasses.replace(jd.ctx, wire=wire, backend="xla")
+    cols = {n: t.columns for n, t in jd.placed.items()}
+    fn = jd.cluster.compile(plan, ctx, jd.placed)
+    pv = {p.name: jnp.asarray(np.asarray(binding[p.name], np.dtype(p.dtype)))
+          for p in plan.params}
+    return flat(fn(cols, pv))
+
+
+def _raises(fn) -> str:
+    """The message of what ``fn()`` raised, '' if it returned."""
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 - the test reads the type
+        return f"{type(e).__name__}: {e}"
+    return ""
+
+
+def _errors(drv) -> dict:
+    from repro_torch.core.engine import Cluster
+    from repro_torch.launch import serve_olap
+    from repro_torch.serve.olap_engine import OLAPEngine
+    from repro_torch.tpch import queries as tq
+
+    base = ["--device", "cpu", "--sf", str(SF)]
+    prep = drv.prepare(tq.q6_param_ir())
+    return {
+        "p_mod_w": _raises(lambda: Cluster(P + 1, device="cpu")),
+        "gloo_on_cuda": _raises(lambda: Cluster(P, device="cuda")),
+        "--serve": _raises(lambda: serve_olap.main(base + ["--serve"])),
+        "--cubes": _raises(lambda: serve_olap.main(base + ["--cubes"])),
+        "--lint": _raises(lambda: serve_olap.main(base + ["--lint"])),
+        "build_cubes": _raises(drv.build_cubes),
+        "explain_analyze": _raises(lambda: drv.explain_analyze(tq.q6_ir())),
+        "execute_batch": _raises(lambda: prep.execute_batch(
+            [tq.default_binding("q6")] * 2)),
+        "engine": _raises(lambda: OLAPEngine(drv)),
+    }
+
+
+def main(spawn: str, rank: int, world: int, store: str, out: str) -> None:
+    import torch.distributed as dist
+
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=90))
+    res = {"rank": rank, "world": world}
+    try:
+        from repro_torch.core.engine import Cluster, running_on
+        from repro_torch.tpch.driver import TPCHDriver
+
+        if spawn == "mismatch":
+            res["mismatch"] = _raises(
+                lambda: TPCHDriver(SF, num_nodes=P, device="cpu"))
+            return
+        # collectives over the default group, and over a group of one rank
+        groups = {"default": None}
+        if spawn == "w2":
+            singles = [dist.new_group([r]) for r in range(world)]
+            groups = {"single": singles[rank]}
+        res["collectives"] = {}
+        for label, group in groups.items():
+            topo = Cluster(P, device="cpu", group=group).topology
+            lo, hi = topo.node_offset, topo.node_offset + topo.local_nodes
+            with running_on(topo):
+                res["collectives"][label] = {
+                    name: run_case(name, [a[lo:hi]
+                                          for a in case_inputs(name)])
+                    for name in CASE_NAMES}
+        drv = TPCHDriver(SF, num_nodes=P, device="cpu")
+        res["local_nodes"] = drv.cluster.topology.local_nodes
+        res["queries"] = {name: run_port_query(drv, name)
+                          for name in QUERIES}
+        res["errors"] = _errors(drv)
+        dist.barrier()
+    except Exception:  # noqa: BLE001 - reported to the test
+        res["error"] = traceback.format_exc()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        if spawn == "w2" and rank == 0 and "error" not in res:
+            try:
+                res["reference"] = reference()
+            except Exception:  # noqa: BLE001
+                res["error"] = traceback.format_exc()
+        with open(f"{out}/rank{rank}.pkl", "wb") as f:
+            pickle.dump(res, f)
+
+
+def reference() -> dict:
+    """The one-process port driver, the JAX driver and the oracle, in
+    this process (the same ``PYTHONHASHSEED`` as the ranks)."""
+    from repro.core import Cluster as JaxCluster
+    from repro.tpch.driver import TPCHDriver as JaxDriver
+    from repro_torch.tpch.driver import TPCHDriver
+
+    drv = TPCHDriver(SF, num_nodes=P, device="cpu")
+    assert drv.cluster.topology.world == 1
+    jd = JaxDriver(sf=SF, cluster=JaxCluster(), seed=0)
+    return {"port": {n: run_port_query(drv, n) for n in QUERIES},
+            "jax": {n: run_jax_query(jd, n) for n in QUERIES},
+            "oracle": {n: oracle(drv, n) for n in QUERIES}}
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+         sys.argv[5])

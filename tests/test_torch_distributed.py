@@ -1,0 +1,208 @@
+"""The port's cluster across processes: W gloo ranks on the CPU, each
+holding L = P / W of the P = 8 nodes, against the one-process port, the
+JAX package and the float64 oracle.
+
+Three spawns of ``tests/fixtures/torch_dist_worker.py`` run at once, all
+ranks with one fixed ``PYTHONHASHSEED`` except where the seeds must
+differ:
+
+- ``w4`` (W = 4, L = 2): every collective of ``exchange`` and ``psum``
+  on inputs made from a numpy seed, and every query of the slice;
+- ``w2`` (W = 2, L = 4): the queries, the collectives over a gloo group
+  of one rank (W = 1, L = 8), and, on rank 0 after the group is gone, the
+  one-process port driver, the JAX driver (the 8-device CPU mesh) and
+  the oracle on the same tables;
+- ``mismatch`` (W = 2, two ``PYTHONHASHSEED`` values): the driver must
+  raise.
+
+Each collective is held against the same function over all P nodes in
+this process: outputs, ``wire_bytes()`` and the collective record equal
+(f32 sums within rtol 1e-5: another order).  Each query gives the same
+answer on every rank, bit for bit; it equals the one-process port and
+the JAX driver exactly in integers, keys, bitsets and bytes and within
+rtol 1e-5 in f32, the oracle within rtol 2e-4 (exactly for counts), and
+its per-node wire bytes and collective record equal one process's.  The
+spawns are bounded: a hang fails the test, the init timeout ends the
+ranks.
+"""
+from __future__ import annotations
+
+import os
+import pathlib
+import pickle
+import subprocess
+import sys
+import time
+
+import numpy as np
+import pytest
+
+from conftest import assert_topk_matches
+from fixtures import torch_dist_worker as worker
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+WORKER = ROOT / "tests" / "fixtures" / "torch_dist_worker.py"
+HASH_SEED = "20171"
+SPAWNS = {"w4": (4, [HASH_SEED] * 4), "w2": (2, [HASH_SEED] * 2),
+          "mismatch": (2, ["1", "2"])}
+TIMEOUT_S = 300
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Every spawn's per-rank results, the spawns running at once."""
+    src = str(ROOT / "src")
+    base = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="2",
+                XLA_FLAGS="--xla_force_host_platform_device_count=8",
+                PYTHONPATH=os.pathsep.join(
+                    [src] + [p for p in os.environ.get("PYTHONPATH", "")
+                             .split(os.pathsep) if p]))
+    procs = {}
+    for spawn, (world, seeds) in SPAWNS.items():
+        out = tmp_path_factory.mktemp(spawn)
+        for rank in range(world):
+            log = open(out / f"rank{rank}.log", "w")
+            procs[(spawn, rank)] = (out, log, subprocess.Popen(
+                [sys.executable, str(WORKER), spawn, str(rank), str(world),
+                 str(out / "store"), str(out)],
+                env=dict(base, PYTHONHASHSEED=seeds[rank]),
+                stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + TIMEOUT_S
+    try:
+        for out, log, p in procs.values():
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pytest.fail(f"the ranks did not finish within {TIMEOUT_S} s")
+    finally:
+        for out, log, p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    res = {spawn: [] for spawn in SPAWNS}
+    for (spawn, rank), (out, log, p) in sorted(procs.items()):
+        text = (out / f"rank{rank}.log").read_text()[-4000:]
+        path = out / f"rank{rank}.pkl"
+        assert p.returncode == 0 and path.exists(), (
+            f"{spawn} rank {rank} exited {p.returncode}:\n{text}")
+        with open(path, "rb") as f:
+            r = pickle.load(f)
+        assert "error" not in r, f"{spawn} rank {rank}:\n{r['error']}"
+        res[spawn].append(r)
+    return res
+
+
+def _assert_close(got: dict, want: dict, what: str, rtol: float = 1e-5):
+    """Integers, keys, bitsets exactly; f32 within ``rtol``."""
+    assert sorted(got) == sorted(want), what
+    for k, w in want.items():
+        g = np.asarray(got[k])
+        w = np.asarray(w)
+        assert g.shape == w.shape, f"{what} {k}: {g.shape} vs {w.shape}"
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(g, w, rtol=rtol, atol=0,
+                                       err_msg=f"{what} {k}")
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=f"{what} {k}")
+
+
+# -- (a) the collectives ------------------------------------------------------
+
+REPLICATED = {"psum_f32", "psum_i64", "allreduce_max", "allreduce_min"}
+
+
+@pytest.mark.parametrize("group", ["w4", "w1"])
+@pytest.mark.parametrize("case", worker.CASE_NAMES)
+def test_collective_matches_node_stacked(runs, case, group):
+    ranks = ([r["collectives"]["default"][case] for r in runs["w4"]]
+             if group == "w4" else
+             [runs["w2"][0]["collectives"]["single"][case]])
+    want, want_bytes, want_record = worker.run_case(
+        case, worker.case_inputs(case))
+    for rank, (out, nbytes, record) in enumerate(ranks):
+        assert nbytes == want_bytes, f"rank {rank}"
+        assert record == want_record, f"rank {rank}"
+    if case in REPLICATED:
+        for rank, (out, _, _) in enumerate(ranks):
+            _assert_close(out, ranks[0][0], f"rank {rank} vs rank 0",
+                          rtol=0)
+        got = ranks[0][0]
+    else:
+        got = {k: np.concatenate([out[k] for out, _, _ in ranks])
+               for k in want}
+    _assert_close(got, want, case)
+
+
+# -- (b) the slice --------------------------------------------------------------
+
+TOPK_FIELDS = {"q18": ("out.values", "out.keys", "out.valid"),
+               "q3_lazy": ("out.0.values", "out.0.keys", "out.0.valid"),
+               "q15_approx": ("out.total_revenue", "out.s_suppkey",
+                              "out.valid"),
+               "q21": ("out.values", "out.keys", "out.valid")}
+
+
+def _assert_oracle(name: str, got: dict, oracle) -> None:
+    for k, v in got.items():
+        if k == "out.overflow" or k.endswith(".overflow") or k == "out.1":
+            assert not bool(np.asarray(v).any()), f"{name}: {k}"
+    if name in TOPK_FIELDS:
+        vals, keys, valid = (got[f] for f in TOPK_FIELDS[name])
+        ov, ok = oracle
+        n = int(valid.sum())
+        assert n > 0 and n == min(int(np.isfinite(ov).sum()), len(vals))
+        exact = name in ("q18", "q21")
+        assert_topk_matches(vals, keys, valid, ov, ok,
+                            rtol=0 if exact else 2e-4, atol=0)
+        np.testing.assert_array_equal(keys[:n], ok[:n])
+        return
+    value = np.asarray(got["out.value"], np.float64).reshape(-1)
+    want = np.asarray(oracle, np.float64).reshape(-1)
+    if name.startswith("q4"):
+        np.testing.assert_array_equal(value, want)
+    else:
+        np.testing.assert_allclose(value, want, rtol=2e-4, atol=0)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("name", list(worker.QUERIES))
+def test_query_matches_one_process_jax_and_oracle(runs, name, world):
+    ranks = runs[f"w{world}"]
+    ref = runs["w2"][0]["reference"]
+    assert [r["local_nodes"] for r in ranks] == [8 // world] * world
+    outs = [r["queries"][name] for r in ranks]
+    got, nbytes, record = outs[0]
+    for rank, (out, b, rec) in enumerate(outs[1:], start=1):
+        _assert_close(out, got, f"rank {rank} vs rank 0", rtol=0)
+        assert (b, rec) == (nbytes, record), f"rank {rank}"
+    port, port_bytes, port_record = ref["port"][name]
+    assert nbytes == port_bytes
+    assert record == port_record
+    _assert_close(got, port, "one-process port")
+    _assert_close(got, ref["jax"][name], "JAX driver")
+    _assert_oracle(name, got, ref["oracle"][name])
+
+
+# -- (c) what raises --------------------------------------------------------------
+
+@pytest.mark.parametrize("what", ["p_mod_w", "gloo_on_cuda", "--serve",
+                                  "--cubes", "--lint", "build_cubes",
+                                  "explain_analyze", "execute_batch",
+                                  "engine"])
+def test_raises_rather_than_falls_back(runs, what):
+    for spawn in ("w2", "w4"):
+        for r in runs[spawn]:
+            msg = r["errors"][what]
+            if what == "p_mod_w":
+                assert msg.startswith("ValueError") and "P % W" in msg
+            elif what == "gloo_on_cuda":
+                assert msg.startswith("ValueError") and "nccl" in msg
+            else:
+                assert msg.startswith("SingleProcessError"), msg
+                assert "ROADMAP item 9" in msg
+
+
+def test_ranks_with_other_data_raise(runs):
+    for r in runs["mismatch"]:
+        assert r["mismatch"].startswith("ValueError"), r["mismatch"]
+        assert "PYTHONHASHSEED" in r["mismatch"]

@@ -60,7 +60,8 @@ def test_port_file_list_is_complete():
                 "cube/__init__.py", "cube/spec.py", "cube/build.py",
                 "cube/router.py", "cube/serving.py", "tpch/cubes.py",
                 "serve/__init__.py", "serve/olap_engine.py",
-                "serve/workload.py", "launch/serve_olap.py"):
+                "serve/workload.py", "launch/serve_olap.py",
+                "launch/mesh.py"):
         assert mod in names
 
 

@@ -104,10 +104,11 @@ def _assert_like_oracle(name, got, oracle):
 def test_semijoin_plan_matches_jax_and_oracle(tpch_driver, port_driver,
                                               name):
     ops.reset_launch_counts()
-    if name == "q2":
-        # at the filter of _q2_filter: q2's default one may qualify no row
-        # in this process's data
-        jkw, tkw = _q2_kwargs(port_driver, 100)
+    if name in ("q2", "q11"):
+        # at the filter chosen from this process's data (_q2_filter,
+        # _q11_nation): the default one may qualify no row there
+        jkw, tkw = (_q2_kwargs(port_driver, 100) if name == "q2"
+                    else _q11_kwargs(port_driver))
         cols = {n: t.columns for n, t in tpch_driver.placed.items()}
         want = _np(tpch_driver.cluster.compile(
             functools.partial(JAX_REGISTRY[name].plan, **jkw),
@@ -151,6 +152,27 @@ def _q2_filter(driver, k: int) -> dict:
             if best is None or n > best[0]:
                 best = (n, size, finish)
     return {"q2_size": best[1], "q2_type_finish": best[2]}
+
+
+def _q11_nation(driver) -> int:
+    """q11's nation whose oracle answer has the most rows, the first
+    among ties.  At SF 0.01 a part qualifies only above 1% of its
+    nation's stock value, and with the per-process ``hash(table)`` seeds
+    the default nation qualifies no part for some (``PYTHONHASHSEED`` 13
+    and 29 of 0-40); the best nation gave 32 rows or more for each of
+    those 41 seeds."""
+    rows = [int(np.isfinite(driver.oracle(
+        "q11", p=dataclasses.replace(DP, q11_nation=n))[0]).sum())
+        for n in range(len(S.NATIONS))]
+    return max(range(len(rows)), key=lambda n: (rows[n], -n))
+
+
+def _q11_kwargs(driver) -> tuple:
+    """q11's plan arguments at the nation of :func:`_q11_nation`, as each
+    package's own ``QueryParams``: (JAX kwargs, port kwargs)."""
+    nation = _q11_nation(driver)
+    return ({"p": dataclasses.replace(JAX_DP, q11_nation=nation)},
+            {"p": dataclasses.replace(DP, q11_nation=nation)})
 
 
 def _q2_kwargs(driver, k: int) -> tuple:
