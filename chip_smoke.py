@@ -278,6 +278,35 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
       variants and B9 at their main-path inputs (B9 also at 32,768
       positions; device time from a graph of calls) beside their plain
       versions, ``scaled_dot_product_attention`` and their bounds.
+   f. The MoE family, after 7a-7e dropped what they placed on the card:
+      ``moe_block_sharded`` at qwen3-moe's full width in f32 (d 2,048,
+      128 experts top 8, d_ff_expert 768) over 8 stacked nodes of 16
+      experts and 64 tokens each (numpy seed 0), capacity factor 4.0:
+      both all-to-all backends within 2e-3 of ``apply_moe`` at the same
+      factor, no overflow.  Then qwen3-moe-30b-a3b at full width (d_model
+      2,048, 32/4 heads of 128, 128 experts top 8, d_ff_expert 768, vocab
+      151,936) cut in depth to 12 of its 48 layers, random weights from
+      seed 0 cast once to bf16, batch 4: a 4,096-token prefill through the
+      tensor-core B7 (12 launches, the f32 B7 and B9 none), 64 greedy
+      steps on the bf16 cache replayed from one captured graph (sharded
+      head: shards 8, k 8), the same steps eagerly on a copy of the state
+      (same tokens, logits within rtol 2^-8), the prefill with the plain
+      B7 within 0.05 x the largest |logit| (the (token, layer) routes it
+      chose otherwise counted), the sharded head equal to argmax;
+      ``load_balance_stats`` of the prefill's first MoE block.  The int8
+      cache: 64 prompt tokens one a step, then 32 greedy steps, each loop
+      replayed (B9 12 x 96 times, B7 none), against eager steps (same
+      tokens, rtol 2^-8) and the bf16 cache fed the same tokens (rtol
+      0.1, atol 0.15, the int8 argmax in the bf16 top 5).  Times:
+      prefill, decode a step replayed and eager on both caches, the MoE
+      blocks' share of the device time of a prefill and of a replayed
+      step (torch.profiler), resident and peak allocated bytes.  Not
+      held, last: the same weights with the experts scaled to the JAX
+      init's spread (fan-in the expert count) through the plain-B7
+      comparison, then with the routing pinned to the kernel run's
+      (``models.moe.route`` wrapped): the plain B7 with the kernel's
+      rounding of p, and the int8 cache against the bf16 cache in eager
+      steps.  The phase's seconds.
 8. Training qwen2.5-3b at full width, after the serving phases have
    dropped what they placed on the card:
    a. B8's two CUDA variants.  The f32 CUDA-core ``flash_attention_bwd``
@@ -4284,6 +4313,467 @@ def lm_phases(args, torch, smi: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 7f: the MoE family, qwen3-moe-30b-a3b at full width
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen3-moe-30b-a3b"
+# 12 of the 48 layers: Model.init draws the parameters in f32, as the JAX
+# package does; 48 layers would be about 122 GB of f32, 12 layers (8.1 B
+# parameters) are 32.4 GB at init and 16.2 GB once cast to bf16
+MOE_LAYERS = 12
+MOE_NODES = 8               # stacked nodes of moe_block_sharded, 7f (a)
+MOE_NODE_TOKENS = 64
+MOE_DISPATCH_CF = 4.0
+MOE_DISPATCH_TOL = 2e-3     # tests/test_moe_dispatch.py's bound
+MOE_QUANT_PROMPT = 64       # prompt fed one token a step, 7f (c)
+MOE_QUANT_STEPS = 32
+MOE_QUANT_LEN = 128
+
+
+def _route_recorder(moe, store: list):
+    """Wrap ``moe.route`` to append each call's experts to ``store``;
+    returns the original for restoring."""
+    orig = moe.route
+
+    def route(router, xt, top_k):
+        top_p, top_e = orig(router, xt, top_k)
+        store.append(top_e)
+        return top_p, top_e
+
+    moe.route = route
+    return orig
+
+
+def _route_pinned(torch, moe, experts: list):
+    """Replace ``moe.route`` by one that takes each call's experts from
+    ``experts`` in order and their probabilities from this call's router
+    logits (softmax, gathered, renormalised): the same routing as the run
+    that recorded them, the rest computed afresh.  Returns the original."""
+    orig = moe.route
+    calls = iter(experts)
+
+    def route(router, xt, top_k):
+        top_e = next(calls)
+        with moe._no_tf32():
+            probs = torch.softmax(torch.matmul(xt.float(), router.float()),
+                                  dim=-1)
+        top_p = torch.gather(probs, -1, top_e)
+        return top_p / top_p.sum(dim=-1, keepdim=True), top_e
+
+    moe.route = route
+    return orig
+
+
+def _route_flips(torch, a: list, b: list) -> int:
+    """(token, layer) pairs whose expert sets differ between two runs."""
+    return sum(int((torch.sort(x, -1).values != torch.sort(y, -1).values)
+                   .any(-1).sum()) for x, y in zip(a, b))
+
+
+def moe_dispatch_check(torch, smi) -> dict:
+    """7f (a): ``moe_block_sharded`` at qwen3-moe's full width over the
+    stacked nodes, both backends, against ``apply_moe``."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+    from repro_torch.models.moe_dispatch import moe_block_sharded
+
+    cfg = get_arch(MOE_ARCH)
+    P, N, d = MOE_NODES, MOE_NODE_TOKENS, cfg.d_model
+    E_local = cfg.moe.num_experts // P
+    lp = moe.init_moe(torch.Generator(device="cuda").manual_seed(0), cfg)
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(P, N, d)).astype(np.float32)).cuda()
+    rcfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MOE_DISPATCH_CF))
+    dense = lambda: moe.apply_moe(lp, x.reshape(1, P * N, d), rcfg)  # noqa: E731
+    want = dense().reshape(P, N, d)
+    shard = {"router": lp["router"],
+             **{k: lp[k].view(P, E_local, *lp[k].shape[1:])
+                for k in ("w_gate", "w_up", "w_down")}}
+    out = {"dense_ms": _events_ms(torch, dense, 3)[0],
+           "max_abs_output": float(want.abs().max())}
+    for backend in ("xla", "one_factor"):
+        def run():
+            return moe_block_sharded(shard, x, cfg, backend=backend,
+                                     capacity_factor=MOE_DISPATCH_CF)
+        y, ovf = run()
+        if bool(ovf):
+            fail(f"7f (a) moe_block_sharded ({backend}) overflowed at "
+                 f"capacity factor {MOE_DISPATCH_CF}")
+        if not torch.allclose(y, want, rtol=MOE_DISPATCH_TOL,
+                              atol=MOE_DISPATCH_TOL):
+            fail(f"7f (a) moe_block_sharded ({backend}) differs from "
+                 f"apply_moe by {_errs(y, want)} (rtol, atol "
+                 f"{MOE_DISPATCH_TOL})")
+        out[backend] = {"max_abs_err": _errs(y, want)["max"],
+                        "ms": _events_ms(torch, run, 3)[0]}
+    print(f"7f (a) moe_block_sharded, qwen3-moe width in f32 (d {d}, "
+          f"{cfg.moe.num_experts} experts top {cfg.moe.top_k}, d_ff_expert "
+          f"{cfg.moe.d_ff_expert}), {P} nodes x {E_local} experts x {N} "
+          f"tokens, capacity factor {MOE_DISPATCH_CF}: both backends within "
+          f"rtol/atol {MOE_DISPATCH_TOL} of apply_moe, no overflow; {out} "
+          f"(ms: CUDA events, median of 3) on {smi}")
+    return out
+
+
+def moe_phase(args, torch, smi: str):
+    """Phase 7f: ``moe_block_sharded`` at full width, then qwen3-moe at
+    full width cut to MOE_LAYERS layers: prefill through B7 and decode on
+    the bf16 cache, the int8 cache through B9, their times.  Returns (the
+    main path's launches by kernel, a summary dict)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import build
+    from repro_torch.serve import sampling
+    from repro_torch.serve.engine import decode_loop
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch = moe_dispatch_check(torch, smi)
+    torch.cuda.empty_cache()
+
+    # -- (b) the model at full width, cut in depth ----------------------------
+    full = get_arch(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    model = build(cfg)
+    B, V = LM_BATCH, cfg.padded_vocab()
+    t0 = time.perf_counter()
+    p32 = model.init(0, device="cuda")
+    f32_bytes = sum(t.numel() * t.element_size() for t in p32.parameters())
+    n_params = sum(t.numel() for t in p32.parameters())
+    params = model.cast(p32)
+    del p32
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in params.parameters())
+    print(f"7f (b) {MOE_ARCH} cut in depth to {MOE_LAYERS} of "
+          f"{full.n_layers} layers (the 48 would be {full.num_params()} "
+          f"parameters, {4 * full.num_params()} B of f32 at init): d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, {cfg.moe.num_experts} experts top "
+          f"{cfg.moe.top_k}, d_ff_expert {cfg.moe.d_ff_expert}, vocab "
+          f"{cfg.vocab_size} padded to {V}: {n_params} parameters, f32 "
+          f"{f32_bytes} B -> bf16 {param_bytes} B on the card, initialised "
+          f"and cast in {init_s:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, LM_PROMPT), generator=gen,
+                           device="cuda")
+    zero = dict.fromkeys(ops.launch_counts(), 0)
+
+    def head(logits):
+        """The sharded greedy head on one step's logits (B, V)."""
+        local = logits.reshape(B, LM_SHARDS, V // LM_SHARDS).transpose(0, 1)
+        return sampling.topk_logits(local, LM_TOPK)[1][0, :, 0]
+
+    state0 = model.init_decode_state(B, LM_MAX_LEN)
+    cache_bytes = sum(t.numel() * t.element_size() for t in state0[:2])
+    moe_in, routes, logits_k = [], [], []
+    orig_moe = _recording(moe, "apply_moe", moe_in)
+    orig_route = _route_recorder(moe, routes)
+    ops.reset_launch_counts()
+    logits0, st = model.prefill(params, {"tokens": tokens}, state0,
+                                attn_impl="flash")
+    moe.apply_moe, moe.route = orig_moe, orig_route
+    first = torch.argmax(logits0, dim=-1)
+    st_eager = T.copy_cache(st)
+    gen_toks, st = decode_loop(model, params, st, first, LM_STEPS,
+                               shards=LM_SHARDS, k=LM_TOPK,
+                               logits_out=logits_k)
+    torch.cuda.synchronize()
+    got = ops.launch_counts()
+    want = {**zero, "flash_attention_fwd_tc": MOE_LAYERS}
+    if got != want:
+        fail(f"7f (b) launched {got}, expected {want}")
+    launches = dict(got)
+    if (int(st.length) != LM_MAX_LEN or st.host_length.n != LM_MAX_LEN
+            or gen_toks.shape != (B, LM_STEPS + 1)):
+        fail(f"7f (b): cache length {int(st.length)} (host "
+             f"{st.host_length.n}), tokens {tuple(gen_toks.shape)}")
+    if not all(torch.isfinite(x.float()).all() for x in [logits0, *logits_k]):
+        fail("7f (b): non-finite logits")
+    if not torch.equal(head(logits0), first):
+        fail("7f (b): the sharded head differs from argmax on the prefill")
+    for t, lg in enumerate(logits_k):
+        a = torch.argmax(lg, dim=-1)
+        if not (torch.equal(head(lg), a) and torch.equal(a, gen_toks[:, t + 1])):
+            fail(f"7f (b) step {t}: the sharded head differs from argmax")
+    e_replay = _replay_vs_eager(torch, model, params, st_eager, gen_toks,
+                                logits_k, head, "7f (b)")
+    del st_eager, logits_k
+    # the plain B7 (p in f32, as 7b): a token whose k-th and (k+1)-th
+    # experts lie within a rounding of a tie may take another expert, and
+    # the (token, layer) routes that differ from the kernel run's are
+    # counted
+    def prefill_with(p_dtype, routes=None):
+        """Logits of a prefill through the kernel (``p_dtype`` "kernel")
+        or the plain B7 with ``p_dtype``'s rounding of p, its experts
+        pinned to ``routes`` where given; returns (logits, the experts it
+        routed to)."""
+        orig_fa = ops.flash_attention_fwd
+        if p_dtype != "kernel":
+            ops.flash_attention_fwd = (
+                lambda qg, kg, vg, *, causal, window, prefix:
+                ref.flash_attention_fwd(qg, kg, vg, causal, window, prefix,
+                                        p_dtype=p_dtype))
+        seen = []
+        orig_route = (_route_recorder(moe, seen) if routes is None
+                      else _route_pinned(torch, moe, routes))
+        try:
+            lg, _ = model.prefill(params, {"tokens": tokens},
+                                  model.init_decode_state(B, LM_MAX_LEN),
+                                  attn_impl="flash")
+        finally:
+            ops.flash_attention_fwd, moe.route = orig_fa, orig_route
+        return lg, seen
+
+    def against_plain(lg0, routes) -> dict:
+        """The kernel prefill's logits ``lg0`` (its experts ``routes``)
+        against the plain B7's, with the routes that differ."""
+        lg, seen = prefill_with(None)
+        return {**_errs(lg0, lg), "route_flips": _route_flips(
+            torch, routes, seen), "routes": B * LM_PROMPT * MOE_LAYERS}
+
+    e_plain = against_plain(logits0, routes)
+    if not e_plain["max"] <= LOGIT_RTOL * e_plain["ref_max"]:
+        fail(f"7f (b) prefill vs the plain B7: logits differ by {e_plain} "
+             f"(limit {LOGIT_RTOL} x max |logit|)")
+    del routes
+    torch.cuda.empty_cache()
+    stats = moe.load_balance_stats(params.layers[0].moe, moe_in[0][0][1],
+                                   cfg)
+    load = stats["expert_load"]
+    balance = {"max_load": float(load.max()), "min_load": float(load.min()),
+               "uniform_load": 1 / cfg.moe.num_experts,
+               "drop_frac": float(stats["drop_frac"]),
+               "capacity": moe.capacity(B * LM_PROMPT, cfg.moe.num_experts,
+                                        cfg.moe.top_k,
+                                        cfg.moe.capacity_factor)}
+    print(f"7f (b): prefill {B} x {LM_PROMPT} tokens + {LM_STEPS} greedy "
+          f"steps replayed from one captured CUDA graph (shards "
+          f"{LM_SHARDS}, k {LM_TOPK}); launches {got}; the sharded head "
+          f"equals argmax on every step; the same steps run eagerly on a "
+          f"copy of the state chose the same tokens, logits within rtol "
+          f"2^-8 (max abs difference {e_replay}); prefill logits vs the "
+          f"plain B7: {e_plain} (limit {LOGIT_RTOL} x max |logit|); "
+          f"load_balance_stats of the prefill's first MoE block: {balance}")
+
+    # -- (c) the int8 cache through B9 -----------------------------------------
+    mq = build(cfg, cache_quant=True)
+    sq = mq.init_decode_state(B, MOE_QUANT_LEN)
+    qcache_bytes = sum(t.numel() * t.element_size() for t in sq[:4])
+    n_steps = MOE_QUANT_PROMPT + MOE_QUANT_STEPS
+    sq_start = T.copy_cache(sq)
+    fed_prompt = tokens[:, :MOE_QUANT_PROMPT].clone()
+    logits_q = []
+    ops.reset_launch_counts()
+    prompt, sq = decode_loop(mq, params, sq, tokens[:, 0], MOE_QUANT_PROMPT,
+                             shards=LM_SHARDS, k=LM_TOPK,
+                             forced=tokens[:, 1:MOE_QUANT_PROMPT],
+                             logits_out=logits_q)
+    sq_eager = T.copy_cache(sq)
+    q_toks, sq = decode_loop(mq, params, sq, prompt[:, -1], MOE_QUANT_STEPS,
+                             shards=LM_SHARDS, k=LM_TOPK, logits_out=logits_q)
+    torch.cuda.synchronize()
+    got = ops.launch_counts()
+    want = {**zero, "decode_attention": MOE_LAYERS * n_steps}
+    if got != want:
+        fail(f"7f (c) launched {got}, expected {want}")
+    launches["decode_attention"] = got["decode_attention"]
+    if int(sq.length) != n_steps or sq.host_length.n != n_steps:
+        fail(f"7f (c): cache length {int(sq.length)} (host "
+             f"{sq.host_length.n}), expected {n_steps}")
+    if not torch.equal(tokens[:, :MOE_QUANT_PROMPT], fed_prompt):
+        fail("7f (c): decode_loop wrote into the prompt it was fed")
+    # the eager steps (the MoE blocks' inputs of the last one kept)
+    e_replay_prompt = _replay_vs_eager(
+        torch, mq, params, sq_start, prompt, logits_q[:MOE_QUANT_PROMPT],
+        head, "7f (c) prompt", fed=fed_prompt)
+    dec_in = collections.deque(maxlen=MOE_LAYERS)
+    orig_moe = _recording(moe, "apply_moe", dec_in)
+    e_replay_q = _replay_vs_eager(torch, mq, params, sq_eager, q_toks,
+                                  logits_q[MOE_QUANT_PROMPT:], head, "7f (c)")
+    moe.apply_moe = orig_moe
+    del sq_start, sq_eager
+    fed = torch.cat([tokens[:, :MOE_QUANT_PROMPT],
+                     q_toks[:, :MOE_QUANT_STEPS]], 1)
+
+    def int8_vs_bf16(lqs, lfs) -> tuple:
+        """(worst errors, the largest excess over rtol QUANT_RTOL atol
+        QUANT_ATOL, whether every int8 argmax is in the bf16 top 5)."""
+        worst = {"max": 0.0, "mean": 0.0, "ref_max": 0.0}
+        over, in_top5 = -math.inf, True
+        for lq, lf in zip(lqs, lfs):
+            lq, lf = lq.float(), lf.float()
+            if not torch.isfinite(lq).all():
+                fail("7f (c): non-finite int8 logits")
+            e = _errs(lq, lf)
+            worst = {k: max(worst[k], e[k]) for k in worst}
+            over = max(over, float(((lq - lf).abs() - (
+                QUANT_ATOL + QUANT_RTOL * lf.abs())).max()))
+            top5 = torch.topk(lf, 5, dim=-1).indices
+            in_top5 &= bool((top5 == lq.argmax(-1, keepdim=True))
+                            .any(-1).all())
+        return worst, over, in_top5
+
+    # the bf16 cache fed the same tokens through decode_loop
+    sf = model.init_decode_state(B, MOE_QUANT_LEN)
+    logits_f = []
+    _, sf = decode_loop(model, params, sf, fed[:, 0], n_steps,
+                        shards=LM_SHARDS, k=LM_TOPK, forced=fed[:, 1:],
+                        logits_out=logits_f)
+    worst, over, in_top5 = int8_vs_bf16(logits_q, logits_f)
+    if over > 0:
+        fail(f"7f (c): int8 logits outside rtol {QUANT_RTOL} atol "
+             f"{QUANT_ATOL} of the bf16 cache's by up to {over}; {worst}")
+    if not in_top5:
+        fail("7f (c): an int8 argmax outside the bf16 path's top 5")
+    del logits_f, logits_q, sf
+    print(f"7f (c): {MOE_QUANT_PROMPT} prompt tokens one a step + "
+          f"{MOE_QUANT_STEPS} greedy steps over the int8 cache, each loop "
+          f"replayed from one captured CUDA graph; launches {got}; eager "
+          f"steps on copies of the state chose the same tokens, logits within "
+          f"rtol 2^-8 (greedy {e_replay_q}, prompt {e_replay_prompt}); "
+          f"logits vs the bf16 cache fed the same tokens: worst {worst} "
+          f"(rtol {QUANT_RTOL}, atol {QUANT_ATOL}); int8 argmax in the bf16 "
+          f"top 5 on every row and step")
+
+    # -- (d) times ---------------------------------------------------------------
+    times = {}
+    st_t = model.init_decode_state(B, LM_MAX_LEN)
+
+    def prefill():
+        return model.prefill(params, {"tokens": tokens}, st_t,
+                             attn_impl="flash")
+
+    times["prefill_ms"], _ = _events_ms(torch, prefill, LM_REPEAT)
+    times["prefill_tokens_per_s"] = B * LM_PROMPT / times["prefill_ms"] * 1e3
+
+    def replayed(m, s, n, tok, steps):
+        def run():
+            T.set_length(s, n)
+            return decode_loop(m, params, s, tok, steps, shards=LM_SHARDS,
+                               k=LM_TOPK)
+        return run
+
+    def eager(m, s, n, tok, steps):
+        def run():
+            T.set_length(s, n)
+            t_ = tok
+            for _ in range(steps):
+                lg, _ = m.decode_step(params, s, t_[:, None])
+                t_ = head(lg)
+            return t_
+        return run
+
+    for name, m, s, n, tok, steps in (
+            ("bf16_at_4096", model, st_t, LM_PROMPT, first, LM_STEPS),
+            ("int8_at_64", mq, sq, MOE_QUANT_PROMPT, fed[:, MOE_QUANT_PROMPT],
+             MOE_QUANT_STEPS)):
+        ms, _ = _events_ms(torch, replayed(m, s, n, tok, steps), LM_REPEAT)
+        ms2, _ = _events_ms(torch, replayed(m, s, n, tok, 2), 1)
+        ms_e, _ = _events_ms(torch, eager(m, s, n, tok, steps), 1)
+        times[f"decode_{name}_ms_per_step"] = ms / steps
+        times[f"decode_{name}_replay_ms_per_step"] = (ms - ms2) / (steps - 2)
+        times[f"decode_{name}_eager_ms_per_step"] = ms_e / steps
+        times[f"decode_{name}_tokens_per_s"] = B * steps / ms * 1e3
+    # the MoE blocks' share of the device time: the blocks alone on the
+    # inputs they had (the first prefill's, the last eager int8 step's)
+    # against the whole prefill and one replayed int8 step, each profiled
+    pre_busy, _ = profile_query(torch, prefill, "7f prefill")
+    blk_busy, _ = profile_query(
+        torch, lambda: [moe.apply_moe(*a, **kw) for a, kw in moe_in],
+        f"7f the {MOE_LAYERS} MoE blocks on the prefill's inputs")
+    step_busy, _ = profile_query(
+        torch, replayed(mq, sq, MOE_QUANT_PROMPT, fed[:, MOE_QUANT_PROMPT],
+                        2), "7f int8 decode x2 (warm-up + one replay)")
+    one_busy, _ = profile_query(
+        torch, replayed(mq, sq, MOE_QUANT_PROMPT, fed[:, MOE_QUANT_PROMPT],
+                        1), "7f int8 decode x1 (warm-up)")
+    dblk_busy, _ = profile_query(
+        torch, lambda: [moe.apply_moe(*a, **kw) for a, kw in dec_in],
+        f"7f the {MOE_LAYERS} MoE blocks on one int8 step's inputs")
+    times["moe_share_of_prefill"] = blk_busy / pre_busy
+    times["replayed_step_busy_ms"] = step_busy - one_busy
+    times["moe_share_of_replayed_step"] = dblk_busy / (step_busy - one_busy)
+    resident = {"params_bf16": param_bytes, "params_f32_at_init": f32_bytes,
+                "kv_cache_bf16": cache_bytes, "kv_cache_int8": qcache_bytes,
+                "peak_allocated": torch.cuda.max_memory_allocated()}
+
+    # -- (e) the reference's expert scale, not held ----------------------------
+    # The JAX init draws an expert's weights with the expert count as
+    # fan-in; the port draws them at their products' fan-in.  The same
+    # weights scaled to the reference's spread (w_gate and w_up by
+    # sqrt(d / E), w_down by sqrt(f / E)), read through (b)'s comparison,
+    # then with the routing pinned to the kernel run's (the plain B7 with
+    # the kernel's rounding of p; the bf16 cache fed (c)'s tokens in eager
+    # steps with the int8 steps' experts)
+    m_ = cfg.moe
+    for lp in params.layers:
+        for k, fan_in in (("w_gate", cfg.d_model), ("w_up", cfg.d_model),
+                          ("w_down", m_.d_ff_expert)):
+            lp.moe[k].mul_(math.sqrt(fan_in / m_.num_experts))
+    lg_ref, routes_ref = prefill_with("kernel")
+    e_ref_plain = against_plain(lg_ref, routes_ref)
+    e_ref_pinned = _errs(lg_ref, prefill_with(torch.bfloat16, routes_ref)[0])
+    routes_q, lqs, lfs = [], [], []
+    sq_ref = mq.init_decode_state(B, MOE_QUANT_LEN)
+    orig_route = _route_recorder(moe, routes_q)
+    for t in range(n_steps):
+        lq, sq_ref = mq.decode_step(params, sq_ref, fed[:, t:t + 1])
+        lqs.append(lq)
+    sf_ref = model.init_decode_state(B, MOE_QUANT_LEN)
+    moe.route = orig_route
+    orig_route = _route_pinned(torch, moe, routes_q)
+    for t in range(n_steps):
+        lf, sf_ref = model.decode_step(params, sf_ref, fed[:, t:t + 1])
+        lfs.append(lf)
+    moe.route = orig_route
+    ref_worst, ref_over, ref_top5 = int8_vs_bf16(lqs, lfs)
+    reference_scale = {
+        "plain_b7": e_ref_plain,
+        "plain_b7_same_rounding_same_routing": e_ref_pinned,
+        "int8_vs_bf16_same_routing": {**ref_worst, "excess_over_bounds":
+                                      ref_over, "argmax_in_top5": ref_top5}}
+    print(f"7f (e) the same weights at the reference's expert scale (not "
+          f"held): {reference_scale}")
+    del lg_ref, routes_ref, routes_q, lqs, lfs, sq_ref, sf_ref
+    print(f"7f times (CUDA events, median of {LM_REPEAT} warm runs, batch "
+          f"{B}; decode ms a step: a whole decode_loop / its steps; replay: "
+          f"(that loop - one 2-step loop) / (steps - 2); eager: one run of "
+          f"eager steps; MoE shares: device busy time of the blocks alone on "
+          f"their recorded inputs over that of the prefill / of one replayed "
+          f"step, torch.profiler) on {smi}: {times}; resident bytes "
+          f"{resident}")
+    del moe_in, dec_in, st_t, st, sq, params, model, mq
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 7f (MoE family, {MOE_ARCH}): {phase_s:.1f} s")
+    summary = {**times, "dispatch": dispatch, "balance": balance,
+               "resident_bytes": resident, "params": n_params,
+               "layers": f"{MOE_LAYERS} of {full.n_layers}",
+               "reference_expert_scale": reference_scale,
+               "logit_errs": {"plain_b7": e_plain,
+                              "replayed_vs_eager_bf16":
+                              e_replay, "replayed_vs_eager_int8": e_replay_q,
+                              "replayed_vs_eager_int8_prompt":
+                                  e_replay_prompt, "int8_vs_bf16": worst},
+               "phase_s": phase_s}
+    return launches, summary
+
+
+# ---------------------------------------------------------------------------
 # phase 8: training qwen2.5-3b at full width through B7 and B8
 # ---------------------------------------------------------------------------
 
@@ -4775,15 +5265,22 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_s["lm"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    moe_launches, moe_summary = moe_phase(args, torch, smi)
+    torch.cuda.empty_cache()
+    phase_s["moe"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     b8_kernels, train_launches, train = train_phases(args, torch, smi)
     phase_s["train"] = time.perf_counter() - t0
     for k in lm_kernels:
+        by_path = {"qwen2.5-3b serving": k["launches"],
+                   "qwen3-moe serving": moe_launches.get(k["name"], 0)}
         if k["name"].startswith("flash_attention_fwd"):
-            k["launches_by_path"] = {"prefill": k["launches"],
-                                     "training": train_launches[k["name"]]}
-            k["launches"] += train_launches[k["name"]]
+            by_path["training"] = train_launches[k["name"]]
+        k["launches_by_path"] = by_path
+        k["launches"] = sum(by_path.values())
     kernels = tpch_kernels + lm_kernels + b8_kernels
-    summary = {"card": smi, "tpch": tpch, "lm": lm, "train": train}
+    summary = {"card": smi, "tpch": tpch, "lm": lm, "moe": moe_summary,
+               "train": train}
     for k in kernels:
         if k.get("main_path", True) and k["launches"] < 1:
             fail(f"{k['name']} was never launched on the main path")

@@ -1,9 +1,10 @@
 """Architecture and input-shape registry of the port (counterpart of
 ``repro.configs.registry``).
 
-It names only the architectures the port serves: qwen2.5-3b.  The JAX
-package's other nine wait for their families (``ROADMAP.md`` queue A,
-item 11); asking for one raises an error that says so.
+It names only the architectures the port serves: qwen2.5-3b (dense),
+qwen3-moe-30b-a3b and phi3.5-moe-42b-a6.6b (MoE).  The JAX package's
+other seven wait for their families or their configs (``ROADMAP.md``
+queue A, item 11); asking for one raises an error that says so.
 """
 from __future__ import annotations
 
@@ -30,12 +31,13 @@ SHAPES = {
 
 _MODULES = {
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
+    "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi3_5_moe_42b_a6_6b",
 }
 
 # architectures of the JAX package the port does not serve yet
 _NOT_PORTED = ("yi-34b", "chatglm3-6b", "mistral-nemo-12b", "mamba2-2.7b",
-               "whisper-medium", "paligemma-3b", "qwen3-moe-30b-a3b",
-               "phi3.5-moe-42b-a6.6b", "recurrentgemma-2b")
+               "whisper-medium", "paligemma-3b", "recurrentgemma-2b")
 
 ARCHS = tuple(_MODULES)
 

@@ -2,8 +2,9 @@
 (§3.2.1), on the node-stacked cluster.
 
 Counterpart of ``repro.core.exchange`` (collectives, the personalized
-all-to-all with both backends, the wire format, ``request_reply`` and
-``exchange_by_owner``; ``exchange_vectors_by_owner`` is not ported).  The
+all-to-all with both backends, the wire format, ``request_reply``,
+``exchange_by_owner`` and ``exchange_vectors_by_owner``, the MoE
+dispatch's exchange of token rows).  The
 nodes a process holds are stacked on the leading axis of every tensor
 (all P in-process, L = P / W on each rank of a process group; see
 ``engine.Topology``), so a collective is a tensor operation over that
@@ -549,3 +550,32 @@ def exchange_by_owner(keys, values, mask, owner, *, capacity: int,
     recv_vals = all_to_all(vbuckets, backend=backend)
     recv_mask = all_to_all(bucket_mask, backend=backend)
     return recv_keys, recv_vals, recv_mask, overflow
+
+
+def exchange_vectors_by_owner(keys, vectors, mask, owner, *, capacity: int,
+                              backend: str = "xla"):
+    """:func:`exchange_by_owner` for vector payloads: route each node's
+    masked (key, row) pairs, keys (L, n) and rows (L, n, d), to the owner
+    of the key on the raw wire (the MoE dispatch: (expert id, token row)
+    to the node holding the expert).  Returns (recv_keys (L, P, cap),
+    recv_vectors (L, P, cap, d), recv_mask (L, P, cap), (dest, slot) of
+    each input pair (L, n) each, where a masked pair has destination P,
+    overflow)."""
+    L, n = keys.shape
+    P = cluster_nodes(L)
+    buckets, bucket_mask, dest_slot, overflow = bucket_by_destination(
+        keys, mask, owner, P, capacity)
+    # each slot's source pair: the bucketing of the pairs' indices
+    src = bucket_by_destination(
+        torch.arange(n, device=keys.device).expand(L, n), mask, owner, P,
+        capacity)[0].reshape(L, P * capacity)
+    d = vectors.shape[-1]
+    vbuckets = torch.gather(vectors, 1, src[..., None].expand(-1, -1, d))
+    vbuckets = torch.where(bucket_mask.reshape(L, -1, 1), vbuckets,
+                           torch.zeros((), dtype=vectors.dtype,
+                                       device=vectors.device))
+    recv_keys = all_to_all(buckets, backend=backend)
+    recv_vecs = all_to_all(vbuckets.reshape(L, P, capacity, d),
+                           backend=backend)
+    recv_mask = all_to_all(bucket_mask, backend=backend)
+    return recv_keys, recv_vecs, recv_mask, dest_slot, overflow

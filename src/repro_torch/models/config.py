@@ -1,7 +1,8 @@
 """Model configuration: a copy of ``repro.models.config`` (which imports no
 JAX; the port keeps its own copy so that it imports nothing of ``repro``).
-The port serves the dense family so far; the other sub-configs are kept
-so that every configuration of the JAX package can be described."""
+The port serves the dense and MoE families so far; the other sub-configs
+are kept so that every configuration of the JAX package can be
+described."""
 from __future__ import annotations
 
 import dataclasses

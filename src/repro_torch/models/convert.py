@@ -1,7 +1,8 @@
 """Parameters and training state between the JAX package and the port.
 
-:func:`params_from_jax` takes the JAX parameter tree of the dense family,
-as ``repro.models.params.values(model.init(key))`` returns it, with every
+:func:`params_from_jax` takes the JAX parameter tree of a model, dense or
+MoE (each layer's blocks cross by name, ``mlp`` or ``moe`` alike), as
+``repro.models.params.values(model.init(key))`` returns it, with every
 leaf already turned into a numpy array by the caller, and returns the
 port's :class:`~repro_torch.models.transformer.Transformer` on the CPU.
 The stacked ``layers`` axis is split across the module list; every array

@@ -4,8 +4,8 @@ the server.
 
 The loss computes cross-entropy in SEQUENCE CHUNKS, each checkpointed, so
 the (B, S, vocab) f32 logits never exist whole.  The port trains and
-serves the dense family; the others wait for ``ROADMAP.md`` queue A,
-item 11.3.
+serves the dense family and serves the MoE family (``models.moe``); the
+others wait for ``ROADMAP.md`` queue A, item 11.3.
 """
 from __future__ import annotations
 
@@ -19,8 +19,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 
+_FAMILIES = ("dense", "moe")
 _NOT_PORTED = {
-    "moe": "the MoE family (models/moe.py, moe_dispatch.py)",
     "ssm": "the SSM family (models/ssm.py)",
     "hybrid": "the hybrid family (models/hybrid.py)",
     "encdec": "the encoder-decoder family (models/encdec.py)",
@@ -39,7 +39,7 @@ class Model:
             raise NotImplementedError(
                 f"{self.cfg.name}: {_NOT_PORTED[self.cfg.family]} is not "
                 f"ported yet (ROADMAP.md queue A, item 11.3)")
-        if self.cfg.family != "dense":
+        if self.cfg.family not in _FAMILIES:
             raise ValueError(f"unknown family {self.cfg.family!r}")
 
     # ---- parameters -------------------------------------------------------

@@ -1,6 +1,8 @@
-"""Decoder-only transformer, dense family (counterpart of
+"""Decoder-only transformer, dense and MoE families (counterpart of
 ``repro.models.transformer``): parameters, the training forward, KV
-caches, prefill and decode.
+caches, prefill and decode.  The families differ in one block: a layer's
+feed-forward is the dense MLP or the MoE block (``models.moe``), chosen in
+:func:`_mlp_block`, which every path shares.
 
 Where the JAX package scans stacked layers, the port keeps an
 ``nn.ModuleList`` of :class:`Layer` modules and loops over it; its remat
@@ -30,6 +32,7 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import moe
 from repro_torch.models.params import param
 
 
@@ -74,8 +77,9 @@ def _param_dict(tensors: dict, trainable: bool) -> nn.ParameterDict:
 
 
 class Layer(nn.Module):
-    """One layer's parameters: ``ln1``, ``attn``, ``ln2``, ``mlp``, each a
-    dict of tensors named as in the JAX tree."""
+    """One layer's parameters: ``ln1``, ``attn``, ``ln2`` and ``mlp``
+    (dense) or ``moe`` (MoE), each a dict of tensors named as in the JAX
+    tree."""
 
     def __init__(self, tree: dict, trainable: bool = False):
         super().__init__()
@@ -84,7 +88,7 @@ class Layer(nn.Module):
 
 
 class Transformer(nn.Module):
-    """All parameters of a dense transformer: ``embedding``, ``layers``
+    """All parameters of a transformer: ``embedding``, ``layers``
     (one :class:`Layer` each), ``final_norm`` and, when the embedding is
     not tied, ``head``.  Frozen (``requires_grad`` False) for serving;
     ``trainable`` for training, where autograd fills each ``.grad``."""
@@ -152,17 +156,21 @@ def _layer_tree(cfg, gen, tp, dtype):
         attn["bq"] = param((H, hd), gen, init="zeros", dtype=dtype)
         attn["bk"] = param((KV, hd), gen, init="zeros", dtype=dtype)
         attn["bv"] = param((KV, hd), gen, init="zeros", dtype=dtype)
-    if cfg.act in ("swiglu", "geglu"):
-        mlp = {"w_gate": param((d, f), gen, dtype=dtype),
-               "w_up": param((d, f), gen, dtype=dtype),
-               "w_down": param((f, d), gen, dtype=dtype)}
+    out = {"ln1": _norm(gen, d, cfg.norm, dtype), "attn": attn,
+           "ln2": _norm(gen, d, cfg.norm, dtype)}
+    if cfg.family == "moe":
+        # no dense mlp beside the experts, as in the JAX init_layer
+        out["moe"] = moe.init_moe(gen, cfg, dtype)
+    elif cfg.act in ("swiglu", "geglu"):
+        out["mlp"] = {"w_gate": param((d, f), gen, dtype=dtype),
+                      "w_up": param((d, f), gen, dtype=dtype),
+                      "w_down": param((f, d), gen, dtype=dtype)}
     else:
-        mlp = {"w_up": param((d, f), gen, dtype=dtype),
-               "b_up": param((f,), gen, init="zeros", dtype=dtype),
-               "w_down": param((f, d), gen, dtype=dtype),
-               "b_down": param((d,), gen, init="zeros", dtype=dtype)}
-    return {"ln1": _norm(gen, d, cfg.norm, dtype), "attn": attn,
-            "ln2": _norm(gen, d, cfg.norm, dtype), "mlp": mlp}
+        out["mlp"] = {"w_up": param((d, f), gen, dtype=dtype),
+                      "b_up": param((f,), gen, init="zeros", dtype=dtype),
+                      "w_down": param((f, d), gen, dtype=dtype),
+                      "b_down": param((d,), gen, init="zeros", dtype=dtype)}
+    return out
 
 
 def init_transformer(cfg, gen: torch.Generator, tp: int = 1,
@@ -193,7 +201,11 @@ def _layer_mask(cfg) -> L.AttnMask:
 
 
 def _mlp_block(lp, x, cfg):
+    """The residual feed-forward of every path: the MoE block for the MoE
+    family, else the dense MLP."""
     h = L.apply_norm(lp.ln2, x, cfg.norm)
+    if cfg.family == "moe":
+        return x + moe.apply_moe(lp.moe, h, cfg)
     return x + L.apply_mlp(lp.mlp, h, cfg.act)
 
 

@@ -46,7 +46,9 @@ def test_port_file_list_is_complete():
                 "models/config.py", "models/params.py", "models/layers.py",
                 "models/transformer.py", "models/model.py",
                 "models/convert.py", "configs/registry.py",
-                "configs/qwen2_5_3b.py", "serve/sampling.py",
+                "configs/qwen2_5_3b.py", "configs/qwen3_moe_30b_a3b.py",
+                "configs/phi3_5_moe_42b_a6_6b.py", "models/moe.py",
+                "models/moe_dispatch.py", "serve/sampling.py",
                 "serve/engine.py", "kernels/flash_attention_bwd.py",
                 "optim/adamw.py", "data/synthetic.py",
                 "train/train_step.py", "train/checkpoint.py",

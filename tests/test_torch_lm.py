@@ -488,7 +488,8 @@ def test_serve_step_rejects_bad_shards():
         make_serve_step(build(tcfg), shards=3)
 
 
-@pytest.mark.parametrize("arch,family", [("qwen3-moe-30b-a3b", "moe"),
+@pytest.mark.parametrize("arch,family", [("recurrentgemma-2b", "hybrid"),
+                                         ("whisper-medium", "encdec"),
                                          ("mamba2-2.7b", "ssm"),
                                          ("paligemma-3b", "vlm")])
 def test_unported_architectures_raise(arch, family):
