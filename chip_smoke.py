@@ -221,6 +221,26 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
    repro_torch.launch.serve_olap --sf 0.1 --queries q6 q1 q4_sj q18`` as a
    subprocess exits 0 and prints one timing line a query; the phase's
    seconds beside the card's name and power limit.
+6i. The OLAP tier under a process group.  (i) An NCCL group of one rank
+   in this process and a ``TPCHDriver`` over it at the same scale factor
+   (the same data: phase 4's driver is the plain reference).  In
+   lockstep: the default cubes equal 6e's (counts, rows, min and max
+   exactly, sums within rtol 1e-5), launching nothing; the two
+   kernel-method cubes launch B2 once each and equal the plain driver's;
+   ``execute_batch(8)`` of q1_param, q6_param and
+   q14_promo_param_request equals the plain driver's byte for byte, with
+   the launches of B1 (lanes) and B3 the plans imply; ``explain_analyze``
+   of q4_sj and q18_sj reports 6g's all-to-all bytes.  Then the engine on
+   the grouped driver leads over 6f's serving mix (closed loop of 16):
+   every answer equals 6f's sequential one (byte for byte, a coalesced
+   ``q1_offedge`` lane within rtol 2e-4), no request fails, the launches
+   the dispatches imply, one descriptor a dispatch and the stop; the
+   plain engine on phase 4's driver beside it (both q/s printed), and a
+   descriptor timed alone.  (ii) ``serve_olap --serve --sf 0.1 --requests
+   64 --clients 8`` and ``serve_olap --cubes --sf 0.1`` under ``python -m
+   torch.distributed.run --standalone --nproc-per-node 1``, both at once,
+   exit 0 and print one report each, nothing failed; the phase's seconds
+   beside the card's name and power limit.
 7. The language model, after the TPC-H phases have
    dropped what they placed on the card:
    a. B7's two CUDA variants.  The f32 CUDA-core ``flash_attention_fwd``
@@ -1185,13 +1205,19 @@ def tpch_phases(args, torch, smi: str):
     cubes, serving_oracles = cube_phase(args, torch, smi, drv,
                                         main_launches, zero)
     # -- 6f. the serving tier: the engine and the launcher ---------------------
-    serving, engine_batched_scans = serving_phase(
+    serving, engine_batched_scans, serving_ref = serving_phase(
         torch, smi, drv, main_launches, serving_oracles, args.profile)
     # -- 6g. calibrations, the verifier, EXPLAIN ANALYZE, wire="auto" ----------
     explain = explain_phase(torch, smi, drv, main_launches, zero,
                             codec_times)
     # -- 6h. the cluster across processes: an NCCL group, serve_olap -------------
     distributed = distributed_phase(torch, smi, drv, main_launches, phase4)
+    # -- 6i. the OLAP tier under the group: lockstep, the engine leading ------
+    explained = {label: [sj[5] for sj in explain["explain_analyze"][label][
+        "semijoins"] if sj[0] == "request"] for label in OLAP_EXPLAINED}
+    olap_group, olap_batched_scans = olap_group_phase(
+        args, torch, smi, drv, main_launches, zero, serving_ref, explained)
+    del serving_ref
     for k in hand_kernels:
         k["launches"] = main_launches[k["name"]]
         if k["name"] == "predicate_bitset":
@@ -1234,12 +1260,13 @@ def tpch_phases(args, torch, smi: str):
             "bound_ms": t4["bound_ms"], "bound_by": t4["bound_by"],
             "library_ms": None, "shape": "q4_sj " + t4["shape"],
             "q18_sj": t18})
-    b1_lanes["launches"] += engine_batched_scans
+    b1_lanes["launches"] += engine_batched_scans + olap_batched_scans
     kernels += hand_kernels + [b1_lanes]
     return kernels, {"queries_ms": query_ms, "hand_plans": hand,
                      "semijoin_plans": semijoin, "prepared": prepared,
                      "cubes": cubes, "serving": serving,
                      "explain": explain, "distributed": distributed,
+                     "olap_group": olap_group,
                      "gen_s": gen_s,
                      "resident_bytes": drv.resident_bytes,
                      "lineitem_bytes": li_bytes, "sf": args.sf,
@@ -2875,6 +2902,27 @@ def _sync_device(torch, drv) -> None:
         torch.cuda.synchronize()
 
 
+def _serving_plans(drv, items) -> dict:
+    """Each tier-2 shape's launches of a workload, by source: scan_filter
+    once a packed scan, the codec once a packed request semi-join (a lane
+    in a batch), for its scalar plan and its batched one."""
+    codec = ("ef_encode", "ef_decode", "mask_fold", "mask_unfold")
+    plans = {}
+    for it in items:
+        if it.kind == "tier1" or it.prep.source in plans:
+            continue
+        plans[it.prep.source] = {}
+        for kind, ensure in (("scalar", drv._ensure_compiled),
+                             ("batch", drv._ensure_batched)):
+            plan = ensure(it.prep.entry).plan
+            n_codec = sum(sj.alt == "request" and sj.wire.packed
+                          for sj in plan.semijoins)
+            plans[it.prep.source][kind] = {
+                "scan_filter": sum(d.mode == "packed" for d in plan.scans),
+                **dict.fromkeys(codec, n_codec)}
+    return plans
+
+
 def serving_phase(torch, smi, drv, main_launches, oracles,
                   profile=False):
     """Phase 6f: the mixed workload of ``serve.workload`` (tier-1, param,
@@ -2885,7 +2933,9 @@ def serving_phase(torch, smi, drv, main_launches, oracles,
     ``launch/serve_olap.main`` in each mode at LAUNCHER_SF; with
     ``profile``, the device's busy share of the baseline and of a closed
     loop.  Adds the engine runs' launches to ``main_launches``; returns a
-    summary and the scans of the engine's batched dispatches."""
+    summary, the scans of the engine's batched dispatches, and the
+    workload, its sequential completions and its shapes' launches (the
+    reference of phase 6i)."""
     import asyncio
     import concurrent.futures
     import tempfile
@@ -2918,22 +2968,7 @@ def serving_phase(torch, smi, drv, main_launches, oracles,
                                     items[i].binding)
                      for i in sampled["param"]}
 
-    # each shape's launches: scan_filter once a packed scan, the codec
-    # once a packed request semi-join (a lane in a batch)
-    codec = ("ef_encode", "ef_decode", "mask_fold", "mask_unfold")
-    plans = {}
-    for it in items:
-        if it.kind == "tier1" or it.prep.source in plans:
-            continue
-        plans[it.prep.source] = {}
-        for kind, ensure in (("scalar", drv._ensure_compiled),
-                             ("batch", drv._ensure_batched)):
-            plan = ensure(it.prep.entry).plan
-            n_codec = sum(sj.alt == "request" and sj.wire.packed
-                          for sj in plan.semijoins)
-            plans[it.prep.source][kind] = {
-                "scan_filter": sum(d.mode == "packed" for d in plan.scans),
-                **dict.fromkeys(codec, n_codec)}
+    plans = _serving_plans(drv, items)
 
     t0 = time.perf_counter()
     seq = wl.sequential_baseline(drv, items)
@@ -3039,7 +3074,7 @@ def serving_phase(torch, smi, drv, main_launches, oracles,
                            "kinds": seq_rep["kinds"]},
             **runs, "oracle_max_rel_err": errs, "launcher_rcs": rcs,
             "launcher_s": launcher_s, "phase_s": phase_s}, \
-        engine_batched_scans
+        engine_batched_scans, (items, seq, plans)
 
 
 # ---------------------------------------------------------------------------
@@ -3449,6 +3484,343 @@ def distributed_phase(torch, smi, drv, main_launches, phase4):
     return {"card": smi, "queries": grouped, "group_s": group_s,
             "grouped_s": grouped_s, "torchrun_s": torchrun_s,
             "phase_s": phase_s}
+
+
+# ---------------------------------------------------------------------------
+# phase 6i: the OLAP tier under a process group (an NCCL group of one rank:
+# cubes, batches and EXPLAIN ANALYZE in lockstep, the engine leading)
+# ---------------------------------------------------------------------------
+
+# the batches of 6i: PARAM_QUERIES entries, OLAP_BATCH_LANES random
+# bindings each from OLAP_BATCH_SEED
+OLAP_BATCHES = (("q1", {}), ("q6", {}), ("q14_promo", {"alt": "request"}))
+OLAP_BATCH_LANES = 8
+OLAP_BATCH_SEED = 6
+OLAP_EXPLAINED = ("q4_sj", "q18_sj")
+DESCRIPTOR_CALLS = 200      # descriptors timed alone over the side group
+# serve_olap under torchrun, as a user runs it: mode -> arguments
+TORCHRUN_OLAP = {"--serve": ["--serve", "--sf", "0.1", "--requests", "64",
+                             "--clients", "8"],
+                 "--cubes": ["--cubes", "--sf", "0.1"]}
+
+
+def _same_cube(np, got, want, what) -> float:
+    """A grouped driver's cube against the plain driver's: every rollup's
+    counts, rows, min and max exactly, sums within rtol 1e-5; the rows
+    scanned equal.  Returns the largest relative difference of the
+    sums."""
+    if got.rows_scanned != want.rows_scanned:
+        fail(f"{what}: {got.rows_scanned} rows scanned, the plain driver's "
+             f"{want.rows_scanned}")
+    if sorted(got.rollups) != sorted(want.rollups):
+        fail(f"{what}: rollups {sorted(got.rollups)} vs "
+             f"{sorted(want.rollups)}")
+    aggs = {m.name: m.agg for m in want.spec.measures}
+    worst = 0.0
+    for dims, arrays in want.rollups.items():
+        for name, w in arrays.items():
+            g = got.rollups[dims][name]
+            if g.shape != w.shape or g.dtype != w.dtype:
+                fail(f"{what} {dims} {name}: {g.dtype}{g.shape} vs "
+                     f"{w.dtype}{w.shape}")
+            if aggs.get(name) == "sum":
+                d = np.abs(g.astype(np.float64) - w) / np.maximum(
+                    np.abs(w.astype(np.float64)), 1e-30)
+                worst = max(worst, float(d.max()))
+                if not np.allclose(g, w, rtol=1e-5, atol=0):
+                    fail(f"{what} {dims} {name}: beyond rtol 1e-5 of the "
+                         f"plain driver's")
+            elif not np.array_equal(g, w):
+                fail(f"{what} {dims} {name}: differs from the plain "
+                     f"driver's (exact)")
+    return worst
+
+
+def _torchrun_olap(env) -> dict:
+    """``serve_olap`` in each mode of TORCHRUN_OLAP under
+    ``torch.distributed.run`` (one rank, NCCL), the runs at once: each
+    exits 0 and prints its report once, nothing failed.  Returns the
+    seconds until each ended."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    runs = {}
+    for mode, argv in TORCHRUN_OLAP.items():
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               "--standalone", "--nproc-per-node", "1", "-m",
+               "repro_torch.launch.serve_olap", *argv]
+        runs[mode] = (subprocess.Popen(cmd, stdout=out, stderr=err, env=env,
+                                       cwd=str(ROOT)), out, err)
+    secs = {}
+    try:
+        for mode, (proc, out, err) in runs.items():
+            proc.wait(timeout=max(1.0, 600 - (time.perf_counter() - t0)))
+            secs[mode] = time.perf_counter() - t0
+    finally:
+        for proc, _, _ in runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for mode, (proc, out, err) in runs.items():
+        out.seek(0)
+        err.seek(0)
+        text = out.read()
+        print(text.rstrip())
+        if proc.returncode != 0:
+            print(err.read()[-4000:], file=sys.stderr)
+            fail(f"serve_olap {mode} under torch.distributed.run exited "
+                 f"{proc.returncode}")
+        mark = {"--serve": "sustained: ",
+                "--cubes": "tier-1 materialization total"}[mode]
+        if text.count("cluster: ") != 1 or text.count(mark) != 1:
+            fail(f"serve_olap {mode} under torch.distributed.run printed "
+                 f"{text.count('cluster: ')} cluster lines and "
+                 f"{text.count(mark)} reports, expected one")
+        if mode == "--serve" and "(0 failed)" not in text:
+            fail("serve_olap --serve under torch.distributed.run: a request "
+                 "failed")
+        print(f"serve_olap {' '.join(TORCHRUN_OLAP[mode])} under "
+              f"torch.distributed.run (1 rank, NCCL): exit 0, one report "
+              f"(ended after {secs[mode]:.1f} s, the runs at once)")
+    return secs
+
+
+def olap_group_phase(args, torch, smi, drv, main_launches, zero,
+                     serving_ref, explained):
+    """Phase 6i: (i) an NCCL process group of one rank in this process and
+    a ``TPCHDriver`` over it at phase 4's scale (the same data: phase 4's
+    driver ``drv`` is the plain reference).  Lockstep: the default cubes
+    equal 6e's on ``drv`` (counts, rows, min and max exactly, sums within
+    rtol 1e-5) and launch nothing; the two kernel-method cubes each launch
+    B2 once and equal ``drv``'s; ``execute_batch`` of q1_param, q6_param
+    and q14_promo_param_request at 8 bindings equals ``drv``'s byte for
+    byte, with the launches the plans imply; ``explain_analyze`` of q4_sj
+    and q18_sj reports 6g's all-to-all bytes, no overflow.  Then the
+    engine on the grouped driver leads (a rank of a group) over 6f's
+    serving mix, a closed loop of 16: each answer equals ``drv``'s
+    sequential one (``_engine_run``'s checks), one descriptor a dispatch
+    and the stop; the plain engine on ``drv`` in the same phase; a
+    descriptor timed alone.  The group is destroyed.  (ii) ``serve_olap
+    --serve`` and ``--cubes`` at SF 0.1 under ``torch.distributed.run``
+    (one rank), both at once, exit 0 with one report each.  Adds the
+    launches to ``main_launches``; returns a summary and the scans of the
+    batched dispatches (B1 with lanes)."""
+    import datetime
+    import os
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.core import engine, exchange
+    from repro_torch.cube import CubeSpec, Dimension, Measure
+    from repro_torch.cube.build import build_cube
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh
+    from repro_torch.serve import workload as wl
+    from repro_torch.tpch import cubes as tc
+    from repro_torch.tpch import queries as tq
+    from repro_torch.tpch.driver import Dispatch, TPCHDriver
+    from repro_torch.tpch.schema import day
+
+    items, seq, plans = serving_ref
+    codec = ("ef_encode", "ef_decode", "mask_fold", "mask_unfold")
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=300))
+    batched_scans = 0
+    out = {"card": smi}
+    try:
+        t0 = time.perf_counter()
+        gdrv = TPCHDriver(args.sf, num_nodes=NODES, device="cuda")
+        torch.cuda.synchronize()
+        out["gen_s"] = time.perf_counter() - t0
+        topo = gdrv.cluster.topology
+        if not topo.distributed or (topo.world, topo.local_nodes) != (
+                1, NODES):
+            fail(f"6i: the grouped driver holds {topo.local_nodes} nodes on "
+                 f"{topo.world} ranks, expected {NODES} on a group of 1")
+        if gdrv._fingerprint() != drv._fingerprint():
+            fail("6i: the grouped driver generated other data than phase 4")
+        print(f"6i: a TPCHDriver over an NCCL group of one rank (L = "
+              f"{topo.local_nodes}), sf={args.sf}, the data of phase 4, "
+              f"generated + placed in {out['gen_s']:.1f} s")
+
+        # -- the cubes, in lockstep -------------------------------------------
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        gdrv.build_cubes()
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        if got != zero:
+            fail(f"6i build_cubes launched {got}, expected no kernel")
+        cubes = {}
+        for name, want in drv.cubes.items():
+            cube = gdrv.cubes[name]
+            rel = _same_cube(np, cube, want, f"6i cube {name}")
+            cubes[name] = {"build_s": cube.build_seconds,
+                           "plain_build_s": want.build_seconds,
+                           "rows": cube.rows_scanned, "sum_max_rel": rel}
+            print(f"6i cube {name}: built in {cube.build_seconds:.3f} s "
+                  f"(6e: {want.build_seconds:.3f}), {cube.rows_scanned} "
+                  f"rows; every rollup equals 6e's (sums max relative "
+                  f"difference {rel:.3e})")
+        specs = _kernel_specs(CubeSpec, Dimension, Measure, tc, day)
+        for label in ("li_small", "li_yearly"):
+            spec = specs[(label, "kernel")]
+            ops.reset_launch_counts()
+            cube = build_cube(gdrv.cluster, gdrv.ctx, gdrv.placed, spec)
+            torch.cuda.synchronize()
+            got = ops.launch_counts()
+            if got != {**zero, "filtered_group_sum": 1}:
+                fail(f"6i kernel-method {label} launched {got}, expected "
+                     f"filtered_group_sum once")
+            main_launches["filtered_group_sum"] += 1
+            want = build_cube(drv.cluster, drv.ctx, drv.placed, spec)
+            rel = _same_cube(np, cube, want, f"6i {label} (kernel)")
+            cubes[label] = {"build_s": cube.build_seconds,
+                            "sum_max_rel": rel}
+            print(f"6i kernel-method cube {label}: filtered_group_sum "
+                  f"launched once, equals the plain driver's (sums max "
+                  f"relative difference {rel:.3e})")
+        out["cubes"] = cubes
+        del cube, want
+        torch.cuda.empty_cache()
+
+        # -- prepared batches, in lockstep ------------------------------------
+        rng = np.random.default_rng(OLAP_BATCH_SEED)
+        batches = {}
+        for name, kw in OLAP_BATCHES:
+            q = tq.PARAM_QUERIES[name](**kw)
+            label = name + "_param" + "".join(f"_{v}" for v in kw.values())
+            draws = [tq.random_binding(name, rng)
+                     for _ in range(OLAP_BATCH_LANES)]
+            want = drv.prepare(q).execute_batch(draws)
+            prep = gdrv.prepare(q)
+            plan = gdrv._ensure_batched(prep.entry).plan
+            n_codec = sum(sj.alt == "request" and sj.wire.packed
+                          for sj in plan.semijoins)
+            implied = {**zero, "scan_filter": sum(d.mode == "packed"
+                                                  for d in plan.scans),
+                       **dict.fromkeys(codec, n_codec * len(draws))}
+            ops.reset_launch_counts()
+            ans = prep.execute_batch(draws)
+            torch.cuda.synchronize()
+            got = ops.launch_counts()
+            if got != implied:
+                fail(f"6i {label} execute_batch launched {got}, its plan "
+                     f"implies {implied}")
+            batched_scans += got["scan_filter"]
+            for k, v in got.items():
+                main_launches[k] += v
+            if bool(ans.overflow.any()) or bool(want.overflow.any()):
+                fail(f"6i {label} execute_batch: an exchange overflowed")
+            if not _same_bytes(np, ans.value, want.value):
+                fail(f"6i {label} execute_batch differs from the plain "
+                     f"driver's")
+            batches[label] = {"launches": {k: v for k, v in got.items()
+                                           if v}}
+            print(f"6i {label} execute_batch({len(draws)}): equals the "
+                  f"plain driver's byte for byte; launches "
+                  f"{batches[label]['launches']}")
+        out["batches"] = batches
+
+        # -- EXPLAIN ANALYZE, in lockstep -------------------------------------
+        analyzed = {}
+        for label in OLAP_EXPLAINED:
+            q = getattr(tq, f"{label}_ir")()
+            gdrv.explain_analyze(q)          # lowers it where it is new
+            exchange.reset_wire_bytes()
+            ops.reset_launch_counts()
+            rep = gdrv.explain_analyze(q)
+            torch.cuda.synchronize()
+            got = ops.launch_counts()
+            for k, v in got.items():
+                main_launches[k] += v
+            obs = rep.observed
+            sjs = [sj.a2a_bytes for sj in rep.semijoins
+                   if sj.alt == "request"]
+            if obs["tier"] != 2 or obs["overflow"] or obs["lowerings"]:
+                fail(f"6i explain_analyze {label}: tier {obs['tier']}, "
+                     f"overflow {obs['overflow']}, {obs['lowerings']} "
+                     f"lowerings")
+            if sjs != explained[label]:
+                fail(f"6i explain_analyze {label}: semi-join bytes {sjs}, "
+                     f"6g's {explained[label]}")
+            analyzed[label] = {"a2a_bytes": sjs,
+                               "execute_ms": obs["execute_ms"],
+                               "launches": {k: v for k, v in got.items()
+                                            if v}}
+            print(f"6i explain_analyze {label}: semi-join all-to-all bytes "
+                  f"{sjs} = 6g's; execute {obs['execute_ms']:.3f} ms; "
+                  f"launches {analyzed[label]['launches']}")
+        out["explain_analyze"] = analyzed
+
+        # -- the engine, leading ----------------------------------------------
+        items_g = wl.mixed_workload(gdrv, SERVE_REQUESTS, seed=0)
+        if [(i.kind, i.name, i.binding) for i in items_g] != [
+                (i.kind, i.name, i.binding) for i in items]:
+            fail("6i: the grouped driver's serving mix differs from 6f's")
+        t0 = time.perf_counter()
+        wl.warm_workload(gdrv, items_g, batch_sizes=SERVE_WARM_SIZES)
+        torch.cuda.synchronize()
+        out["warm_s"] = time.perf_counter() - t0
+        plans_g = _serving_plans(gdrv, items_g)
+        engine.reset_dist_calls()
+        lead, _, got, bscans = _engine_run(
+            torch, gdrv, items_g, seq, plans_g,
+            label="6i the engine leading (NCCL group of one rank)")
+        calls = engine.dist_calls()
+        batched_scans += bscans
+        for k, v in got.items():
+            main_launches[k] += v
+        if calls.get("descriptor", 0) != lead["dispatches"] + 1:
+            fail(f"6i: {calls.get('descriptor', 0)} descriptors for "
+                 f"{lead['dispatches']} dispatches and the stop")
+        plain, _, got, bscans = _engine_run(
+            torch, drv, items, seq, plans,
+            label="6i the plain engine (no group)")
+        batched_scans += bscans
+        for k, v in got.items():
+            main_launches[k] += v
+        # a descriptor alone: a coalesced dispatch of 16 q6 lanes
+        q6 = next(i for i in items if i.name == "q6")
+        desc = Dispatch(0, True, tuple([q6.prep.binding(q6.binding)] * 16),
+                        16)
+        t0 = time.perf_counter()
+        for _ in range(DESCRIPTOR_CALLS):
+            engine.descriptor(desc, topo)
+        desc_ms = (time.perf_counter() - t0) / DESCRIPTOR_CALLS * 1e3
+        per_dispatch = ((lead["wall_s"] - plain["wall_s"])
+                        / lead["dispatches"] * 1e3)
+        out.update(leader=lead, plain=plain, dist_calls=calls,
+                   descriptor_ms=desc_ms,
+                   wall_ms_more_a_dispatch=per_dispatch)
+        print(f"6i on {smi}: the engine leading {lead['qps']:.1f} q/s "
+              f"({lead['dispatches']} dispatches, {calls['descriptor']} "
+              f"descriptors), the plain engine {plain['qps']:.1f} q/s "
+              f"({plain['dispatches']} dispatches); wall difference "
+              f"{per_dispatch:.3f} ms a leader's dispatch; a descriptor "
+              f"alone {desc_ms:.4f} ms (host clock, {DESCRIPTOR_CALLS} "
+              f"calls)")
+        del gdrv, items_g, plans_g
+    finally:
+        mesh.destroy()
+    torch.cuda.empty_cache()
+    grouped_s = time.perf_counter() - t_phase
+
+    # -- (ii) serve_olap --serve and --cubes under torchrun ---------------------
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), PYTHONHASHSEED="0")
+    out["torchrun_s"] = _torchrun_olap(env)
+    out["grouped_s"] = grouped_s
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 6i (the OLAP tier under a process group): "
+          f"{out['phase_s']:.1f} s (grouped driver {grouped_s:.1f} s, "
+          f"of it generation {out['gen_s']:.1f} s; the torchrun runs at "
+          f"once {max(out['torchrun_s'].values()):.1f} s) on {smi}")
+    return out, batched_scans
 
 
 # ---------------------------------------------------------------------------

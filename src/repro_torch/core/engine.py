@@ -19,6 +19,14 @@ axis first and then across the ranks, and ``node_ids`` stands for
 ``lax.axis_index``.  While a bound plan runs, its cluster's topology is
 the active one (:func:`active_topology`), which the collectives and the
 partitionings read.
+
+Beside the group its collectives cross, a distributed topology holds a
+gloo side group over the same ranks (``control``, made once a group by
+``launch.mesh.control_group``): the descriptor channel of the serving
+engine, rank 0 leading and the others following (:func:`descriptor`), and
+the ranks' host barrier (:func:`barrier`).  It carries host objects only,
+so a descriptor costs the card nothing (a broadcast of Python objects
+over NCCL would read each one's size back from the card).
 """
 from __future__ import annotations
 
@@ -63,6 +71,7 @@ class Topology:
     world: int = 1          # W, the ranks of the group
     rank: int = 0           # this process's rank in the group
     group: Any = None       # torch.distributed ProcessGroup, None in-process
+    control: Any = None     # the gloo side group over the same ranks
 
     def __post_init__(self):
         if self.num_nodes % self.world:
@@ -159,6 +168,25 @@ def dist_calls() -> dict:
 
 def reset_dist_calls() -> None:
     _DIST_CALLS.clear()
+
+
+def descriptor(obj, topo: Topology):
+    """Rank 0's ``obj`` (any picklable host object) on every rank of the
+    topology: one broadcast over its gloo side group, so nothing is read
+    back from the card.  Counted in :func:`dist_calls` as "descriptor";
+    not a plan's collective, so not in the collective record."""
+    _DIST_CALLS["descriptor"] += 1
+    box = [obj]
+    dist.broadcast_object_list(box, src=topo.global_rank(0),
+                               group=topo.control)
+    return box[0]
+
+
+def barrier(topo: Topology) -> None:
+    """Wait until every rank of the topology reaches this call (over the
+    side group, on the host; counted as "barrier")."""
+    _DIST_CALLS["barrier"] += 1
+    dist.barrier(group=topo.control)
 
 
 def wire_view(t: torch.Tensor) -> torch.Tensor:
@@ -310,9 +338,10 @@ def _default_group(group, device: torch.device):
 
 def _group_topology(num_nodes: int, group, device: torch.device
                     ) -> Topology:
-    """The topology of a ``num_nodes``-node cluster over ``group``: raises
-    when the group's backend cannot serve ``device`` (NCCL for CUDA, gloo
-    for the CPU), when the ranks disagree on P, or when P % W != 0."""
+    """The topology of a ``num_nodes``-node cluster over ``group`` and its
+    side group: raises when the group's backend cannot serve ``device``
+    (NCCL for CUDA, gloo for the CPU), when the ranks disagree on P, or
+    when P % W != 0."""
     backend = str(dist.get_backend(group))
     need = "nccl" if device.type == "cuda" else "gloo"
     if need not in backend:
@@ -328,7 +357,10 @@ def _group_topology(num_nodes: int, group, device: torch.device
     if (every != num_nodes).any():
         raise ValueError(f"the ranks disagree on the cluster's nodes: "
                          f"{every.tolist()}")
-    return Topology(num_nodes, world, rank, group)
+    topo = Topology(num_nodes, world, rank, group)
+    from repro_torch.launch import mesh  # launch imports the core
+
+    return dataclasses.replace(topo, control=mesh.control_group(group))
 
 
 def _rows_per_node(t: Table) -> int:

@@ -12,6 +12,10 @@ reduce operator merges the partial result sets", §3.2.3.  Coarser rollups
 are marginals of the finest and are derived inside the same plan, so N
 rollups cost ONE scan of the node-stacked columns.  Packed residents are
 decoded when the plan first reads them, as for the hand plans.
+
+Under a process group of W ranks every rank runs the same build
+(lockstep): each scans its L = P / W nodes, the merges cross the ranks,
+and every rank holds the whole cube.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import aggregation, exchange
-from repro_torch.core.engine import psum
+from repro_torch.core.engine import barrier, psum
 from repro_torch.cube.spec import CubeSpec
 
 ROWS = "__rows"  # internal per-cell row count, present in every rollup
@@ -186,22 +190,29 @@ class Cube:
         )
 
 
-def _sync(device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _sync(cluster) -> None:
+    """The cluster's card done and, under a process group, every rank at
+    this point (so a time taken between two of these covers every
+    rank)."""
+    if cluster.device.type == "cuda":
+        torch.cuda.synchronize(cluster.device)
+    if cluster.topology.distributed:
+        barrier(cluster.topology)
 
 
 def build_cube(cluster, ctx, placed, spec: CubeSpec) -> Cube:
     """Bind + run the build plan over already-placed tables (the driver's
     ``placed``); returns the host-side ``Cube``.  ``build_seconds`` is
-    the plan's wall time with the device synchronized on both sides."""
+    the plan's wall time with the device, and every rank of a process
+    group, synchronized on both sides.  ``rows_scanned`` counts every
+    node's rows (the partitioning's, not this rank's L nodes')."""
     plan = make_build_plan(spec)
     fn = cluster.compile(plan, ctx)
     columns = {n: t.columns for n, t in placed.items()}
-    _sync(ctx.device)
+    _sync(cluster)
     t0 = time.perf_counter()
     out = fn(columns)
-    _sync(ctx.device)
+    _sync(cluster)
     dt = time.perf_counter() - t0
     rollups = {}
     # spec.rollups entries are name tuples in declaration order; arrays follow
@@ -212,6 +223,5 @@ def build_cube(cluster, ctx, placed, spec: CubeSpec) -> Cube:
             name: arr.cpu().numpy()
             for name, arr in out[rollup_key(rollup)].items()
         }
-    nrows = placed[spec.table].num_rows
     return Cube(spec=spec, rollups=rollups, build_seconds=dt,
-                rows_scanned=nrows)
+                rows_scanned=ctx.part(spec.table).total_rows)

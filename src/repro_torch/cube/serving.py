@@ -6,7 +6,9 @@ router's host-side rollup slice (N floored at 10 because a single slice is
 microseconds); Tier 2 is the SAME query lowered to a plan over the base
 tables — the path ``driver.query()`` takes on a cube miss — warm, over
 ``repeat`` runs, each timed with the device synchronized before and
-after it.
+after it (and under a process group every rank at that point: every
+rank calls ``measure_query`` alike, lockstep, and the tier-2 runs cross
+the ranks).
 
 Reported statistics are the TRIMMED MEDIAN (drop the top/bottom ~10% of
 repeats when there are enough of them, then take the median — robust to
@@ -55,7 +57,7 @@ def measure_query(driver, q, *, repeat: int = 5):
     cols = driver.columns()
 
     def sync():
-        _sync(driver.cluster.device)
+        _sync(driver.cluster)
 
     driver.router.answer(match.query, match.route)  # warmup (numpy setup)
     s1 = [_clock(lambda: driver.router.answer(match.query, match.route))

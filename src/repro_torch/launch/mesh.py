@@ -9,7 +9,12 @@ P.  Under ``python -m torch.distributed.run`` (torchrun) the entry points
 (``Cluster``, ``TPCHDriver``, ``launch/serve_olap``) form the default
 group themselves through :func:`init_from_env`: NCCL on
 ``cuda:LOCAL_RANK``, gloo on the CPU, a bounded timeout, the group
-destroyed at exit.
+destroyed at exit.  Beside each group a cluster spans,
+:func:`control_group` makes a gloo side group over the same ranks, once a
+group: the channel of the serving engine's descriptors (rank 0's
+``OLAPEngine`` leads, every other rank runs ``TPCHDriver.follow``) and
+of the ranks' host barriers.  It is gloo on the card too: a descriptor is
+a host object, and NCCL would read each one's size back from the card.
 
 Every rank generates the same tables, and ``tpch/dbgen`` seeds with
 ``hash(table)``, so every rank needs the same ``PYTHONHASHSEED``
@@ -20,9 +25,12 @@ passes its own environment on to the ranks::
         --standalone --nproc-per-node 4 -m repro_torch.launch.serve_olap \\
         --device cpu --sf 0.01 --queries q6 q1 q4_sj q18
 
-The reference module's LM meshes and ``hardware_constants`` have no
-counterpart here yet: they come with the sharded trainer (ROADMAP item
-11.1).
+Every OLAP path runs across the ranks: the queries, the cubes, prepared
+batches, EXPLAIN ANALYZE and ``serve_olap --serve``, ``--cubes`` and
+``--lint``.  Per-node generation (each rank making only its own nodes'
+rows) waits in ROADMAP item 9.  The reference module's LM meshes and
+``hardware_constants`` have no counterpart here yet: they come with the
+sharded trainer (ROADMAP item 11.1).
 """
 from __future__ import annotations
 
@@ -47,7 +55,31 @@ def under_torchrun() -> bool:
     return all(k in os.environ for k in _TORCHRUN_ENV)
 
 
-def _destroy() -> None:
+# a group's ranks -> (the default group it was made under, its gloo side
+# group): one side group for every group over the same ranks (its name is
+# a hash of the ranks), made anew once the default group is
+_CONTROL: dict = {}
+
+
+def control_group(group):
+    """The gloo side group over ``group``'s ranks, made on first use and
+    kept while the default group lives.  Only the group's own ranks make
+    it (local synchronization), so a group that is a part of the world, as
+    a group of one rank, gets one too."""
+    ranks = tuple(dist.get_process_group_ranks(group))
+    world = dist.group.WORLD
+    hit = _CONTROL.get(ranks)
+    if hit is None or hit[0] is not world:
+        hit = _CONTROL[ranks] = (world, dist.new_group(
+            list(ranks), backend="gloo",
+            timeout=datetime.timedelta(seconds=TIMEOUT_S),
+            use_local_synchronization=True))
+    return hit[1]
+
+
+def destroy() -> None:
+    """Tear the default group down, the side groups with it."""
+    _CONTROL.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -70,7 +102,7 @@ def init_from_env(device=None, timeout_s: float = TIMEOUT_S):
     dist.init_process_group(
         backend, init_method="env://",
         timeout=datetime.timedelta(seconds=timeout_s))
-    atexit.register(_destroy)
+    atexit.register(destroy)
     return dist.group.WORLD
 
 

@@ -33,31 +33,32 @@ writes the structured trace as Chrome-trace JSON (Perfetto).
 The P = 8 nodes are stacked on one device (``--device``, ``cuda`` by
 default; ``cpu`` runs the kernels' plain PyTorch versions).  Under
 torchrun the W ranks hold P / W nodes each (NCCL on ``cuda:LOCAL_RANK``,
-gloo with ``--device cpu``; ``launch/mesh.py``); every rank runs the
-queries and rank 0 alone prints, the same lines as one process.  The
-ranks need one ``PYTHONHASHSEED`` (the driver checks their data)::
+gloo with ``--device cpu``; ``launch/mesh.py``) and rank 0 alone
+prints, the same lines as one process; every rank exits with the same
+code.  The queries, ``--cubes`` and ``--lint`` run on every rank alike
+(lockstep), as does ``--serve``'s set-up (the cubes, the workload, the
+warm-up); then rank 0 runs the engine and leads, and the other ranks
+follow it (``TPCHDriver.follow``) until it publishes the stop, which
+this launcher also publishes on its way out.  The ranks need one
+``PYTHONHASHSEED`` (the driver checks their data)::
 
     PYTHONHASHSEED=0 PYTHONPATH=src python -m torch.distributed.run \
         --standalone --nproc-per-node 2 -m repro_torch.launch.serve_olap \
-        --device cpu --sf 0.01 --queries q6 q1 q4_sj q18
-
-``--serve``, ``--cubes`` and ``--lint`` run in one process only and
-raise under W > 1: the engine's batches follow host timing, which differs
-between ranks (ROADMAP item 9).
+        --device cpu --sf 0.01 --serve --requests 64 --clients 8
 """
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 import time
 
 
-def _lint(d) -> int:
+def _lint(d, say=print) -> int:
     """--lint: statically verify every registry IR query, parameterized
     TPC-H form and cube serving query against the generated catalog
     (``query.verify``); nothing is lowered or run.  Exit nonzero on any
-    error or warning; info advisories are allowed."""
+    error or warning; info advisories are allowed.  ``say`` prints a line
+    (under a process group: on rank 0 alone)."""
     from repro_torch.core.plans import REGISTRY
     from repro_torch.query.ir import QueryError
     from repro_torch.tpch import queries as tq
@@ -72,16 +73,16 @@ def _lint(d) -> int:
         try:
             rep = d.check(q)
         except QueryError as e:
-            print(f"{label:>22s}  ERROR  verify failed: {e}")
+            say(f"{label:>22s}  ERROR  verify failed: {e}")
             failed += 1
             continue
         status = "clean" if rep.clean else ("WARN" if rep.ok else "FAIL")
-        print(f"{label:>22s}  {status}")
+        say(f"{label:>22s}  {status}")
         for x in rep.diagnostics:
-            print(f"{'':>24s}{x.format()}")
+            say(f"{'':>24s}{x.format()}")
         if not rep.clean:
             failed += 1
-    print(f"\n{len(targets)} plans verified, {failed} with errors/warnings")
+    say(f"\n{len(targets)} plans verified, {failed} with errors/warnings")
     return 1 if failed else 0
 
 
@@ -94,7 +95,7 @@ def _speedup_str(tier2_s: float, tier1_s: float) -> str:
     return f"{tier2_s / tier1_s:7.0f}x"
 
 
-def _serve_cubes(d, repeat: int):
+def _serve_cubes(d, repeat: int, say=print):
     from repro_torch.cube.serving import measure_query
     from repro_torch.tpch import cubes as tpch_cubes
 
@@ -102,27 +103,29 @@ def _serve_cubes(d, repeat: int):
     d.build_cubes()
     build_s = time.monotonic() - t0
     for name, cube in d.cubes.items():
-        print(f"cube {name}: {cube.num_values} values from "
-              f"{cube.rows_scanned} rows in {cube.build_seconds:.2f}s")
-    print(f"tier-1 materialization total: {build_s:.2f}s\n")
+        say(f"cube {name}: {cube.num_values} values from "
+            f"{cube.rows_scanned} rows in {cube.build_seconds:.2f}s")
+    say(f"tier-1 materialization total: {build_s:.2f}s\n")
 
-    print(f"{'query':>22s} {'tier1[us]':>10s} {'p99[us]':>9s} "
-          f"{'tier2[ms]':>10s} {'p99[ms]':>9s} {'speedup':>8s}  tier2 plan")
+    say(f"{'query':>22s} {'tier1[us]':>10s} {'p99[us]':>9s} "
+        f"{'tier2[ms]':>10s} {'p99[ms]':>9s} {'speedup':>8s}  tier2 plan")
     for name, make_query in tpch_cubes.SERVING_QUERIES.items():
         m = measure_query(d, make_query(), repeat=repeat)
         if m is None:
-            print(f"{name:>22s} {'--':>10s} (not cube-covered; tier 2 only)")
+            say(f"{name:>22s} {'--':>10s} (not cube-covered; tier 2 only)")
             continue
-        print(f"{name:>22s} {m['tier1_s']*1e6:10.1f} "
-              f"{m['tier1_p99_s']*1e6:9.1f} {m['tier2_s']*1e3:10.2f} "
-              f"{m['tier2_p99_s']*1e3:9.2f} "
-              f"{_speedup_str(m['tier2_s'], m['tier1_s'])}  {m['plan']}")
+        say(f"{name:>22s} {m['tier1_s']*1e6:10.1f} "
+            f"{m['tier1_p99_s']*1e6:9.1f} {m['tier2_s']*1e3:10.2f} "
+            f"{m['tier2_p99_s']*1e3:9.2f} "
+            f"{_speedup_str(m['tier2_s'], m['tier1_s'])}  {m['plan']}")
     return 0
 
 
-def _serve_engine(d, args):
+def _serve_engine(d, args, say=print):
     """--serve: drive the continuous-batching engine under concurrent
-    load and report per-class latency, throughput and batching stats."""
+    load and report per-class latency, throughput and batching stats.
+    Under a process group every rank sets up alike; rank 0 then leads the
+    engine and the other ranks follow it."""
     import asyncio
 
     from repro_torch.serve import workload as wl
@@ -130,7 +133,7 @@ def _serve_engine(d, args):
 
     t0 = time.monotonic()
     d.build_cubes()
-    print(f"tier-1 cubes built in {time.monotonic() - t0:.2f}s")
+    say(f"tier-1 cubes built in {time.monotonic() - t0:.2f}s")
     items = wl.mixed_workload(d, args.requests, seed=args.seed)
     sizes = sorted({2 ** i for i in range(args.max_batch.bit_length())
                     if 2 ** i <= args.max_batch} | {args.max_batch})
@@ -138,12 +141,17 @@ def _serve_engine(d, args):
     wl.warm_workload(d, items, batch_sizes=sizes)
     n_kind = {k: sum(1 for i in items if i.kind == k)
               for k in ("tier1", "param", "tier2")}
-    print(f"warmed {len({i.prep.shape_key for i in items})} shapes "
-          f"(batch lanes {sizes}) in {time.monotonic() - t0:.2f}s")
-    print(f"workload: {len(items)} requests "
-          f"(tier1 {n_kind['tier1']} / param {n_kind['param']} / "
-          f"tier2 {n_kind['tier2']}), "
-          f"{'open loop @ %g q/s' % args.rate if args.rate else 'closed loop, %d clients' % args.clients}")
+    say(f"warmed {len({i.prep.shape_key for i in items})} shapes "
+        f"(batch lanes {sizes}) in {time.monotonic() - t0:.2f}s")
+    say(f"workload: {len(items)} requests "
+        f"(tier1 {n_kind['tier1']} / param {n_kind['param']} / "
+        f"tier2 {n_kind['tier2']}), "
+        f"{'open loop @ %g q/s' % args.rate if args.rate else 'closed loop, %d clients' % args.clients}")
+    topo = d.cluster.topology
+    if topo.distributed and topo.rank != 0:
+        d.follow()
+        return 0
+    d.lead()  # main's finally publishes the stop whatever happens
 
     async def go():
         engine = OLAPEngine(d, max_batch=args.max_batch,
@@ -176,20 +184,6 @@ def _serve_engine(d, args):
           f"tier1 inline {stats['tier1']}, solo {stats['solo']}, "
           f"rejected {stats['rejected']}")
     return 0
-
-
-def _world() -> int:
-    """The ranks this process runs among: the initialised group's, else
-    torchrun's ``WORLD_SIZE``, else 1."""
-    import torch.distributed as dist
-
-    from repro_torch.launch import mesh
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    if mesh.under_torchrun():
-        return int(os.environ["WORLD_SIZE"])
-    return 1
 
 
 def _sync(device) -> None:
@@ -242,7 +236,7 @@ def main(argv=None):
     from repro_torch.core.engine import resolve_device
     from repro_torch.core.plans import PLANS
     from repro_torch.tpch import queries as tq
-    from repro_torch.tpch.driver import SingleProcessError, TPCHDriver
+    from repro_torch.tpch.driver import TPCHDriver
 
     # the lowered exchange shapes, beside the registry's hand plans
     exchange_queries = {"q4_sj": tq.q4_sj_ir, "q18_sj": tq.q18_sj_ir}
@@ -256,15 +250,6 @@ def main(argv=None):
             print(f"valid --queries names: {', '.join(sorted(valid))}",
                   file=sys.stderr)
             return 2
-    world = _world()
-    mode = next((f"--{m}" for m in ("serve", "cubes", "lint")
-                 if getattr(args, m)), None)
-    if world > 1 and mode is not None:
-        raise SingleProcessError(
-            f"{mode} runs in one process only, not on {world} ranks: the "
-            f"engine's batch choices follow host timing, which differs "
-            f"between ranks (ROADMAP item 9)")
-
     d = TPCHDriver(sf=args.sf, seed=args.seed, backend=args.backend,
                    device=args.device)
     nodes = d.cluster.num_nodes
@@ -276,19 +261,19 @@ def main(argv=None):
 
     try:
         if args.lint:
-            print(f"cluster: {nodes} nodes | SF {args.sf} | "
-                  f"static plan verify")
-            return _lint(d)
+            say(f"cluster: {nodes} nodes | SF {args.sf} | "
+                f"static plan verify")
+            return _lint(d, say)
         if args.serve:
-            print(f"cluster: {nodes} nodes | SF {args.sf} | "
-                  f"continuous-batching serving")
-            return _serve_engine(d, args)
+            say(f"cluster: {nodes} nodes | SF {args.sf} | "
+                f"continuous-batching serving")
+            return _serve_engine(d, args, say)
         if args.cubes:
-            print(f"cluster: {nodes} nodes | SF {args.sf} | two-tier serving")
+            say(f"cluster: {nodes} nodes | SF {args.sf} | two-tier serving")
             if args.queries:
-                print("note: --queries is ignored with --cubes (the fixed "
-                      "tpch.cubes.SERVING_QUERIES set is measured)")
-            return _serve_cubes(d, args.repeat)
+                say("note: --queries is ignored with --cubes (the fixed "
+                    "tpch.cubes.SERVING_QUERIES set is measured)")
+            return _serve_cubes(d, args.repeat, say)
         names = args.queries or list(PLANS)
         device = d.cluster.device
         # the device as one process names it (a rank's carries its index)
@@ -319,6 +304,7 @@ def main(argv=None):
             say(f"{name:>14s} {compile_s:10.2f} {min(times)*1e3:9.2f}")
         return 0
     finally:
+        d.stop_followers()  # --serve's leader: the followers' stop
         if args.metrics:
             say("\n" + d.obs.metrics.report())
         if args.trace and rank == 0:

@@ -11,6 +11,9 @@ execute milliseconds, the run's overflow, and per-semijoin all-to-all
 bytes from the run's collective record (``core.exchange.
 collective_record``, where the JAX package parses its compiled HLO),
 attributed here to the plan's request exchanges in program order.
+Under a process group every rank analyses the query together (lockstep)
+and each reports what one process reports: the record holds a node's
+bytes, whatever the rank count; the times are the rank's own clock.
 
 This module is the pure rendering/attribution half; the driver owns the
 execution and supplies the raw fields.
@@ -221,6 +224,9 @@ class ExplainReport:
             else:
                 lines.append(f"timings: execute {obs['execute_ms']:.3f} ms "
                              f"(no compile — {obs['source']})")
+            if obs.get("ranks", 1) > 1:
+                lines.append(f"ranks: {obs['ranks']} (bytes a node, as in "
+                             f"one process; times this rank's clock)")
             coll = obs.get("collective_bytes_by_op") or {}
             if coll:
                 body = ", ".join(

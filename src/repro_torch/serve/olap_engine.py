@@ -34,6 +34,17 @@ under a continuous-batching policy:
   casts, lane stacking, launches) overlaps this batch's device work.  A
   request's future resolves only once its answer is complete on the card.
 
+Across the W ranks of a process group (any ``Topology.distributed``, a
+group of one rank too) the engine runs on rank 0 and leads: its batches
+follow rank 0's host timing, so the ranks cannot reach them in lockstep.
+``start`` makes the driver lead (``TPCHDriver.lead``): every tier-2
+dispatch is published at the dispatch gate, and every other rank runs
+``driver.follow()``, the same plan with the same lanes, until ``stop``
+publishes the stop (under either ``drain``).  Tier 1 is answered on rank
+0 alone: host numpy, no collective.  A follower that fails fails the
+leader's next dispatch, and so its requests: no answer comes from rank 0
+alone.
+
 Observability: a detached ``serve.request`` span per request, a
 ``serve.queue_depth`` gauge, the ``serve.batch_size`` / ``serve.queue_us``
 / ``serve.tier1_us`` / ``serve.e2e_us`` histograms and the ``serve.*``
@@ -53,6 +64,8 @@ import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
+
+import torch
 
 from repro_torch.tpch.driver import PreparedQuery, QueryAnswer
 
@@ -95,6 +108,18 @@ def _lane_view(value, i: int):
     return value[i]
 
 
+def _use_device(device) -> None:
+    """A pool thread's initializer: make the cluster's card its current
+    one.  The current CUDA device is a thread's own and starts at cuda:0
+    in a new thread, but rank r's plans and collectives belong on
+    cuda:r (NCCL binds a communicator to the current device); on a
+    machine with one card the two agree, so only several cards show it.
+    A device without an index (a cluster without a group) is whichever
+    card is current, and stays so."""
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)
+
+
 def _bucket(n: int, cap: int) -> int:
     """Next power of two >= n, capped at ``cap``: the lane counts batches
     are padded to."""
@@ -110,7 +135,8 @@ class OLAPEngine:
     Construct, then ``async with engine:`` (or ``await engine.start()`` /
     ``await engine.stop()``).  ``submit`` may be called from any task on
     the engine's event loop; the driver's caches and dispatch gate are
-    thread-safe, so a synchronous client may share the driver.
+    thread-safe, so a synchronous client may share the driver.  Under a
+    process group only rank 0 constructs one (the others follow).
     """
 
     def __init__(self, driver, *, max_batch: int = 16,
@@ -118,8 +144,11 @@ class OLAPEngine:
                  max_inflight: int = 2, pad_batches: bool = True):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
-        # batch choices follow host timing, which differs between ranks
-        driver._single_process("the serving engine")
+        topo = driver.cluster.topology
+        if topo.distributed and topo.rank != 0:
+            raise ValueError(
+                f"the serving engine runs on rank 0, which leads; rank "
+                f"{topo.rank} follows it with driver.follow()")
         self.driver = driver
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_us) * 1e-6
@@ -144,7 +173,9 @@ class OLAPEngine:
         self._sem = asyncio.Semaphore(self.max_inflight)
         self._pool = ThreadPoolExecutor(
             max_workers=self.max_inflight + 1,
-            thread_name_prefix="olap-serve")
+            thread_name_prefix="olap-serve", initializer=_use_device,
+            initargs=(self.driver.cluster.device,))
+        self.driver.lead()  # a no-op without a process group
         # the tier-1 inline path is ~100 us of numpy on the event loop; at
         # the interpreter's default 5 ms switch interval one busy worker
         # (lane stacking, launches) may hold the lock ~50x that long:
@@ -157,9 +188,16 @@ class OLAPEngine:
     async def stop(self, drain: bool = True) -> None:
         """Stop the engine.  ``drain=True`` (default) first waits for every
         queued request and in-flight batch to complete; ``drain=False``
-        fails queued requests with :class:`AdmissionError`."""
+        fails queued requests with :class:`AdmissionError`.  Either way
+        the followers get the stop once the last dispatch has run."""
         if not self._running:
             return
+        try:
+            await self._stop(drain)
+        finally:
+            self.driver.stop_followers()
+
+    async def _stop(self, drain: bool) -> None:
         if drain:
             while self._depth or self._active:
                 await asyncio.sleep(0.0005)

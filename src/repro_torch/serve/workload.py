@@ -28,6 +28,12 @@ Two generator disciplines:
 
 ``sequential_baseline`` replays the same items on one synchronous client
 (a prepared ``execute`` a request): the engine's yardstick.
+
+Under a process group every rank calls ``mixed_workload`` and
+``warm_workload`` alike (lockstep): the items come from the seed alone,
+and the warm-up walks the shapes in item order, so every rank prepares,
+lowers and runs the same plans in the same order before rank 0's engine
+leads.
 """
 from __future__ import annotations
 

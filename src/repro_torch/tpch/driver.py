@@ -31,10 +31,16 @@ collectives in the same order; each places only its L = P / W nodes.  The
 constructor all-gathers a fingerprint of the data and raises when a rank's
 differs from rank 0's (``dbgen`` seeds with ``hash(table)``: the ranks
 need one ``PYTHONHASHSEED``).  Every rank answers every query, the same
-answer.  Every rank holds the whole host data at generation, so the
-host's memory then grows W-fold (per-node generation: ROADMAP item 9).
-The cubes, prepared batches, EXPLAIN ANALYZE and the serving engine run
-in one process only (they raise under W > 1; ROADMAP item 9).
+answer; so with ``build_cubes``, ``execute_batch`` and
+``explain_analyze``, which every rank calls in the same order (lockstep):
+every rank holds the same cubes, so every rank's router decides alike.
+The serving engine's batches follow rank 0's host timing instead: rank
+0's ``OLAPEngine`` leads (``lead``), publishing each tier-2 dispatch at
+the dispatch gate over the group's gloo side group, and every other rank
+runs ``follow()``, the same plan with the same lanes, until rank 0
+publishes the stop (``stop_followers``).  Every rank holds the whole host
+data at generation, so the host's memory then grows W-fold (per-node
+generation waits in ROADMAP item 9).
 
 Static checks and EXPLAIN: ``check(q)`` runs the static plan verifier
 (``query.verify``) over the prepared shape, nothing lowered or run;
@@ -70,7 +76,7 @@ import torch
 
 from repro_torch.core import exchange, plans, wirecal
 from repro_torch.core.columnar import PackedColumn, Table
-from repro_torch.core.engine import Cluster, all_gather
+from repro_torch.core.engine import Cluster, all_gather, descriptor
 from repro_torch.cube import CubeRouter, build_cube
 from repro_torch.obs import (
     ExplainReport,
@@ -119,11 +125,6 @@ class ResidentBudgetError(MemoryError):
     cannot hold this scale factor in the chosen storage format.  The
     message reports both formats' footprints; switching to
     ``storage="packed"`` is the usual fix."""
-
-
-class SingleProcessError(QueryError):
-    """A driver feature that runs in one process only was called on a
-    rank of a process group of W > 1 (ROADMAP item 9)."""
 
 
 def _split_overflow(out):
@@ -175,7 +176,42 @@ class _PlanEntry:
         self.bound = {}         # binding key -> fn(columns) closure (LRU)
         self.route = (None, None)  # (router identity, Match|None) memo
         self.scans = ()         # the lowered plan's per-column scans
+        self.published = None   # (leading session, number) on rank 0
         self.lock = threading.Lock()
+
+
+@dataclasses.dataclass(frozen=True)
+class Dispatch:
+    """One tier-2 dispatch as rank 0 publishes it to the followers: a
+    portable name of its entry (a number of rank 0's leading session:
+    ``shape_key`` is an address in rank 0's process), the kind, the
+    bindings as host values and the batch's ``pad_to``.  The first
+    dispatch of an entry also carries what a follower builds it from:
+    the shape, its stats binding (the capacities follow it), the wire
+    and the backend."""
+
+    key: int
+    batched: bool             # execute_batch, else a scalar execute
+    bindings: tuple           # one full binding, or one a lane (unpadded)
+    pad_to: Optional[int] = None
+    entry: Optional[tuple] = None  # (shape, stats_binding, wire, backend)
+
+
+def _pad_lanes(rows: list, pad_to: Optional[int]) -> list:
+    """A batch's bindings padded to ``pad_to`` lanes by repeating the
+    last one."""
+    if pad_to is not None and pad_to > len(rows):
+        return rows + [rows[-1]] * (pad_to - len(rows))
+    return rows
+
+
+def _device_params(entry: _PlanEntry, b: dict, device) -> dict:
+    """Binding -> the plan's parameters: a 0-d tensor of each parameter's
+    dtype on ``device`` (a (B,) tensor where the binding holds B values
+    of each)."""
+    return {p.name: torch.as_tensor(
+                np.asarray(b[p.name], np.dtype(p.dtype))).to(device)
+            for p in entry.params}
 
 
 class PreparedQuery:
@@ -209,7 +245,9 @@ class PreparedQuery:
         """Identity of the prepared shape: two handles carry the same key
         iff they share one ``_PlanEntry`` (and so one lowered plan).  The
         serving engine coalesces submissions by this key: same key means
-        their bindings stack into one ``execute_batch``."""
+        their bindings stack into one ``execute_batch``.  It is an address
+        in this process and names nothing on another rank (a published
+        :class:`Dispatch` names its entry by number)."""
         return id(self.entry)
 
     def binding(self, params=None) -> dict:
@@ -242,13 +280,8 @@ class PreparedQuery:
         return b
 
     def _cast(self, b: dict) -> dict:
-        """Binding -> the plan's parameters: a 0-d tensor of each
-        parameter's dtype on the cluster's device (a (B,) tensor where the
-        binding holds B values of each)."""
-        device = self.driver.cluster.device
-        return {p.name: torch.as_tensor(
-                    np.asarray(b[p.name], np.dtype(p.dtype))).to(device)
-                for p in self.entry.params}
+        """Binding -> the plan's parameters on the cluster's device."""
+        return _device_params(self.entry, b, self.driver.cluster.device)
 
     def answer_tier1(self, b: dict) -> Optional[QueryAnswer]:
         """Tier-1 (rollup cube) answer for a FULL binding ``b``, or None
@@ -303,7 +336,8 @@ class PreparedQuery:
             cols = driver.columns()
             args = (cols, self._cast(b)) if self.entry.params else (cols,)
             with obs.span("execute", cat="exec"):
-                out = driver._guarded_call(fn, *args)
+                out = driver._guarded_call(
+                    fn, *args, publish=(self.entry, False, (b,), None))
             overflow = bool(out.pop("overflow", False))
             value = out["value"] if set(out) == {"value"} else out
             sp.set(tier=2, route=self.source, overflow=overflow)
@@ -325,7 +359,6 @@ class PreparedQuery:
         repeating the last binding (counted in ``driver.batch_pad_lanes``);
         the outputs are cut back to B.  A batch always runs the plan
         (tier 2): a cube's exactness is decided binding by binding."""
-        self.driver._single_process("execute_batch")
         if not self.entry.params:
             raise QueryError(
                 f"prepared query {self.source!r} has no parameters — "
@@ -347,18 +380,19 @@ class PreparedQuery:
         driver = self.driver
         obs = driver.obs
         mreg = obs.metrics
-        lanes = B
-        if pad_to is not None and pad_to > B:
-            merged = merged + [merged[-1]] * (pad_to - B)
-            lanes = pad_to
-            mreg.counter("driver.batch_pad_lanes").inc(pad_to - B)
-        stacked = self._cast({p.name: [m[p.name] for m in merged]
+        padded = _pad_lanes(merged, pad_to)
+        lanes = len(padded)
+        if lanes != B:
+            mreg.counter("driver.batch_pad_lanes").inc(lanes - B)
+        stacked = self._cast({p.name: [m[p.name] for m in padded]
                               for p in self.entry.params})
         with obs.span("query.batch", source=self.source, lanes=B,
                       padded=lanes) as sp:
             fn = self._tier2(driver._ensure_batched)
             with obs.span("execute", cat="exec"):
-                out = driver._guarded_call(fn, driver.columns(), stacked)
+                out = driver._guarded_call(
+                    fn, driver.columns(), stacked,
+                    publish=(self.entry, True, tuple(merged), pad_to))
             overflow = out.pop("overflow", None)
             overflow = (torch.zeros(lanes, dtype=torch.bool)
                         if overflow is None else overflow.cpu())
@@ -492,6 +526,12 @@ class TPCHDriver:
         self._dispatch_gate = threading.Lock()
         self.compile_events = []  # one label per lowering of a prepared
                                   # shape ("<name>" / "<name>@batch")
+        # leader/follower serving (rank 0 of a process group): whether the
+        # gate publishes its dispatches, the leading session (entries
+        # published in an earlier one are new again) and the next number
+        self._leading = False
+        self._session = 0
+        self._next_key = 0
         self.cubes = {}
         self.router: Optional[CubeRouter] = None
 
@@ -528,14 +568,6 @@ class TPCHDriver:
                 f"hash(table), so every rank needs the same PYTHONHASHSEED "
                 f"(this rank's: "
                 f"{os.environ.get('PYTHONHASHSEED', 'unset')})")
-
-    def _single_process(self, what: str) -> None:
-        """Raise :class:`SingleProcessError` for ``what`` under W > 1."""
-        world = self.cluster.topology.world
-        if world > 1:
-            raise SingleProcessError(
-                f"{what} runs in one process only, not on {world} ranks "
-                f"of a process group (ROADMAP item 9)")
 
     @staticmethod
     def _host_column(col) -> np.ndarray:
@@ -646,9 +678,13 @@ class TPCHDriver:
             return self.cluster.compile(plan, self._context(entry),
                                         batch=batched)
 
-    def _guarded_call(self, fn, *args):
+    def _guarded_call(self, fn, *args, publish=None):
         """One device dispatch of a prepared plan under the dispatch gate,
-        its answer complete when this returns.  On CUDA a plan's answer may
+        its answer complete when this returns.  While this rank leads
+        (:meth:`lead`), ``publish`` — (entry, batched, bindings, pad_to) —
+        goes to the followers first, inside the gate: the gate's order is
+        the order in which the leader issues its collectives, so it is the
+        order the followers replay.  On CUDA a plan's answer may
         still be computing when ``fn`` returns (q6 reads nothing back), so
         an event is recorded after the dispatch, inside the gate, and
         waited on outside it: ``Event.synchronize`` lets go of the
@@ -658,6 +694,8 @@ class TPCHDriver:
         port's batched plan takes any lane count, so there is nothing to
         specialize; ``entry.lock`` only guards the lowering.)"""
         with self._dispatch_gate:
+            if self._leading and publish is not None:
+                self._publish(*publish)
             out = fn(*args)
             done = None
             if self.cluster.device.type == "cuda":
@@ -666,6 +704,83 @@ class TPCHDriver:
         if done is not None:
             done.synchronize()
         return out
+
+    # -- leader/follower serving across the ranks of a process group ---------
+    def lead(self) -> None:
+        """Rank 0 leads the ranks' serving from here: every dispatch at
+        the gate (a tier-2 ``execute`` or ``execute_batch``) is published
+        to the other ranks, which run :meth:`follow`, until
+        :meth:`stop_followers`.  While leading, run plans only through
+        prepared queries (``execute``, ``execute_batch``, ``query``,
+        ``explain_analyze``): a plan called any other way is not
+        published, and the ranks' collectives part.  A no-op without a
+        process group; raises on another rank."""
+        topo = self.cluster.topology
+        if not topo.distributed:
+            return
+        if topo.rank != 0:
+            raise ValueError(f"rank {topo.rank} cannot lead: rank 0 leads "
+                             f"and the other ranks call follow()")
+        with self._dispatch_gate:
+            if not self._leading:
+                self._leading = True
+                self._session += 1
+
+    def stop_followers(self) -> None:
+        """Publish the stop that ends every follower's loop, once a
+        leading session (a no-op when this rank does not lead)."""
+        with self._dispatch_gate:
+            if self._leading:
+                self._leading = False
+                descriptor(None, self.cluster.topology)
+
+    def _publish(self, entry: _PlanEntry, batched: bool, bindings: tuple,
+                 pad_to) -> None:
+        """Send one dispatch's :class:`Dispatch` (under the gate)."""
+        first = (entry.published is None
+                 or entry.published[0] != self._session)
+        if first:
+            entry.published = (self._session, self._next_key)
+            self._next_key += 1
+        descriptor(Dispatch(
+            entry.published[1], batched, bindings, pad_to,
+            (entry.shape, entry.stats_binding, entry.wire, entry.backend)
+            if first else None), self.cluster.topology)
+        self.obs.metrics.counter("driver.published").inc()
+
+    def follow(self) -> int:
+        """Follow rank 0's serving (every rank but 0, while rank 0 leads):
+        receive each dispatch rank 0 publishes and run the same plan with
+        the same lanes, dropping the answer, until rank 0 publishes the
+        stop.  Returns the dispatches run.  A dispatch that raises ends
+        the loop and re-raises; the other ranks then fail at the group's
+        timeout (``launch.mesh.TIMEOUT_S``)."""
+        topo = self.cluster.topology
+        if not topo.distributed or topo.rank == 0:
+            raise ValueError("follow() runs on the ranks other than 0 of a "
+                             "process group; rank 0 leads")
+        entries = {}   # Dispatch.key -> this rank's entry
+        done = 0
+        while True:
+            d = descriptor(None, topo)
+            if d is None:
+                return done
+            if d.entry is not None:
+                entries[d.key] = _PlanEntry(*d.entry)
+            entry = entries[d.key]
+            if d.batched:
+                fn = self._ensure_batched(entry)
+                lanes = _pad_lanes(list(d.bindings), d.pad_to)
+                b = {p.name: [r[p.name] for r in lanes]
+                     for p in entry.params}
+            else:
+                fn = self._ensure_compiled(entry)
+                b = d.bindings[0]
+            params = _device_params(entry, b, self.cluster.device)
+            args = ((self.columns(), params) if entry.params
+                    else (self.columns(),))
+            self._guarded_call(fn, *args)
+            done += 1
 
     def _count_scan_bytes(self, entry: _PlanEntry, lanes: int = 1) -> None:
         """Account one execution's predicted scan traffic against the
@@ -736,8 +851,8 @@ class TPCHDriver:
     def build_cubes(self, specs=None):
         """Materialize Tier-1 rollup cubes (one scan per spec) and install
         the query router.  Defaults to the TPC-H presets
-        (``tpch.cubes.default_specs``)."""
-        self._single_process("build_cubes")
+        (``tpch.cubes.default_specs``).  Under a process group every rank
+        builds every cube (lockstep) and holds the whole of it."""
         if specs is None:
             from repro_torch.tpch import cubes as tpch_cubes
 
@@ -874,8 +989,10 @@ class TPCHDriver:
         (``exchange.collective_record``, reset before it) with its
         all-to-all bytes attributed to the plan's request semi-joins in
         program order.  An execute returns with the card done (the
-        driver's dispatch waits on it), so each time is the whole run."""
-        self._single_process("explain_analyze")
+        driver's dispatch waits on it), so each time is the whole run.
+        Under a process group every rank calls it (lockstep) and reports
+        what one process reports: the record's bytes are a node's, and
+        the times the rank's own clock (``observed["ranks"]`` is W)."""
         report, prep = self._explain(q, params)
         mreg = self.obs.metrics
         ev0 = len(self.compile_events)
@@ -888,6 +1005,7 @@ class TPCHDriver:
             "tier": ans.tier,
             "source": ans.source,
             "overflow": bool(np.asarray(ans.overflow).any()),
+            "ranks": self.cluster.topology.world,
         }
         if lowerings:
             exchange.reset_collective_record()

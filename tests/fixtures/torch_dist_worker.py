@@ -13,10 +13,17 @@ SPAWN's tasks and pickles what it saw to ``OUT/rank{RANK}.pkl``:
 - ``queries``: every query of :data:`QUERIES` through a ``TPCHDriver``
   over the group (SF 0.01, P = 8), with the same records;
 - ``errors``: what must raise under W > 1 (P % W != 0, a gloo group on
-  CUDA, the single-process features of the driver and the launcher);
+  CUDA);
+- ``olap``: the OLAP tier on the same driver (:func:`olap`): the default
+  cubes, the batches of :data:`BATCHES`, EXPLAIN ANALYZE of
+  :data:`EXPLAINED`, the serving engine over ``mixed_workload`` (rank 0
+  leads, the other ranks follow), and ``serve_olap.main`` in each mode of
+  :data:`LAUNCHER` with its standard output;
 - ``reference`` (rank 0 of ``w2``, after the group is gone): the same
-  queries through the one-process port driver and the JAX driver in this
-  process, and the float64 oracle;
+  queries and OLAP tasks through the one-process port driver (the
+  engine's requests each a sequential ``execute``), the queries, the
+  cubes and q6_param's batch through the JAX driver in this process, and
+  the float64 oracle;
 - ``mismatch``: a ``TPCHDriver`` whose ranks have different
   ``PYTHONHASHSEED`` values (the caller sets them) must raise.
 
@@ -25,8 +32,11 @@ Every rank of a spawn shares the caller's ``PYTHONHASHSEED`` (except in
 """
 from __future__ import annotations
 
+import asyncio
+import contextlib
 import dataclasses
 import datetime
+import io
 import pickle
 import sys
 import traceback
@@ -200,6 +210,144 @@ def run_jax_query(jd, name: str) -> dict:
     return flat(fn(cols, pv))
 
 
+# -- the OLAP tier across ranks ------------------------------------------------
+
+# batch -> (its prepared query, its PARAM_QUERIES name), run at
+# BATCH_LANES random bindings padded to BATCH_PAD lanes
+BATCHES = {"q1_param": ("q1_param_ir", {}, "q1"),
+           "q6_param": ("q6_param_ir", {}, "q6"),
+           "q14_promo_param_request": ("q14_promo_param_ir",
+                                       {"alt": "request"}, "q14_promo")}
+BATCH_LANES, BATCH_PAD = 3, 4
+EXPLAINED = ("q4_sj", "q18_sj")      # EXPLAIN ANALYZE, the packed wire
+ENGINE_ITEMS, ENGINE_CLIENTS = 32, 4
+ENGINE_TIMEOUT_S = 120.0
+LAUNCHER = {"--serve": ["--serve", "--requests", "16", "--clients", "4",
+                        "--max-batch", "4"],
+            "--cubes": ["--cubes", "--repeat", "1"],
+            "--lint": ["--lint"]}
+
+
+def batch_bindings(name: str) -> list:
+    """BATCH_LANES random §2.4 bindings of a batch, from its own seed."""
+    from repro_torch.tpch import queries as tq
+
+    rng = np.random.default_rng(list(BATCHES).index(name))
+    return [tq.random_binding(BATCHES[name][2], rng)
+            for _ in range(BATCH_LANES)]
+
+
+def batch_query(q, name: str):
+    """A batch's query from a queries module (the port's or JAX's)."""
+    make, kw, _ = BATCHES[name]
+    return getattr(q, make)(**kw)
+
+
+def cube_rollups(cubes) -> dict:
+    """{cube: (rows scanned, {dims: {measure: numpy}})} of built cubes."""
+    return {name: (c.rows_scanned,
+                   {dims: {m: np.asarray(a) for m, a in arrays.items()}
+                    for dims, arrays in c.rollups.items()})
+            for name, c in cubes.items()}
+
+
+def run_batches(drv) -> dict:
+    """Each batch's (flattened answer, overflow lanes)."""
+    from repro_torch.tpch import queries as tq
+
+    out = {}
+    for name in BATCHES:
+        ans = drv.prepare(batch_query(tq, name)).execute_batch(
+            batch_bindings(name), pad_to=BATCH_PAD)
+        out[name] = (flat(ans.value), np.asarray(ans.overflow))
+    return out
+
+
+def run_explains(drv) -> dict:
+    """Each EXPLAIN ANALYZE's (tier, overflow, the all-to-all bytes of its
+    request semi-joins)."""
+    from repro_torch.tpch import queries as tq
+
+    out = {}
+    for name in EXPLAINED:
+        rep = drv.explain_analyze(getattr(tq, f"{name}_ir")())
+        out[name] = (rep.observed["tier"], rep.observed["overflow"],
+                     [sj.a2a_bytes for sj in rep.semijoins
+                      if sj.alt == "request"])
+    return out
+
+
+def _answer(ans) -> tuple:
+    """(tier, flattened value, overflow) of one served answer."""
+    return ans.tier, flat(np.asarray(ans.value)), bool(ans.overflow)
+
+
+def run_engine(drv) -> dict:
+    """The engine over ``mixed_workload`` in a closed loop: rank 0 leads
+    and keeps each request's kind and answer, the other ranks follow and
+    count their dispatches; every rank's ``dist_calls()`` of the run.
+    Then every rank executes each request alike (lockstep), and rank 0
+    keeps those answers too."""
+    from repro_torch.core import engine
+    from repro_torch.serve import workload as wl
+    from repro_torch.serve.olap_engine import OLAPEngine
+
+    items = wl.mixed_workload(drv, ENGINE_ITEMS, seed=0)
+    engine.reset_dist_calls()
+    if drv.cluster.topology.rank != 0:
+        followed = drv.follow()
+        calls = engine.dist_calls()
+        sequential_answers(drv, items)
+        return {"followed": followed, "dist_calls": calls}
+
+    async def go():
+        async with OLAPEngine(drv, max_batch=4) as e:
+            return await wl.run_closed_loop(e, items,
+                                            clients=ENGINE_CLIENTS)
+
+    published = drv.obs.metrics.value("driver.published") or 0
+    res = asyncio.run(asyncio.wait_for(go(), ENGINE_TIMEOUT_S))
+    return {"answers": [(c.item.kind, c.item.name) + _answer(c.answer)
+                        if c.ok else (c.item.kind, c.item.name, repr(c.answer))
+                        for c in res],
+            "failed": sum(not c.ok for c in res),
+            "published": (drv.obs.metrics.value("driver.published")
+                          - published),
+            "dist_calls": engine.dist_calls(),
+            "sequential": sequential_answers(drv, items)}
+
+
+def run_launcher() -> dict:
+    """``serve_olap.main`` in each mode: (exit code, standard output)."""
+    from repro_torch.launch import serve_olap
+
+    out = {}
+    for mode, argv in LAUNCHER.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = serve_olap.main(["--device", "cpu", "--sf", str(SF)]
+                                 + argv)
+        out[mode] = (rc, buf.getvalue())
+    return out
+
+
+def olap(drv) -> dict:
+    """The OLAP tier's tasks, in the order every rank runs them."""
+    drv.build_cubes()
+    return {"cubes": cube_rollups(drv.cubes), "batches": run_batches(drv),
+            "explain": run_explains(drv), "engine": run_engine(drv),
+            "launcher": run_launcher()}
+
+
+def sequential_answers(drv, items=None) -> list:
+    """Each request of the engine's workload as one ``execute``."""
+    from repro_torch.serve import workload as wl
+
+    if items is None:
+        items = wl.mixed_workload(drv, ENGINE_ITEMS, seed=0)
+    return [_answer(it.prep.execute(it.binding)) for it in items]
+
+
 def _raises(fn) -> str:
     """The message of what ``fn()`` raised, '' if it returned."""
     try:
@@ -209,25 +357,12 @@ def _raises(fn) -> str:
     return ""
 
 
-def _errors(drv) -> dict:
+def _errors() -> dict:
     from repro_torch.core.engine import Cluster
-    from repro_torch.launch import serve_olap
-    from repro_torch.serve.olap_engine import OLAPEngine
-    from repro_torch.tpch import queries as tq
 
-    base = ["--device", "cpu", "--sf", str(SF)]
-    prep = drv.prepare(tq.q6_param_ir())
     return {
         "p_mod_w": _raises(lambda: Cluster(P + 1, device="cpu")),
         "gloo_on_cuda": _raises(lambda: Cluster(P, device="cuda")),
-        "--serve": _raises(lambda: serve_olap.main(base + ["--serve"])),
-        "--cubes": _raises(lambda: serve_olap.main(base + ["--cubes"])),
-        "--lint": _raises(lambda: serve_olap.main(base + ["--lint"])),
-        "build_cubes": _raises(drv.build_cubes),
-        "explain_analyze": _raises(lambda: drv.explain_analyze(tq.q6_ir())),
-        "execute_batch": _raises(lambda: prep.execute_batch(
-            [tq.default_binding("q6")] * 2)),
-        "engine": _raises(lambda: OLAPEngine(drv)),
     }
 
 
@@ -265,7 +400,8 @@ def main(spawn: str, rank: int, world: int, store: str, out: str) -> None:
         res["local_nodes"] = drv.cluster.topology.local_nodes
         res["queries"] = {name: run_port_query(drv, name)
                           for name in QUERIES}
-        res["errors"] = _errors(drv)
+        res["errors"] = _errors()
+        res["olap"] = olap(drv)
         dist.barrier()
     except Exception:  # noqa: BLE001 - reported to the test
         res["error"] = traceback.format_exc()
@@ -288,12 +424,25 @@ def reference() -> dict:
     from repro.tpch.driver import TPCHDriver as JaxDriver
     from repro_torch.tpch.driver import TPCHDriver
 
+    from repro.tpch import queries as jq
+
     drv = TPCHDriver(SF, num_nodes=P, device="cpu")
     assert drv.cluster.topology.world == 1
     jd = JaxDriver(sf=SF, cluster=JaxCluster(), seed=0)
-    return {"port": {n: run_port_query(drv, n) for n in QUERIES},
-            "jax": {n: run_jax_query(jd, n) for n in QUERIES},
-            "oracle": {n: oracle(drv, n) for n in QUERIES}}
+    out = {"port": {n: run_port_query(drv, n) for n in QUERIES},
+           "jax": {n: run_jax_query(jd, n) for n in QUERIES},
+           "oracle": {n: oracle(drv, n) for n in QUERIES}}
+    drv.build_cubes()
+    jd.build_cubes()
+    jax_q6 = jd.prepare(batch_query(jq, "q6_param")).execute_batch(
+        batch_bindings("q6_param"), pad_to=BATCH_PAD)
+    out["olap"] = {"cubes": cube_rollups(drv.cubes),
+                   "batches": run_batches(drv),
+                   "explain": run_explains(drv),
+                   "sequential": sequential_answers(drv),
+                   "jax_cubes": cube_rollups(jd.cubes),
+                   "jax_q6_param": flat(np.asarray(jax_q6.value))}
+    return out
 
 
 if __name__ == "__main__":

@@ -7,11 +7,14 @@ ranks with one fixed ``PYTHONHASHSEED`` except where the seeds must
 differ:
 
 - ``w4`` (W = 4, L = 2): every collective of ``exchange`` and ``psum``
-  on inputs made from a numpy seed, and every query of the slice;
-- ``w2`` (W = 2, L = 4): the queries, the collectives over a gloo group
-  of one rank (W = 1, L = 8), and, on rank 0 after the group is gone, the
-  one-process port driver, the JAX driver (the 8-device CPU mesh) and
-  the oracle on the same tables;
+  on inputs made from a numpy seed, every query of the slice, and the
+  OLAP tier: the cubes, prepared batches, EXPLAIN ANALYZE, the serving
+  engine (rank 0 leads, the others follow) and ``serve_olap`` with
+  ``--serve``, ``--cubes`` and ``--lint``;
+- ``w2`` (W = 2, L = 4): the queries and the OLAP tier, the collectives
+  over a gloo group of one rank (W = 1, L = 8), and, on rank 0 after the
+  group is gone, the one-process port driver, the JAX driver (the
+  8-device CPU mesh) and the oracle on the same tables;
 - ``mismatch`` (W = 2, two ``PYTHONHASHSEED`` values): the driver must
   raise.
 
@@ -21,9 +24,17 @@ this process: outputs, ``wire_bytes()`` and the collective record equal
 answer on every rank, bit for bit; it equals the one-process port and
 the JAX driver exactly in integers, keys, bitsets and bytes and within
 rtol 1e-5 in f32, the oracle within rtol 2e-4 (exactly for counts), and
-its per-node wire bytes and collective record equal one process's.  The
-spawns are bounded: a hang fails the test, the init timeout ends the
-ranks.
+its per-node wire bytes and collective record equal one process's.
+Every rank's cubes equal the one-process port's (counts, rows, min and
+max exactly, sums within rtol 1e-5) and the JAX package's; batches and
+EXPLAIN ANALYZE's semi-join bytes equal the one-process port's (q6_param
+also the JAX batch); the leader's tier-1 answers equal the ranks'
+sequential executes of the same requests byte for byte, its tier-2 ones
+within rtol 1e-5 (a lane's all-reduce sums in an order that depends on
+its position in the batch; a coalesced ``q1_offedge`` lane, the lane-mask
+product, within rtol 2e-4), and one process's as a query does; every
+follower ran every dispatch the leader published.  The spawns are bounded: a hang fails the test,
+the init timeout ends the ranks.
 """
 from __future__ import annotations
 
@@ -39,6 +50,7 @@ import pytest
 
 from conftest import assert_topk_matches
 from fixtures import torch_dist_worker as worker
+from repro_torch.tpch import cubes as tpch_cubes
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 WORKER = ROOT / "tests" / "fixtures" / "torch_dist_worker.py"
@@ -183,23 +195,145 @@ def test_query_matches_one_process_jax_and_oracle(runs, name, world):
     _assert_oracle(name, got, ref["oracle"][name])
 
 
-# -- (c) what raises --------------------------------------------------------------
+# -- (c) the OLAP tier across ranks ------------------------------------------------
 
-@pytest.mark.parametrize("what", ["p_mod_w", "gloo_on_cuda", "--serve",
-                                  "--cubes", "--lint", "build_cubes",
-                                  "explain_analyze", "execute_batch",
-                                  "engine"])
+def _olap(runs, world: int) -> tuple:
+    """Every rank's OLAP record of spawn ``w{world}``, and the one-process
+    reference's."""
+    return ([r["olap"] for r in runs[f"w{world}"]],
+            runs["w2"][0]["reference"]["olap"])
+
+
+AGGS = {spec.name: {**{m.name: m.agg for m in spec.measures},
+                    "__rows": "count"}
+        for spec in tpch_cubes.default_specs()}
+
+
+def _hold_cubes(got: dict, want: dict, what: str, sum_rtol: float = 1e-5):
+    """Every rollup of every cube: sums within ``sum_rtol``; counts, rows,
+    min and max (the +-inf of empty cells too) exactly."""
+    assert sorted(got) == sorted(want) == sorted(AGGS), what
+    for name, (rows, rollups) in want.items():
+        got_rows, got_rollups = got[name]
+        assert got_rows == rows, f"{what} {name}: rows scanned"
+        assert sorted(got_rollups) == sorted(rollups), f"{what} {name}"
+        for dims, arrays in rollups.items():
+            assert sorted(got_rollups[dims]) == sorted(arrays)
+            for m, w in arrays.items():
+                g = got_rollups[dims][m]
+                assert g.shape == w.shape, f"{what} {name} {dims} {m}"
+                if AGGS[name][m] == "sum":
+                    np.testing.assert_allclose(
+                        g, w, rtol=sum_rtol, atol=0,
+                        err_msg=f"{what} {name} {dims} {m}")
+                else:
+                    np.testing.assert_array_equal(
+                        g, w, err_msg=f"{what} {name} {dims} {m}")
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_cubes_match_one_process_and_jax(runs, world):
+    ranks, ref = _olap(runs, world)
+    for rank, o in enumerate(ranks):
+        _hold_cubes(o["cubes"], ref["cubes"], f"rank {rank}")
+    _hold_cubes(ranks[0]["cubes"], ref["jax_cubes"], "JAX build_cube")
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("name", list(worker.BATCHES))
+def test_batch_matches_one_process(runs, name, world):
+    ranks, ref = _olap(runs, world)
+    want, want_overflow = ref["batches"][name]
+    assert want_overflow.shape == (worker.BATCH_LANES,)
+    assert not want_overflow.any()
+    for rank, o in enumerate(ranks):
+        got, overflow = o["batches"][name]
+        _assert_close(got, want, f"rank {rank} {name}")
+        np.testing.assert_array_equal(overflow, want_overflow)
+    if name == "q6_param":
+        _assert_close(ranks[0]["batches"][name][0], ref["jax_q6_param"],
+                      "the JAX execute_batch")
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("name", worker.EXPLAINED)
+def test_explain_analyze_bytes_match_one_process(runs, name, world):
+    ranks, ref = _olap(runs, world)
+    tier, overflow, a2a = ref["explain"][name]
+    assert tier == 2 and not overflow
+    assert len(a2a) == 1 and a2a[0] > 0
+    for rank, o in enumerate(ranks):
+        assert o["explain"][name] == (tier, overflow, a2a), f"rank {rank}"
+
+
+def _same_bytes(got: dict, want: dict) -> bool:
+    return sorted(got) == sorted(want) and all(
+        got[k].dtype == want[k].dtype and got[k].shape == want[k].shape
+        and got[k].tobytes() == want[k].tobytes() for k in want)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_engine_leads_and_ranks_follow(runs, world):
+    ranks, ref = _olap(runs, world)
+    lead = ranks[0]["engine"]
+    assert lead["failed"] == 0, [a for a in lead["answers"] if len(a) == 3]
+    assert len(lead["answers"]) == len(ref["sequential"]) == \
+        worker.ENGINE_ITEMS
+    for i, (got, seq, one) in enumerate(zip(
+            lead["answers"], lead["sequential"], ref["sequential"])):
+        kind, name, tier, value, overflow = got
+        what = f"request {i} ({name})"
+        assert (tier, overflow) == (seq[0], False) and not seq[2], what
+        assert (tier, overflow) == (one[0], False) and not one[2], what
+        # tier 1 reads the same cube as the execute did.  A coalesced lane
+        # is all-reduced at its position in the batch, and gloo's ring
+        # sums the ranks' partials of each position in its own order; a
+        # coalesced q1_offedge lane is also the lane-mask product
+        rtol = 2e-4 if kind == "tier2" else 1e-5
+        if kind == "tier1":
+            assert _same_bytes(value, seq[1]), what
+        else:
+            _assert_close(value, seq[1], what, rtol=rtol)
+        _assert_close(value, one[1], f"{what}, one process", rtol=rtol)
+    assert lead["published"] > 0
+    assert lead["dist_calls"]["descriptor"] == lead["published"] + 1
+    for rank, o in enumerate(ranks[1:], start=1):
+        assert o["engine"]["followed"] == lead["published"], f"rank {rank}"
+        assert o["engine"]["dist_calls"] == lead["dist_calls"], \
+            f"rank {rank}"
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("mode", list(worker.LAUNCHER))
+def test_serve_olap_mode_runs_across_ranks(runs, mode, world):
+    ranks, ref = _olap(runs, world)
+    outs = [o["launcher"][mode] for o in ranks]
+    assert [rc for rc, _ in outs] == [0] * world
+    assert [text for _, text in outs[1:]] == [""] * (world - 1)
+    text = outs[0][1]
+    assert text.count("cluster: 8 nodes") == 1, text
+    if mode == "--serve":
+        assert "(0 failed)" in text and "rejected 0" in text, text
+    elif mode == "--cubes":
+        for name, (rows, _) in ref["cubes"].items():
+            assert f"cube {name}: " in text and f"from {rows} rows" in text
+        for name in tpch_cubes.SERVING_QUERIES:
+            assert f"{name:>22s} " in text, text
+    else:
+        assert "plans verified, 0 with errors/warnings" in text, text
+
+
+# -- (d) what raises --------------------------------------------------------------
+
+@pytest.mark.parametrize("what", ["p_mod_w", "gloo_on_cuda"])
 def test_raises_rather_than_falls_back(runs, what):
     for spawn in ("w2", "w4"):
         for r in runs[spawn]:
             msg = r["errors"][what]
             if what == "p_mod_w":
                 assert msg.startswith("ValueError") and "P % W" in msg
-            elif what == "gloo_on_cuda":
-                assert msg.startswith("ValueError") and "nccl" in msg
             else:
-                assert msg.startswith("SingleProcessError"), msg
-                assert "ROADMAP item 9" in msg
+                assert msg.startswith("ValueError") and "nccl" in msg
 
 
 def test_ranks_with_other_data_raise(runs):
