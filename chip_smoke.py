@@ -234,7 +234,8 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
    the grouped driver leads over 6f's serving mix (closed loop of 16):
    every answer equals 6f's sequential one (byte for byte, a coalesced
    ``q1_offedge`` lane within rtol 2e-4), no request fails, the launches
-   the dispatches imply, one descriptor a dispatch and the stop; the
+   the dispatches imply, one descriptor a dispatch, a keep-alive and the
+   stop; the
    plain engine on phase 4's driver beside it (both q/s printed), and a
    descriptor timed alone.  (ii) ``serve_olap --serve --sf 0.1 --requests
    64 --clients 8`` and ``serve_olap --cubes --sf 0.1`` under ``python -m
@@ -253,7 +254,10 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
       plain version with the same rounding (``p_dtype`` = bf16 or f16:
       p rounded before p v) over every mask at D = 64, 128 and 256 with
       G = 1, 2, 3, 4 and 8, ragged and uneven lengths, a fully masked row,
-      in bf16 and f16, and the prefill shape in bf16: out within one
+      in bf16 and f16, and two prefill shapes in bf16 (qwen2.5-3b's (8, 8,
+      4,096, 128) causal and recurrentgemma-2b's (4, 10, 4,096, 256)
+      causal with window 2,048: G = 10, 12 positions a 128-row tile): out
+      within one
       rounding of its type plus 1e-5, plus the rounding slack (where the
       plain version's p lies within 2^-16 of a rounding boundary, the
       kernel's p, summed in another order, may round the other way; the
@@ -327,6 +331,40 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
       (``models.moe.route`` wrapped): the plain B7 with the kernel's
       rounding of p, and the int8 cache against the bf16 cache in eager
       steps.  The phase's seconds.
+   g. The SSM family, after 7f dropped what it placed on the card:
+      mamba2-2.7b at full width and depth (64 layers, d_model 2,560, 80
+      heads of 64, state 128, chunk 256, vocab 51,200 padded; 2,704,590,336
+      parameters drawn in f32 from seed 0 by ``Model.init``, cast once to
+      bf16 but the f32-read ones), batch 4: a 4,096-token prefill (the
+      chunked SSD in plain PyTorch: no TPU kernel exists for it), then 64
+      greedy steps replayed from one captured graph (sharded head: shards
+      8, k 8).  Held: (1) the same steps eagerly on a copy of the state
+      (same tokens, logits within rtol 2^-8); on the f32 twin (the f32
+      weights of the init in f32 compute) (2) a prefill of 4,095 tokens
+      plus one decode step within 0.05 x the largest |logit| of the
+      4,096-token prefill and (3) a prefill at chunk 128 within the same
+      limit of the one at chunk 256 (in bf16 any change of rounding order
+      moves this 64-layer random model's logits by about as much as bf16
+      does, 7.5% of the largest against its f32 twin: the bf16 pairs are
+      printed, not held); (4) the sharded head equal to argmax; (5) no
+      kernel launched.  Times: prefill, time to first token, decode a
+      step replayed and eager, the device busy share of a replayed loop,
+      resident and peak allocated bytes, the phase's seconds.
+   h. The hybrid family: recurrentgemma-2b at full width and depth (26
+      layers, 8 of them local attention, d_model 2,560, 10/1 heads of 256,
+      geglu d_ff 7,680, LRU width 2,560, window 2,048, vocab 256,000;
+      1,832,798,720 live parameters: each layer's live block only), batch
+      4: a 4,096-token prefill through the tensor-core B7 (8 launches, the
+      f32 B7 and B9 none), 64 greedy steps replayed (the ring of 2,048
+      slots has wrapped).  Held: (1) replayed vs eager as 7g; (2) the
+      prefill through the chunked attention (``attn_impl="xla"``), (3) a
+      prefill of 4,095 tokens plus one step, (4) a 1,000-token prompt (the
+      ring not full) plus one step against a 1,001-token prefill, each
+      within 0.05 x the largest |logit|; (5) the tensor-core B7 on each of
+      the 8 attention layers' prefill inputs within 7a's limit, and its
+      time there beside its plain version, ``scaled_dot_product_attention``
+      with the window as a mask and its bound (the visible pairs'
+      operations).  Times as 7g.
 8. Training qwen2.5-3b at full width, after the serving phases have
    dropped what they placed on the card:
    a. B8's two CUDA variants.  The f32 CUDA-core ``flash_attention_bwd``
@@ -3599,8 +3637,8 @@ def olap_group_phase(args, torch, smi, drv, main_launches, zero,
     and q18_sj reports 6g's all-to-all bytes, no overflow.  Then the
     engine on the grouped driver leads (a rank of a group) over 6f's
     serving mix, a closed loop of 16: each answer equals ``drv``'s
-    sequential one (``_engine_run``'s checks), one descriptor a dispatch
-    and the stop; the plain engine on ``drv`` in the same phase; a
+    sequential one (``_engine_run``'s checks), one descriptor a dispatch,
+    a keep-alive and the stop; the plain engine on ``drv`` in the same phase; a
     descriptor timed alone.  The group is destroyed.  (ii) ``serve_olap
     --serve`` and ``--cubes`` at SF 0.1 under ``torch.distributed.run``
     (one rank), both at once, exit 0 with one report each.  Adds the
@@ -3769,16 +3807,21 @@ def olap_group_phase(args, torch, smi, drv, main_launches, zero,
         out["warm_s"] = time.perf_counter() - t0
         plans_g = _serving_plans(gdrv, items_g)
         engine.reset_dist_calls()
+        alive0 = gdrv.obs.metrics.value("driver.keepalives") or 0
         lead, _, got, bscans = _engine_run(
             torch, gdrv, items_g, seq, plans_g,
             label="6i the engine leading (NCCL group of one rank)")
         calls = engine.dist_calls()
+        lead["keepalives"] = (gdrv.obs.metrics.value("driver.keepalives")
+                              or 0) - alive0
         batched_scans += bscans
         for k, v in got.items():
             main_launches[k] += v
-        if calls.get("descriptor", 0) != lead["dispatches"] + 1:
+        if calls.get("descriptor", 0) != (lead["dispatches"]
+                                          + lead["keepalives"] + 1):
             fail(f"6i: {calls.get('descriptor', 0)} descriptors for "
-                 f"{lead['dispatches']} dispatches and the stop")
+                 f"{lead['dispatches']} dispatches, {lead['keepalives']} "
+                 f"keep-alives and the stop")
         plain, _, got, bscans = _engine_run(
             torch, drv, items, seq, plans,
             label="6i the plain engine (no group)")
@@ -3799,8 +3842,8 @@ def olap_group_phase(args, torch, smi, drv, main_launches, zero,
                    descriptor_ms=desc_ms,
                    wall_ms_more_a_dispatch=per_dispatch)
         print(f"6i on {smi}: the engine leading {lead['qps']:.1f} q/s "
-              f"({lead['dispatches']} dispatches, {calls['descriptor']} "
-              f"descriptors), the plain engine {plain['qps']:.1f} q/s "
+              f"({lead['dispatches']} dispatches, {lead['keepalives']} "
+              f"keep-alives, {calls['descriptor']} descriptors), the plain engine {plain['qps']:.1f} q/s "
               f"({plain['dispatches']} dispatches); wall difference "
               f"{per_dispatch:.3f} ms a leader's dispatch; a descriptor "
               f"alone {desc_ms:.4f} ms (host clock, {DESCRIPTOR_CALLS} "
@@ -3974,12 +4017,16 @@ def check_flash_tc(torch, fa, ref, gen) -> dict:
     over ``FLASH_TC_CASES`` in bf16 and f16 and at the prefill shape in
     bf16: out within one rounding of its type plus 1e-5 (and the rounding
     slack), lse within 2e-5; twice identical; a fully masked row gives 0.
-    Also reads each output's distance from the f32 plain version."""
+    Also reads each output's distance from the f32 plain version.  The
+    bf16 cases add qwen2.5-3b's prefill shape and recurrentgemma-2b's (G
+    10 query heads a kv head, D 256, window 2,048)."""
     prefill = (8, 8, LM_PROMPT, LM_PROMPT, 128, dict(causal=True))
+    hybrid_prefill = (4, 10, LM_PROMPT, LM_PROMPT, 256,
+                      dict(causal=True, window=2048))
     worst, dist, slack_only = {}, {}, {}
     for dtype in (torch.bfloat16, torch.float16):
-        cases = FLASH_TC_CASES + ([prefill] if dtype == torch.bfloat16
-                                  else [])
+        cases = FLASH_TC_CASES + ([prefill, hybrid_prefill]
+                                  if dtype == torch.bfloat16 else [])
         for bkv, g, s, sk, d, m in cases:
             q = torch.randn((bkv, g, s, d), generator=gen, device="cuda")
             k = torch.randn((bkv, sk, d), generator=gen, device="cuda")
@@ -4009,8 +4056,8 @@ def check_flash_tc(torch, fa, ref, gen) -> dict:
             dist[key] = max(dist.get(key, 0.0), _errs(out, f32)["max"])
             del q, k, v, out, out2, lse, lse2, f32
     print(f"flash_attention_fwd_tc: {len(FLASH_TC_CASES)} shapes x bf16/f16 "
-          f"and the prefill shape (8, 8, {LM_PROMPT}, 128) bf16 causal "
-          f"within the plain version with the same rounding (one rounding "
+          f"and the prefill shapes (8, 8, {LM_PROMPT}, 128) bf16 causal and "
+          f"(4, 10, {LM_PROMPT}, 256) bf16 causal window 2048 within the plain version with the same rounding (one rounding "
           f"of the output + 1e-5, plus the rounding slack; lse {F32_TOL}), "
           f"repeatable; max abs err {worst}; elements only the slack admits "
           f"{slack_only}; max abs distance from the f32 plain version "
@@ -5146,6 +5193,379 @@ def moe_phase(args, torch, smi: str):
 
 
 # ---------------------------------------------------------------------------
+# phases 7g and 7h: the SSM and hybrid families at full width
+# ---------------------------------------------------------------------------
+
+SSM_ARCH = "mamba2-2.7b"
+HYBRID_ARCH = "recurrentgemma-2b"
+# the live parameters at full width (the hybrid's JAX tree holds both
+# blocks of every layer: 3,416,404,480)
+RECURRENT_PARAMS = {SSM_ARCH: 2_704_590_336, HYBRID_ARCH: 1_832_798_720}
+RECURRENT_SHORT = 1000      # 7h (4): a prompt shorter than the window
+RECURRENT_EAGER_STEPS = LM_STEPS   # the replayed steps held against eager
+
+
+def _recurrent_model(torch, arch: str, label: str, keep_f32: bool = False):
+    """``arch`` at full width and depth: ``Model.init`` draws f32 from
+    seed 0 on the card, ``Model.cast`` casts once to bf16 (the parameters
+    the layers read in f32 stay f32) and the f32 copy is dropped unless
+    ``keep_f32``.  Returns (model, params, summary[, the f32 copy])."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import build
+
+    cfg = get_arch(arch)
+    model = build(cfg)
+    t0 = time.perf_counter()
+    p32 = model.init(0, device="cuda")
+    f32_bytes = sum(t.numel() * t.element_size() for t in p32.parameters())
+    n_params = sum(t.numel() for t in p32.parameters())
+    params = model.cast(p32)
+    if not keep_f32:
+        del p32
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in params.parameters())
+    if n_params != RECURRENT_PARAMS[arch]:
+        fail(f"{label} {arch}: {n_params} parameters, expected "
+             f"{RECURRENT_PARAMS[arch]}")
+    print(f"{label} {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab_size} padded to {cfg.padded_vocab()}: "
+          f"{n_params} parameters, f32 {f32_bytes} B -> {param_bytes} B on "
+          f"the card (bf16, the f32-read ones f32), initialised and cast in "
+          f"{init_s:.1f} s")
+    out = (model, params, {"params": n_params, "params_f32_at_init":
+                           f32_bytes, "params_served": param_bytes,
+                           "init_s": init_s})
+    return (*out, p32) if keep_f32 else out
+
+
+def _recurrent_serve(torch, model, params, tokens, label: str, **kw):
+    """Prefill ``tokens`` into a new bf16 state, then LM_STEPS greedy steps
+    through ``decode_loop`` (one captured graph replayed), the launch
+    counters set to 0 just before and read just after.  Checks the
+    lengths, finite logits, the sharded head against argmax, and
+    RECURRENT_EAGER_STEPS of the replayed steps against the same steps run
+    eagerly on a copy of the state.  Returns (prefill logits, launches,
+    the replay-vs-eager difference, the head)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import sampling
+    from repro_torch.serve.engine import decode_loop
+
+    B, S = tokens.shape
+    V = model.cfg.padded_vocab()
+
+    def head(logits):
+        local = logits.reshape(B, LM_SHARDS, V // LM_SHARDS).transpose(0, 1)
+        return sampling.topk_logits(local, LM_TOPK)[1][0, :, 0]
+
+    logits_k = []
+    ops.reset_launch_counts()
+    logits0, st = model.prefill(params, {"tokens": tokens},
+                                model.init_decode_state(B, 0), **kw)
+    first = torch.argmax(logits0, dim=-1)
+    st_eager = T.copy_cache(st)
+    toks, st = decode_loop(model, params, st, first, LM_STEPS,
+                           shards=LM_SHARDS, k=LM_TOPK, logits_out=logits_k)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    n = S + LM_STEPS
+    if (int(st.length) != n or st.host_length.n != n
+            or toks.shape != (B, LM_STEPS + 1)):
+        fail(f"{label}: state length {int(st.length)} (host "
+             f"{st.host_length.n}), tokens {tuple(toks.shape)}")
+    if not all(torch.isfinite(x.float()).all() for x in [logits0, *logits_k]):
+        fail(f"{label}: non-finite logits")
+    if not torch.equal(head(logits0), first):
+        fail(f"{label}: the sharded head differs from argmax on the prefill")
+    for t, lg in enumerate(logits_k):
+        a = torch.argmax(lg, dim=-1)
+        if not (torch.equal(head(lg), a) and torch.equal(a, toks[:, t + 1])):
+            fail(f"{label} step {t}: the sharded head differs from argmax")
+    e_replay = _replay_vs_eager(torch, model, params, st_eager, toks,
+                                logits_k[:RECURRENT_EAGER_STEPS], head,
+                                label)
+    return logits0, launches, e_replay, head
+
+
+def _recurrent_times(torch, model, params, tokens, head, label: str, smi,
+                     **kw) -> dict:
+    """Prefill ms and time to first token (CUDA events, median of
+    LM_REPEAT warm runs), decode ms a step replayed and eager, the device
+    busy share of a replayed loop (torch.profiler), resident and peak
+    allocated bytes.  A state summarises its past, so the timed loops
+    step on from where the last one stopped (the same work a step)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import decode_loop
+
+    B = tokens.shape[0]
+    times = {}
+    st_t = model.init_decode_state(B, 0)
+    state_bytes = sum(t.numel() * t.element_size() for t in st_t
+                      if isinstance(t, torch.Tensor))
+
+    def prefill():
+        return model.prefill(params, {"tokens": tokens}, st_t, **kw)
+
+    def prefill_and_head():
+        lg, _ = prefill()
+        return torch.argmax(lg, dim=-1)
+
+    times["prefill_ms"], _ = _events_ms(torch, prefill, LM_REPEAT)
+    times["prefill_tokens_per_s"] = (B * tokens.shape[1]
+                                     / times["prefill_ms"] * 1e3)
+    times["ttft_ms"], first = _events_ms(torch, prefill_and_head, LM_REPEAT)
+
+    def replayed(steps):
+        return lambda: decode_loop(model, params, st_t, first, steps,
+                                   shards=LM_SHARDS, k=LM_TOPK)
+
+    def eager():
+        t_ = first
+        for _ in range(LM_STEPS):
+            lg, _ = model.decode_step(params, st_t, t_[:, None])
+            t_ = head(lg)
+        return t_
+
+    ms, _ = _events_ms(torch, replayed(LM_STEPS), LM_REPEAT)
+    ms2, _ = _events_ms(torch, replayed(2), 1)
+    ms_e, _ = _events_ms(torch, eager, 1)
+    times["decode_ms_per_step"] = ms / LM_STEPS
+    times["decode_replay_ms_per_step"] = (ms - ms2) / (LM_STEPS - 2)
+    times["decode_eager_ms_per_step"] = ms_e / LM_STEPS
+    times["decode_tokens_per_s"] = B * LM_STEPS / ms * 1e3
+    busy, wall = profile_query(torch, replayed(LM_STEPS),
+                               f"{label} decode x{LM_STEPS} replayed")
+    times["decode_busy_ms"], times["decode_profiled_wall_ms"] = busy, wall
+    times["decode_busy_share"] = busy / wall
+    times["resident_bytes"] = {
+        "params": sum(t.numel() * t.element_size()
+                      for t in params.parameters()),
+        "decode_state": state_bytes,
+        "peak_allocated": torch.cuda.max_memory_allocated()}
+    print(f"{label} times (CUDA events, median of {LM_REPEAT} warm runs, "
+          f"batch {B}, prompt {tokens.shape[1]}; decode ms a step: a whole "
+          f"{LM_STEPS}-step decode_loop / {LM_STEPS}; replay: (that loop - "
+          f"one 2-step loop) / {LM_STEPS - 2}; eager: one run of {LM_STEPS} "
+          f"eager steps; busy share: device time of the profiled loop over "
+          f"its wall time) on {smi}: {times}")
+    return times
+
+
+def ssm_phase(args, torch, smi: str):
+    """Phase 7g: mamba2-2.7b at full width and depth, random bf16
+    weights: prefill of LM_PROMPT tokens (the chunked SSD, no kernel),
+    LM_STEPS greedy steps replayed from one captured graph; (1) replayed
+    vs eager, (2) prefill S - 1 + one step vs prefill S and (3) the
+    prefill at chunk 128 vs chunk 256, both held on the f32 twin (the
+    same weights in f32 compute): in bf16 any change of rounding order
+    moves the 64-layer bf16 residual stream of this random model by
+    about as much as bf16 itself does (the bf16 prefill lies 7.5% of the
+    largest |logit| from its f32 twin), so the limit cannot tell a fault
+    from rounding there; the bf16 pairs and that distance are printed
+    beside; (4) the sharded head vs argmax, (5) no kernel launched.
+    Returns a summary dict."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, params, out, p32 = _recurrent_model(torch, SSM_ARCH, "7g",
+                                               keep_f32=True)
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device="cuda")
+    zero = dict.fromkeys(ops.launch_counts(), 0)
+    logits0, got, e_replay, head = _recurrent_serve(
+        torch, model, params, tokens, "7g")
+    if got != zero:
+        fail(f"7g: mamba2 launched {got}, no kernel expected")
+    # (2) the prompt less its last token, then that token as a step, and
+    # (3) another chunk length (another split of the same recurrence):
+    # held on the f32 twin, the bf16 pairs and bf16's own distance beside
+    m32 = build(dataclasses.replace(cfg, compute_dtype="float32"))
+    pairs = {}
+    for name, m, p, dt, ref_lg in (
+            ("f32", m32, p32, torch.float32, None),
+            ("bf16", model, params, torch.bfloat16, logits0)):
+        def prefill(n=LM_PROMPT, **kw):
+            return m.prefill(p, {"tokens": tokens[:, :n]},
+                             m.init_decode_state(LM_BATCH, 0, dtype=dt),
+                             **kw)
+        full = prefill()[0] if ref_lg is None else ref_lg
+        _, st = prefill(LM_PROMPT - 1)
+        ld, _ = m.decode_step(p, st, tokens[:, -1:])
+        pairs[name] = (full, ld, prefill(ssm_chunk=128)[0])
+        del st
+    full, ld, l128 = pairs["f32"]
+    e_step = _logit_check(torch, ld, full,
+                          "7g (2) f32 prefill S-1 + decode vs prefill S")
+    e_chunk = _logit_check(torch, l128, full,
+                           "7g (3) f32 prefill at chunk 128 vs chunk 256")
+    e_step_bf16 = _errs(pairs["bf16"][1], logits0)
+    e_chunk_bf16 = _errs(pairs["bf16"][2], logits0)
+    e_bf16_f32 = _errs(logits0, full)
+    del pairs, full, ld, l128, p32, m32
+    torch.cuda.empty_cache()
+    print(f"7g: prefill {LM_BATCH} x {LM_PROMPT} tokens + {LM_STEPS} greedy "
+          f"steps replayed from one captured CUDA graph (shards "
+          f"{LM_SHARDS}, k {LM_TOPK}); launches {got} (none); the sharded "
+          f"head equals argmax on every step; (1) {RECURRENT_EAGER_STEPS} "
+          f"steps run eagerly on a copy of the state chose the same tokens, "
+          f"logits within rtol 2^-8 (max abs difference {e_replay}); on the "
+          f"f32 twin: (2) prefill of {LM_PROMPT - 1} + one step vs the "
+          f"{LM_PROMPT}-token prefill {e_step}, (3) chunk 128 vs 256 "
+          f"{e_chunk} (limit {LOGIT_RTOL} x max |logit|); not held, bf16: "
+          f"(2) {e_step_bf16}, (3) {e_chunk_bf16}, the bf16 prefill vs its "
+          f"f32 twin {e_bf16_f32}")
+    times = _recurrent_times(torch, model, params, tokens, head, "7g", smi)
+    del params, model, logits0
+    torch.cuda.empty_cache()
+    out.update(times=times, launches=got, logit_errs={
+        "replayed_vs_eager": e_replay,
+        "prefill_s_minus_1_plus_step_f32": e_step,
+        "chunk_128_vs_256_f32": e_chunk,
+        "prefill_s_minus_1_plus_step_bf16_not_held": e_step_bf16,
+        "chunk_128_vs_256_bf16_not_held": e_chunk_bf16,
+        "bf16_vs_f32_prefill_not_held": e_bf16_f32},
+        phase_s=time.perf_counter() - t_phase)
+    print(f"phase 7g ({SSM_ARCH}): {out['phase_s']:.1f} s on {smi}")
+    return out
+
+
+def hybrid_phase(args, torch, smi: str):
+    """Phase 7h: recurrentgemma-2b at full width and depth, random bf16
+    weights: prefill of LM_PROMPT tokens through the tensor-core B7 (one
+    launch an attention layer, window 2,048), LM_STEPS greedy steps
+    replayed (the ring buffer has wrapped); (1) replayed vs eager, (2) the
+    prefill through the chunked attention (``xla``), (3) prefill S - 1 +
+    one step vs prefill S, (4) a RECURRENT_SHORT-token prompt + one step
+    vs a RECURRENT_SHORT + 1 prefill, (5) B7 on each attention layer's
+    prefill input against its plain version (7a's limit), (6) the f32 B7
+    and B9 never launched.  Returns (B7's launches, a summary dict)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import hybrid
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, params, out = _recurrent_model(torch, HYBRID_ARCH, "7h")
+    cfg = model.cfg
+    n_attn = sum(hybrid.is_attn_layer(cfg, i) for i in range(cfg.n_layers))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device="cuda")
+    zero = dict.fromkeys(ops.launch_counts(), 0)
+    flash_in = []
+    orig_fa = _recording(ops, "flash_attention_fwd", flash_in)
+    try:
+        logits0, got, e_replay, head = _recurrent_serve(
+            torch, model, params, tokens, "7h", attn_impl="flash")
+    finally:
+        ops.flash_attention_fwd = orig_fa
+    want = {**zero, "flash_attention_fwd_tc": n_attn}
+    if got != want:
+        fail(f"7h launched {got}, expected {want}")
+    # (2) the chunked attention in plain PyTorch
+    lx, _ = model.prefill(params, {"tokens": tokens},
+                          model.init_decode_state(LM_BATCH, 0),
+                          attn_impl="xla")
+    e_xla = _logit_check(torch, logits0, lx, "7h (2) prefill vs xla")
+    del lx
+    # (3) the prompt less its last token, then that token as a step
+    _, st = model.prefill(params, {"tokens": tokens[:, :-1]},
+                          model.init_decode_state(LM_BATCH, 0),
+                          attn_impl="flash")
+    ld, st = model.decode_step(params, st, tokens[:, -1:])
+    e_step = _logit_check(torch, ld, logits0,
+                          "7h (3) prefill S-1 + decode vs prefill S")
+    # (4) a prompt shorter than the window: the ring not yet full
+    n = RECURRENT_SHORT
+    _, st = model.prefill(params, {"tokens": tokens[:, :n]},
+                          model.init_decode_state(LM_BATCH, 0),
+                          attn_impl="flash")
+    ld, st = model.decode_step(params, st, tokens[:, n:n + 1])
+    lf, _ = model.prefill(params, {"tokens": tokens[:, :n + 1]},
+                          model.init_decode_state(LM_BATCH, 0),
+                          attn_impl="flash")
+    e_short = _logit_check(torch, ld, lf,
+                           f"7h (4) prefill {n} + decode vs prefill {n + 1}")
+    del st, ld, lf
+    # (5) B7 on each attention layer's prefill input
+    b7_err, b7_slack_only = 0.0, 0
+    for i, ((qg, kg, vg), kw) in enumerate(flash_in):
+        o, _ = fa.flash_attention_fwd_tc_cuda(qg, kg, vg, **kw)
+        w, _, slack = ref.flash_attention_fwd(
+            qg.float(), kg.float(), vg.float(), p_dtype=qg.dtype, slack=True,
+            **kw)
+        b7_slack_only += _hold_rounded(
+            torch, o, w, slack,
+            f"7h (5) flash_attention_fwd_tc on attention layer {i}'s "
+            f"prefill input", 1e-5)
+        b7_err = max(b7_err, _errs(o, w)["max"])
+        del o, w, slack
+    (qg, kg, vg), kw = flash_in[0]
+    bkv, g, s, d = qg.shape
+    win = kw["window"]
+    pairs = sum(min(i + 1, win) for i in range(s))
+    b7_ms = cuda_ms(lambda: fa.flash_attention_fwd_tc_cuda(qg, kg, vg, **kw),
+                    20)
+    b7_plain = cuda_ms(lambda: ref.flash_attention_fwd(
+        qg, kg, vg, p_dtype=qg.dtype, **kw), 2)
+    pos = torch.arange(s, device="cuda")
+    vis = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - win)
+    q4 = qg.reshape(LM_BATCH, bkv // LM_BATCH * g, s, d)
+    k4, v4 = (t.reshape(LM_BATCH, bkv // LM_BATCH, s, d) for t in (kg, vg))
+    b7_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=vis, enable_gqa=True), 5)
+    b7_bytes = 2 * (2 * qg.numel() + kg.numel() + vg.numel()) + 4 * bkv * g * s
+    b7_ops = 4 * d * bkv * g * pairs
+    b7_bound, b7_by = bound(b7_bytes, b7_ops, BF16_OPS_PER_S)
+    b7 = {"shape": list(qg.shape), "window": win, "launches": n_attn,
+          "max_abs_err": b7_err, "slack_only_elements": b7_slack_only,
+          "ms": b7_ms, "plain_ms": b7_plain, "library_ms": b7_lib,
+          "bound_ms": b7_bound, "bound_by": b7_by}
+    del flash_in, vis, q4, k4, v4
+    print(f"7h: prefill {LM_BATCH} x {LM_PROMPT} tokens through the "
+          f"tensor-core B7 + {LM_STEPS} greedy steps replayed from one "
+          f"captured CUDA graph (the {cfg.hybrid.window}-slot ring wrapped); "
+          f"launches {got}; the sharded head equals argmax on every step; "
+          f"(1) {RECURRENT_EAGER_STEPS} steps run eagerly on a copy of the "
+          f"state chose the same tokens, logits within rtol 2^-8 (max abs "
+          f"difference {e_replay}); (2) vs the chunked attention: {e_xla}; "
+          f"(3) prefill of {LM_PROMPT - 1} + one step vs {LM_PROMPT}: "
+          f"{e_step}; (4) prefill of {n} + one step vs {n + 1}: {e_short} "
+          f"(limit {LOGIT_RTOL} x max |logit|); (5) B7 on the {n_attn} "
+          f"attention layers' prefill inputs {tuple(qg.shape)} bf16 causal "
+          f"window {win}: max abs err {b7_err:.3e} against the plain "
+          f"version with the same rounding ({b7_slack_only} elements "
+          f"admitted by the rounding slack only); {b7_ms:.4f} ms, plain "
+          f"{b7_plain:.3f} ms, sdpa with the window as a mask {b7_lib:.4f} "
+          f"ms, bound {b7_bound:.4f} ms ({b7_by}: {b7_ops} FLOP of the "
+          f"visible pairs at 989 TFLOP/s bf16; {b7_bytes} B) on {smi}")
+    times = _recurrent_times(torch, model, params, tokens, head, "7h", smi,
+                             attn_impl="flash")
+    del params, model, logits0
+    torch.cuda.empty_cache()
+    out.update(times=times, launches=got, b7=b7, logit_errs={
+        "replayed_vs_eager": e_replay, "xla_prefill": e_xla,
+        "prefill_s_minus_1_plus_step": e_step,
+        f"prefill_{n}_plus_step": e_short},
+        phase_s=time.perf_counter() - t_phase)
+    print(f"phase 7h ({HYBRID_ARCH}): {out['phase_s']:.1f} s on {smi}")
+    return {"flash_attention_fwd_tc": n_attn}, out
+
+
+# ---------------------------------------------------------------------------
 # phase 8: training qwen2.5-3b at full width through B7 and B8
 # ---------------------------------------------------------------------------
 
@@ -5641,18 +6061,29 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_s["moe"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    ssm_summary = ssm_phase(args, torch, smi)
+    torch.cuda.empty_cache()
+    phase_s["ssm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hybrid_launches, hybrid_summary = hybrid_phase(args, torch, smi)
+    torch.cuda.empty_cache()
+    phase_s["hybrid"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     b8_kernels, train_launches, train = train_phases(args, torch, smi)
     phase_s["train"] = time.perf_counter() - t0
     for k in lm_kernels:
         by_path = {"qwen2.5-3b serving": k["launches"],
-                   "qwen3-moe serving": moe_launches.get(k["name"], 0)}
+                   "qwen3-moe serving": moe_launches.get(k["name"], 0),
+                   "mamba2 serving": 0,
+                   "recurrentgemma serving": hybrid_launches.get(k["name"],
+                                                                 0)}
         if k["name"].startswith("flash_attention_fwd"):
             by_path["training"] = train_launches[k["name"]]
         k["launches_by_path"] = by_path
         k["launches"] = sum(by_path.values())
     kernels = tpch_kernels + lm_kernels + b8_kernels
     summary = {"card": smi, "tpch": tpch, "lm": lm, "moe": moe_summary,
-               "train": train}
+               "ssm": ssm_summary, "hybrid": hybrid_summary, "train": train}
     for k in kernels:
         if k.get("main_path", True) and k["launches"] < 1:
             fail(f"{k['name']} was never launched on the main path")

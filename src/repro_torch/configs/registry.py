@@ -2,9 +2,10 @@
 ``repro.configs.registry``).
 
 It names only the architectures the port serves: qwen2.5-3b (dense),
-qwen3-moe-30b-a3b and phi3.5-moe-42b-a6.6b (MoE).  The JAX package's
-other seven wait for their families or their configs (``ROADMAP.md``
-queue A, item 11); asking for one raises an error that says so.
+qwen3-moe-30b-a3b and phi3.5-moe-42b-a6.6b (MoE), mamba2-2.7b (SSM) and
+recurrentgemma-2b (hybrid).  The JAX package's other five wait for their
+families or their configs (``ROADMAP.md`` queue A, item 11); asking for
+one raises an error that says so.
 """
 from __future__ import annotations
 
@@ -33,11 +34,13 @@ _MODULES = {
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
     "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi3_5_moe_42b_a6_6b",
+    "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
 }
 
 # architectures of the JAX package the port does not serve yet
-_NOT_PORTED = ("yi-34b", "chatglm3-6b", "mistral-nemo-12b", "mamba2-2.7b",
-               "whisper-medium", "paligemma-3b", "recurrentgemma-2b")
+_NOT_PORTED = ("yi-34b", "chatglm3-6b", "mistral-nemo-12b",
+               "whisper-medium", "paligemma-3b")
 
 ARCHS = tuple(_MODULES)
 

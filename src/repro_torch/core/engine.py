@@ -265,15 +265,35 @@ def reset_collective_record() -> None:
     _RECORD.clear()
 
 
+def sum_across(t: torch.Tensor, topo: Topology) -> torch.Tensor:
+    """Every rank's ``t`` summed, the same bytes on every rank.  A float
+    ``t`` is all-gathered into (W, ...) in rank order and folded left to
+    right (``acc = g[0]``, then ``acc + g[r]``), so an element's sum does
+    not depend on where it lies in the buffer: a ring all-reduce sums
+    each chunk from another rank, and a lane of a batch would then differ
+    from the same request run alone.  Integer and bool sums are exact and
+    keep the all-reduce."""
+    if not t.is_floating_point():
+        return all_reduce(t, "sum", topo)
+    t = t.contiguous()
+    g = torch.empty((topo.world, *t.shape), dtype=t.dtype, device=t.device)
+    all_gather(g.view(-1), t.view(-1), topo.group)
+    acc = g[0]
+    for r in range(1, topo.world):
+        acc = acc + g[r]
+    return acc
+
+
 def psum(x: torch.Tensor, name: str = "psum") -> torch.Tensor:
     """All-reduce (sum) of per-node partials: (L, ...) -> (...), summed in
-    node order on each rank, then across the ranks; recorded as one
-    all-reduce under ``name``."""
+    node order on each rank, then across the ranks in rank order
+    (:func:`sum_across`); recorded as one all-reduce under ``name``, the
+    JAX plan's collective."""
     record_collective("all-reduce", x, name)
     out = x.sum(0)
     topo = local_topology(x.shape[0])
     if topo is not None:
-        all_reduce(out, "sum", topo)
+        out = sum_across(out, topo)
     return out
 
 

@@ -11,7 +11,7 @@ group themselves through :func:`init_from_env`: NCCL on
 ``cuda:LOCAL_RANK``, gloo on the CPU, a bounded timeout, the group
 destroyed at exit.  Beside each group a cluster spans,
 :func:`control_group` makes a gloo side group over the same ranks, once a
-group: the channel of the serving engine's descriptors (rank 0's
+group and with the group's timeout: the channel of the serving engine's descriptors (rank 0's
 ``OLAPEngine`` leads, every other rank runs ``TPCHDriver.follow``) and
 of the ranks' host barriers.  It is gloo on the card too: a descriptor is
 a host object, and NCCL would read each one's size back from the card.
@@ -55,24 +55,39 @@ def under_torchrun() -> bool:
     return all(k in os.environ for k in _TORCHRUN_ENV)
 
 
-# a group's ranks -> (the default group it was made under, its gloo side
-# group): one side group for every group over the same ranks (its name is
-# a hash of the ranks), made anew once the default group is
+# (a group's ranks, its timeout) -> (the default group it was made under,
+# its gloo side group): one side group for every group over the same ranks
+# with the same timeout, made anew once the default group is
 _CONTROL: dict = {}
+
+
+def group_timeout(group) -> float:
+    """The seconds a collective of ``group`` waits for the other ranks:
+    the timeout the group was made with (its backend's options; NCCL's on
+    a CUDA group), ``TIMEOUT_S`` where this torch does not say."""
+    dev = torch.device("cuda" if dist.get_backend(group) == "nccl"
+                       else "cpu")
+    try:
+        timeout = group._get_backend(dev).options._timeout
+    except (AttributeError, RuntimeError):
+        return TIMEOUT_S
+    return timeout.total_seconds()
 
 
 def control_group(group):
     """The gloo side group over ``group``'s ranks, made on first use and
-    kept while the default group lives.  Only the group's own ranks make
-    it (local synchronization), so a group that is a part of the world, as
-    a group of one rank, gets one too."""
+    kept while the default group lives, with ``group``'s timeout
+    (:func:`group_timeout`).  Only the group's own ranks make it (local
+    synchronization), so a group that is a part of the world, as a group
+    of one rank, gets one too."""
     ranks = tuple(dist.get_process_group_ranks(group))
     world = dist.group.WORLD
-    hit = _CONTROL.get(ranks)
+    timeout = group_timeout(group)
+    hit = _CONTROL.get((ranks, timeout))
     if hit is None or hit[0] is not world:
-        hit = _CONTROL[ranks] = (world, dist.new_group(
+        hit = _CONTROL[ranks, timeout] = (world, dist.new_group(
             list(ranks), backend="gloo",
-            timeout=datetime.timedelta(seconds=TIMEOUT_S),
+            timeout=datetime.timedelta(seconds=timeout),
             use_local_synchronization=True))
     return hit[1]
 

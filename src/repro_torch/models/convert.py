@@ -1,12 +1,16 @@
 """Parameters and training state between the JAX package and the port.
 
-:func:`params_from_jax` takes the JAX parameter tree of a model, dense or
-MoE (each layer's blocks cross by name, ``mlp`` or ``moe`` alike), as
-``repro.models.params.values(model.init(key))`` returns it, with every
-leaf already turned into a numpy array by the caller, and returns the
-port's :class:`~repro_torch.models.transformer.Transformer` on the CPU.
-The stacked ``layers`` axis is split across the module list; every array
-keeps its values and dtype (bfloat16 included).  :func:`jax_layout` is the
+:func:`params_from_jax` takes the JAX parameter tree of a model of any
+family the port serves, as ``repro.models.params.values(model.init(key))``
+returns it, with every leaf already turned into a numpy array by the
+caller, and returns the port's
+:class:`~repro_torch.models.transformer.Transformer` on the CPU.  The
+stacked ``layers`` axis is split across the module list, through nested
+dicts of any depth (a mamba layer mixes arrays with a ``norm`` dict); a
+hybrid layer keeps only its live block (``attn_block`` on the attention
+layers, ``rec_block`` on the others: the JAX tree stores both, and the
+inert one is read by nothing).  Every array keeps its values and dtype
+(bfloat16 included).  :func:`jax_layout` is the
 inverse layout (layers stacked again), and :func:`train_state_from_jax`
 carries a whole JAX ``TrainState`` (parameters, AdamW step and moments)
 across.
@@ -26,29 +30,54 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
-def params_from_jax(tree: dict, *, trainable: bool = False) -> Transformer:
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked tree: nested dicts, every array sliced."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return _tensor(tree[i])
+
+
+def _leaf(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
+
+
+def params_from_jax(tree: dict, *, trainable: bool = False,
+                    cfg=None) -> Transformer:
+    """The port's parameters of the JAX tree ``tree``; a hybrid tree
+    (layers of ``attn_block`` and ``rec_block``) needs its ``cfg`` to
+    tell which block of each layer is live."""
     layers = tree["layers"]
-    n = len(next(iter(next(iter(layers.values())).values())))
+    n = len(_leaf(layers))
     out = {name: {k: _tensor(v) for k, v in tree[name].items()}
            for name in ("embedding", "final_norm", "head") if name in tree}
-    out["layers"] = [
-        {blk: {k: _tensor(v[i]) for k, v in sub.items()}
-         for blk, sub in layers.items()}
-        for i in range(n)]
+    if set(layers) == {"attn_block", "rec_block"}:
+        if cfg is None or cfg.family != "hybrid":
+            raise ValueError("a hybrid tree needs its hybrid cfg")
+        from repro_torch.models.hybrid import is_attn_layer
+
+        out["layers"] = [
+            _layer(layers["attn_block" if is_attn_layer(cfg, i)
+                          else "rec_block"], i)
+            for i in range(n)]
+    else:
+        out["layers"] = [_layer(layers, i) for i in range(n)]
     return Transformer(out, trainable)
 
 
 def jax_layout(params: Transformer) -> dict:
     """The JAX package's tree of ``params``: nested dicts, the layers'
     tensors stacked on a leading (L, ...) axis (new tensors, detached)."""
+    def stack(layers):
+        if isinstance(layers[0], dict):
+            return {k: stack([lp[k] for lp in layers]) for k in layers[0]}
+        return torch.stack([t.detach() for t in layers])
+
     t = params.tree()
     out = {name: {k: v.detach() for k, v in t[name].items()}
            for name in ("embedding", "final_norm", "head") if name in t}
-    first = t["layers"][0]
-    out["layers"] = {
-        blk: {k: torch.stack([lp[blk][k].detach() for lp in t["layers"]])
-              for k in sub}
-        for blk, sub in first.items()}
+    out["layers"] = stack(t["layers"])
     return out
 
 

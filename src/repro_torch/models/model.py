@@ -4,8 +4,12 @@ the server.
 
 The loss computes cross-entropy in SEQUENCE CHUNKS, each checkpointed, so
 the (B, S, vocab) f32 logits never exist whole.  The port trains and
-serves the dense family and serves the MoE family (``models.moe``); the
-others wait for ``ROADMAP.md`` queue A, item 11.3.
+serves the dense family and serves the MoE family (``models.moe``), the
+SSM family (``models.ssm``) and the hybrid family (``models.hybrid``),
+whose ``hidden`` and ``loss`` run too; the others wait for
+``ROADMAP.md`` queue A, item 11.3.  As in the JAX package,
+``cache_quant`` changes nothing for the SSM and hybrid families: their
+decode state is no KV cache.
 """
 from __future__ import annotations
 
@@ -15,14 +19,13 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.core.engine import resolve_device
+from repro_torch.models import hybrid, ssm
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 
-_FAMILIES = ("dense", "moe")
+_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 _NOT_PORTED = {
-    "ssm": "the SSM family (models/ssm.py)",
-    "hybrid": "the hybrid family (models/hybrid.py)",
     "encdec": "the encoder-decoder family (models/encdec.py)",
     "vlm": "the VLM family (models/vlm.py)",
 }
@@ -48,21 +51,39 @@ class Model:
         """Random parameters in ``cfg.param_dtype``, drawn on the device
         (``cuda`` unless the caller names another) from a
         ``torch.Generator`` seeded with ``seed``; frozen for serving,
-        ``trainable`` for training."""
+        ``trainable`` for training.  A hybrid model holds each layer's
+        live block only (the JAX tree holds both)."""
         gen = torch.Generator(resolve_device(device)).manual_seed(seed)
+        if self.cfg.family == "ssm":
+            return ssm.init_mamba(self.cfg, gen, trainable)
+        if self.cfg.family == "hybrid":
+            return hybrid.init_hybrid(self.cfg, gen, self.tp, trainable)
         return T.init_transformer(self.cfg, gen, self.tp, trainable)
 
     def cast(self, params: T.Transformer) -> T.Transformer:
         """The parameters in ``cfg.compute_dtype``, for serving.  The JAX
         package casts each weight at every use; casting once when serving
         starts gives the same numbers (the cast is deterministic) without
-        reading the f32 copy at every step."""
-        return params.cast(getattr(torch, self.cfg.compute_dtype))
+        reading the f32 copy at every step.  The parameters an SSM or
+        recurrent layer reads in f32 (``ssm.F32_PARAMS``,
+        ``hybrid.F32_PARAMS``) stay in f32."""
+        keep = {"ssm": ssm.F32_PARAMS,
+                "hybrid": hybrid.F32_PARAMS}.get(self.cfg.family, ())
+        return params.cast(getattr(torch, self.cfg.compute_dtype), keep)
 
     # ---- training forward / loss -----------------------------------------
     def hidden(self, params, batch, *, chunk_q=1024, chunk_k=1024,
-               attn_impl="xla", remat_policy="full"):
+               attn_impl="xla", remat_policy="full", ssm_chunk=None,
+               ssm_bf16=False):
         """Final hidden states (B, S, d), under autograd when it is on."""
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            return ssm.forward(params, batch["tokens"], cfg, chunk=ssm_chunk,
+                               bf16=ssm_bf16)
+        if cfg.family == "hybrid":
+            return hybrid.forward(params, batch["tokens"], cfg,
+                                  chunk_q=chunk_q, chunk_k=chunk_k,
+                                  attn_impl=attn_impl)
         return T.forward(params, batch["tokens"], self.cfg, chunk_q=chunk_q,
                          chunk_k=chunk_k, attn_impl=attn_impl,
                          remat_policy=remat_policy)
@@ -78,8 +99,14 @@ class Model:
     def init_decode_state(self, batch: int, max_len: int,
                           dtype=torch.bfloat16, *, device=None):
         """An empty cache: int8 codes and scales with ``cache_quant``, else
-        ``dtype``; on ``cuda`` unless the caller names another device."""
+        ``dtype``; on ``cuda`` unless the caller names another device.  An
+        SSM or hybrid model's state (``max_len`` unused: it has no
+        position limit), its conv tails and ring buffer in ``dtype``."""
         device = resolve_device(device)
+        if self.cfg.family == "ssm":
+            return ssm.init_state(self.cfg, batch, device, dtype)
+        if self.cfg.family == "hybrid":
+            return hybrid.init_state(self.cfg, batch, device, self.tp, dtype)
         if self.cache_quant:
             return T.init_quant_cache(self.cfg, batch, max_len, device,
                                       self.tp)
@@ -89,13 +116,25 @@ class Model:
         """token (B, 1) -> (logits (B, padded vocab), state); the state's
         tensors, its device ``length`` included, are updated in place."""
         with torch.no_grad():
+            if self.cfg.family == "ssm":
+                return ssm.decode_step(params, state, token, self.cfg)
+            if self.cfg.family == "hybrid":
+                return hybrid.decode_step(params, state, token, self.cfg)
             return T.decode_step(params, state, token, self.cfg)
 
     def prefill(self, params, batch, state, *, chunk_q=1024, chunk_k=1024,
-                attn_impl="xla"):
-        """Prompt ``batch["tokens"]`` (B, S) into a float cache ->
-        (last-position logits, state)."""
+                attn_impl="xla", ssm_chunk=None):
+        """Prompt ``batch["tokens"]`` (B, S) into a float cache or an SSM
+        or hybrid state -> (last-position logits, state)."""
+        cfg, tokens = self.cfg, batch["tokens"]
         with torch.no_grad():
+            if cfg.family == "ssm":
+                return ssm.prefill(params, tokens, cfg, state,
+                                   chunk=ssm_chunk)
+            if cfg.family == "hybrid":
+                return hybrid.prefill(params, tokens, cfg, state,
+                                      chunk_q=chunk_q, chunk_k=chunk_k,
+                                      attn_impl=attn_impl)
             return T.prefill(params, batch["tokens"], self.cfg, state,
                              chunk_q=chunk_q, chunk_k=chunk_k,
                              attn_impl=attn_impl)

@@ -24,6 +24,7 @@ same positions, so the capacity check reads nothing from the device.
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -77,21 +78,45 @@ def _param_dict(tensors: dict, trainable: bool) -> nn.ParameterDict:
 
 
 class Layer(nn.Module):
-    """One layer's parameters: ``ln1``, ``attn``, ``ln2`` and ``mlp``
-    (dense) or ``moe`` (MoE), each a dict of tensors named as in the JAX
-    tree."""
+    """One layer's parameters, named as in the JAX tree: each dict of
+    tensors a ``ParameterDict`` (a transformer layer's ``ln1``, ``attn``,
+    ``ln2`` and ``mlp`` or ``moe``; an SSM or recurrent layer's
+    ``norm``), each tensor a parameter of its own (an SSM layer's
+    ``w_zx``, ...)."""
 
     def __init__(self, tree: dict, trainable: bool = False):
         super().__init__()
         for name, sub in tree.items():
-            self.add_module(name, _param_dict(sub, trainable))
+            if isinstance(sub, dict):
+                self.add_module(name, _param_dict(sub, trainable))
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(sub, requires_grad=trainable))
+
+    def tree(self) -> dict:
+        """The layer as nested dicts of tensors."""
+        out = {n: dict(sub) for n, sub in self.named_children()}
+        out.update(self.named_parameters(recurse=False))
+        return out
+
+
+def _map_tree(tree, fn, name=None):
+    """``fn(name, t)`` for every tensor ``t`` of nested dicts and lists
+    (detached), ``name`` its key."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn, k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_tree(v, fn, name) for v in tree]
+    return fn(name, tree.detach())
 
 
 class Transformer(nn.Module):
-    """All parameters of a transformer: ``embedding``, ``layers``
-    (one :class:`Layer` each), ``final_norm`` and, when the embedding is
-    not tied, ``head``.  Frozen (``requires_grad`` False) for serving;
-    ``trainable`` for training, where autograd fills each ``.grad``."""
+    """All parameters of a model of any family the port serves:
+    ``embedding``, ``layers`` (one :class:`Layer` each: a transformer
+    layer, an SSM layer, or a hybrid model's attention or recurrent
+    layer), ``final_norm`` and, when the embedding is not tied, ``head``.
+    Frozen (``requires_grad`` False) for serving; ``trainable`` for
+    training, where autograd fills each ``.grad``."""
 
     def __init__(self, tree: dict, trainable: bool = False):
         super().__init__()
@@ -105,8 +130,7 @@ class Transformer(nn.Module):
     def tree(self) -> dict:
         """The parameters as nested dicts of tensors (layers a list)."""
         out = {"embedding": dict(self.embedding),
-               "layers": [{n: dict(sub) for n, sub in lp.named_children()}
-                          for lp in self.layers],
+               "layers": [lp.tree() for lp in self.layers],
                "final_norm": dict(self.final_norm)}
         if self.head is not None:
             out["head"] = dict(self.head)
@@ -115,21 +139,13 @@ class Transformer(nn.Module):
     def map(self, fn) -> "Transformer":
         """A new frozen Transformer of ``fn(t)`` for every parameter ``t``
         (detached)."""
-        def sub(d):
-            return {k: fn(v.detach()) for k, v in d.items()}
+        return Transformer(_map_tree(self.tree(), lambda _, t: fn(t)))
 
-        t = self.tree()
-        return Transformer({
-            "embedding": sub(t["embedding"]),
-            "layers": [{n: sub(d) for n, d in lp.items()}
-                       for lp in t["layers"]],
-            "final_norm": sub(t["final_norm"]),
-            **({"head": sub(t["head"])} if "head" in t else {})})
-
-    def cast(self, dtype: torch.dtype) -> "Transformer":
-        """A copy with every floating parameter cast to ``dtype``."""
-        return self.map(
-            lambda t: t.to(dtype) if t.is_floating_point() else t)
+    def cast(self, dtype: torch.dtype, keep=()) -> "Transformer":
+        """A copy with every floating parameter cast to ``dtype``, but
+        those named in ``keep`` (the ones the model reads in f32)."""
+        return Transformer(_map_tree(self.tree(), lambda k, t: (
+            t.to(dtype) if t.is_floating_point() and k not in keep else t)))
 
 
 # ---------------------------------------------------------------------------
@@ -358,14 +374,23 @@ def init_quant_cache(cfg, batch: int, max_len: int, device,
         _zero_length(device), HostLength())
 
 
-def capacity(cache) -> int:
-    """Positions the cache has room for."""
-    return cache.k.shape[3 if isinstance(cache, QuantKVCache) else 2]
+def capacity(cache) -> float:
+    """Positions the cache has room for: a KV cache's positions; no limit
+    (``inf``) for any other decode state, an SSM state
+    (``models.ssm.SSMState``) or a hybrid's ring buffer
+    (``models.hybrid.HybridState``), which keep a summary or the last
+    window of any number of positions."""
+    if isinstance(cache, QuantKVCache):
+        return cache.k.shape[3]
+    if isinstance(cache, KVCache):
+        return cache.k.shape[2]
+    return math.inf
 
 
 def copy_cache(cache):
     """A copy whose tensors and counts are its own: steps on the copy
-    leave the original as it was."""
+    leave the original as it was.  Any decode state: a KV cache, an SSM
+    state, a hybrid state (every tensor field cloned)."""
     return cache._replace(
         host_length=HostLength(cache.host_length.n),
         **{f: getattr(cache, f).clone() for f in cache._fields

@@ -197,6 +197,13 @@ class Dispatch:
     entry: Optional[tuple] = None  # (shape, stats_binding, wire, backend)
 
 
+@dataclasses.dataclass(frozen=True)
+class KeepAlive:
+    """What an idle leader publishes so that its followers, waiting for
+    the next :class:`Dispatch`, do not reach the side group's timeout;
+    a follower skips it."""
+
+
 def _pad_lanes(rows: list, pad_to: Optional[int]) -> list:
     """A batch's bindings padded to ``pad_to`` lanes by repeating the
     last one."""
@@ -532,6 +539,11 @@ class TPCHDriver:
         self._leading = False
         self._session = 0
         self._next_key = 0
+        # the keep-alive thread of a leading session, its stop, and the
+        # host clock of the last descriptor published
+        self._keepalive: Optional[threading.Thread] = None
+        self._keepalive_stop = threading.Event()
+        self._last_publish = 0.0
         self.cubes = {}
         self.router: Optional[CubeRouter] = None
 
@@ -713,26 +725,63 @@ class TPCHDriver:
         :meth:`stop_followers`.  While leading, run plans only through
         prepared queries (``execute``, ``execute_batch``, ``query``,
         ``explain_analyze``): a plan called any other way is not
-        published, and the ranks' collectives part.  A no-op without a
-        process group; raises on another rank."""
+        published, and the ranks' collectives part.  While leading, a
+        thread publishes a :class:`KeepAlive` whenever no descriptor has
+        gone out for a quarter of the side group's timeout, so an idle
+        leader keeps its followers.  A no-op without a process group;
+        raises on another rank."""
         topo = self.cluster.topology
         if not topo.distributed:
             return
         if topo.rank != 0:
             raise ValueError(f"rank {topo.rank} cannot lead: rank 0 leads "
                              f"and the other ranks call follow()")
+        from repro_torch.launch import mesh
+
         with self._dispatch_gate:
-            if not self._leading:
-                self._leading = True
-                self._session += 1
+            if self._leading:
+                return
+            self._leading = True
+            self._session += 1
+            self._last_publish = time.monotonic()
+            self._keepalive_stop = threading.Event()
+            self._keepalive = threading.Thread(
+                target=self._keep_alive,
+                args=(self._keepalive_stop,
+                      mesh.group_timeout(topo.control) / 4),
+                name="repro-keepalive", daemon=True)
+            self._keepalive.start()
+
+    def _keep_alive(self, stop: threading.Event, interval: float) -> None:
+        """The keep-alive thread of one leading session: a
+        :class:`KeepAlive` under the gate whenever ``interval`` seconds
+        have passed since the last descriptor, until ``stop``."""
+        while True:
+            wait = self._last_publish + interval - time.monotonic()
+            if wait > 0:
+                if stop.wait(wait):
+                    return
+                continue
+            with self._dispatch_gate:
+                if stop.is_set():
+                    return
+                if time.monotonic() - self._last_publish >= interval:
+                    descriptor(KeepAlive(), self.cluster.topology)
+                    self._last_publish = time.monotonic()
+                    self.obs.metrics.counter("driver.keepalives").inc()
 
     def stop_followers(self) -> None:
         """Publish the stop that ends every follower's loop, once a
-        leading session (a no-op when this rank does not lead)."""
+        leading session (a no-op when this rank does not lead), and end
+        the session's keep-alive thread."""
         with self._dispatch_gate:
-            if self._leading:
-                self._leading = False
-                descriptor(None, self.cluster.topology)
+            if not self._leading:
+                return
+            self._leading = False
+            self._keepalive_stop.set()
+            descriptor(None, self.cluster.topology)
+        self._keepalive.join()
+        self._keepalive = None
 
     def _publish(self, entry: _PlanEntry, batched: bool, bindings: tuple,
                  pad_to) -> None:
@@ -746,15 +795,17 @@ class TPCHDriver:
             entry.published[1], batched, bindings, pad_to,
             (entry.shape, entry.stats_binding, entry.wire, entry.backend)
             if first else None), self.cluster.topology)
+        self._last_publish = time.monotonic()
         self.obs.metrics.counter("driver.published").inc()
 
     def follow(self) -> int:
         """Follow rank 0's serving (every rank but 0, while rank 0 leads):
         receive each dispatch rank 0 publishes and run the same plan with
         the same lanes, dropping the answer, until rank 0 publishes the
-        stop.  Returns the dispatches run.  A dispatch that raises ends
-        the loop and re-raises; the other ranks then fail at the group's
-        timeout (``launch.mesh.TIMEOUT_S``)."""
+        stop, skipping its keep-alives.  Returns the dispatches run.  A
+        dispatch that raises ends the loop and re-raises; the other ranks
+        then fail at the group's timeout, as every follower does once the
+        leader has died (no dispatch, keep-alive or stop for that long)."""
         topo = self.cluster.topology
         if not topo.distributed or topo.rank == 0:
             raise ValueError("follow() runs on the ranks other than 0 of a "
@@ -765,6 +816,8 @@ class TPCHDriver:
             d = descriptor(None, topo)
             if d is None:
                 return done
+            if isinstance(d, KeepAlive):
+                continue
             if d.entry is not None:
                 entries[d.key] = _PlanEntry(*d.entry)
             entry = entries[d.key]

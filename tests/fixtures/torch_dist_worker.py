@@ -25,7 +25,10 @@ SPAWN's tasks and pickles what it saw to ``OUT/rank{RANK}.pkl``:
   cubes and q6_param's batch through the JAX driver in this process, and
   the float64 oracle;
 - ``mismatch``: a ``TPCHDriver`` whose ranks have different
-  ``PYTHONHASHSEED`` values (the caller sets them) must raise.
+  ``PYTHONHASHSEED`` values (the caller sets them) must raise;
+- ``keepalive`` (:func:`run_keepalive`): a driver over a gloo group with
+  a 3 s timeout, rank 0's engine idle for 10 s before it serves one
+  request, the other ranks following.
 
 Every rank of a spawn shares the caller's ``PYTHONHASHSEED`` (except in
 ``mismatch``), so every rank, and the reference, see the same tables.
@@ -348,6 +351,57 @@ def sequential_answers(drv, items=None) -> list:
     return [_answer(it.prep.execute(it.binding)) for it in items]
 
 
+# the keep-alive spawn: the group's timeout (the side group's too) and how
+# long rank 0's engine idles before its one request
+KEEPALIVE_TIMEOUT_S = 3.0
+KEEPALIVE_IDLE_S = 10.0
+
+
+def run_keepalive(world: int) -> dict:
+    """A driver over a new gloo group of the ranks whose timeout is
+    ``KEEPALIVE_TIMEOUT_S``; every rank executes q6_param once in lockstep
+    (the answer kept), then rank 0 runs the engine, idles
+    ``KEEPALIVE_IDLE_S`` (longer than the timeout) and serves the same
+    request, while the other ranks follow.  Each rank returns what it
+    saw: its dispatches followed or its answer, the keep-alives it
+    published, its ``dist_calls()``."""
+    import torch.distributed as dist
+
+    from repro_torch.core import engine
+    from repro_torch.launch import mesh
+    from repro_torch.serve.olap_engine import OLAPEngine
+    from repro_torch.tpch import queries
+    from repro_torch.tpch.driver import TPCHDriver
+
+    group = dist.new_group(list(range(world)), backend="gloo",
+                           timeout=datetime.timedelta(
+                               seconds=KEEPALIVE_TIMEOUT_S))
+    dist.barrier()  # the default group's timeout: start together
+    drv = TPCHDriver(SF, num_nodes=P, device="cpu", group=group)
+    prep = drv.prepare(queries.q6_param_ir())
+    binding = queries.default_binding("q6")
+    out = {"timeout_s": mesh.group_timeout(drv.cluster.topology.control),
+           "sequential": _answer(prep.execute(binding))}
+    engine.reset_dist_calls()
+    if drv.cluster.topology.rank != 0:
+        out["followed"] = drv.follow()
+        out["dist_calls"] = engine.dist_calls()
+        return out
+
+    async def go():
+        async with OLAPEngine(drv) as e:
+            await asyncio.sleep(KEEPALIVE_IDLE_S)
+            return await e.submit(prep, binding)
+
+    published = drv.obs.metrics.value("driver.published") or 0
+    out["answer"] = _answer(asyncio.run(asyncio.wait_for(
+        go(), KEEPALIVE_IDLE_S + ENGINE_TIMEOUT_S)))
+    out["published"] = drv.obs.metrics.value("driver.published") - published
+    out["keepalives"] = drv.obs.metrics.value("driver.keepalives") or 0
+    out["dist_calls"] = engine.dist_calls()
+    return out
+
+
 def _raises(fn) -> str:
     """The message of what ``fn()`` raised, '' if it returned."""
     try:
@@ -381,6 +435,9 @@ def main(spawn: str, rank: int, world: int, store: str, out: str) -> None:
         if spawn == "mismatch":
             res["mismatch"] = _raises(
                 lambda: TPCHDriver(SF, num_nodes=P, device="cpu"))
+            return
+        if spawn == "keepalive":
+            res["keepalive"] = run_keepalive(world)
             return
         # collectives over the default group, and over a group of one rank
         groups = {"default": None}

@@ -2,7 +2,7 @@
 holding L = P / W of the P = 8 nodes, against the one-process port, the
 JAX package and the float64 oracle.
 
-Three spawns of ``tests/fixtures/torch_dist_worker.py`` run at once, all
+Four spawns of ``tests/fixtures/torch_dist_worker.py`` run at once, all
 ranks with one fixed ``PYTHONHASHSEED`` except where the seeds must
 differ:
 
@@ -16,7 +16,9 @@ differ:
   group is gone, the one-process port driver, the JAX driver (the
   8-device CPU mesh) and the oracle on the same tables;
 - ``mismatch`` (W = 2, two ``PYTHONHASHSEED`` values): the driver must
-  raise.
+  raise;
+- ``keepalive`` (W = 2): a driver over a group whose timeout is 3 s; rank
+  0's engine idles 10 s, then serves one request.
 
 Each collective is held against the same function over all P nodes in
 this process: outputs, ``wire_bytes()`` and the collective record equal
@@ -28,13 +30,16 @@ its per-node wire bytes and collective record equal one process's.
 Every rank's cubes equal the one-process port's (counts, rows, min and
 max exactly, sums within rtol 1e-5) and the JAX package's; batches and
 EXPLAIN ANALYZE's semi-join bytes equal the one-process port's (q6_param
-also the JAX batch); the leader's tier-1 answers equal the ranks'
-sequential executes of the same requests byte for byte, its tier-2 ones
-within rtol 1e-5 (a lane's all-reduce sums in an order that depends on
-its position in the batch; a coalesced ``q1_offedge`` lane, the lane-mask
-product, within rtol 2e-4), and one process's as a query does; every
-follower ran every dispatch the leader published.  The spawns are bounded: a hang fails the test,
-the init timeout ends the ranks.
+also the JAX batch); the leader's answers equal the ranks' sequential
+executes of the same requests byte for byte, tier 1 and tier 2 alike (a
+float sum across the ranks folds their partials in rank order, so a
+coalesced lane sums as the request run alone does), except a coalesced
+``q1_offedge`` lane, the lane-mask product, within rtol 2e-4; they equal
+one process's as a query does; every follower ran every dispatch the
+leader published.  A leader idle for longer than the group's timeout
+keeps its followers (keep-alives), and they run its next request.  The
+spawns are bounded: a hang fails the test, the init timeout ends the
+ranks.  The keep-alive spawn's failure fails only its own test.
 """
 from __future__ import annotations
 
@@ -56,7 +61,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 WORKER = ROOT / "tests" / "fixtures" / "torch_dist_worker.py"
 HASH_SEED = "20171"
 SPAWNS = {"w4": (4, [HASH_SEED] * 4), "w2": (2, [HASH_SEED] * 2),
-          "mismatch": (2, ["1", "2"])}
+          "mismatch": (2, ["1", "2"]), "keepalive": (2, [HASH_SEED] * 2)}
 TIMEOUT_S = 300
 
 
@@ -95,6 +100,9 @@ def runs(tmp_path_factory):
     for (spawn, rank), (out, log, p) in sorted(procs.items()):
         text = (out / f"rank{rank}.log").read_text()[-4000:]
         path = out / f"rank{rank}.pkl"
+        if spawn == "keepalive":  # its own test reads how it ended
+            res[spawn].append((p.returncode, text, path))
+            continue
         assert p.returncode == 0 and path.exists(), (
             f"{spawn} rank {rank} exited {p.returncode}:\n{text}")
         with open(path, "rb") as f:
@@ -285,15 +293,14 @@ def test_engine_leads_and_ranks_follow(runs, world):
         what = f"request {i} ({name})"
         assert (tier, overflow) == (seq[0], False) and not seq[2], what
         assert (tier, overflow) == (one[0], False) and not one[2], what
-        # tier 1 reads the same cube as the execute did.  A coalesced lane
-        # is all-reduced at its position in the batch, and gloo's ring
-        # sums the ranks' partials of each position in its own order; a
-        # coalesced q1_offedge lane is also the lane-mask product
+        # tier 1 reads the same cube as the execute did; a tier-2 lane
+        # sums across the ranks in rank order wherever it lies in the
+        # batch; a coalesced q1_offedge lane is the lane-mask product
         rtol = 2e-4 if kind == "tier2" else 1e-5
-        if kind == "tier1":
-            assert _same_bytes(value, seq[1]), what
-        else:
+        if kind == "tier2":
             _assert_close(value, seq[1], what, rtol=rtol)
+        else:
+            assert _same_bytes(value, seq[1]), what
         _assert_close(value, one[1], f"{what}, one process", rtol=rtol)
     assert lead["published"] > 0
     assert lead["dist_calls"]["descriptor"] == lead["published"] + 1
@@ -321,6 +328,32 @@ def test_serve_olap_mode_runs_across_ranks(runs, mode, world):
             assert f"{name:>22s} " in text, text
     else:
         assert "plans verified, 0 with errors/warnings" in text, text
+
+
+def test_idle_leader_keeps_its_followers(runs):
+    ranks = []
+    for rank, (rc, text, path) in enumerate(runs["keepalive"]):
+        assert rc == 0 and path.exists(), f"rank {rank} exited {rc}:\n{text}"
+        with open(path, "rb") as f:
+            r = pickle.load(f)
+        assert "error" not in r, f"rank {rank}:\n{r['error']}"
+        ranks.append(r["keepalive"])
+    lead = ranks[0]
+    assert lead["timeout_s"] == worker.KEEPALIVE_TIMEOUT_S
+    # a keep-alive every quarter of the timeout while the engine idles
+    assert lead["keepalives"] >= worker.KEEPALIVE_IDLE_S / (
+        worker.KEEPALIVE_TIMEOUT_S / 4) - 2, lead["keepalives"]
+    assert lead["published"] == 1
+    assert lead["dist_calls"]["descriptor"] == (
+        lead["published"] + lead["keepalives"] + 1)
+    tier, value, overflow = lead["answer"]
+    want_tier, want, want_overflow = lead["sequential"]
+    assert (tier, overflow) == (want_tier, want_overflow) == (2, False)
+    assert _same_bytes(value, want)
+    for rank, o in enumerate(ranks[1:], start=1):
+        assert o["followed"] == lead["published"], f"rank {rank}"
+        assert o["dist_calls"] == lead["dist_calls"], f"rank {rank}"
+        assert _same_bytes(o["sequential"][1], want), f"rank {rank}"
 
 
 # -- (d) what raises --------------------------------------------------------------

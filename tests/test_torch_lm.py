@@ -488,9 +488,7 @@ def test_serve_step_rejects_bad_shards():
         make_serve_step(build(tcfg), shards=3)
 
 
-@pytest.mark.parametrize("arch,family", [("recurrentgemma-2b", "hybrid"),
-                                         ("whisper-medium", "encdec"),
-                                         ("mamba2-2.7b", "ssm"),
+@pytest.mark.parametrize("arch,family", [("whisper-medium", "encdec"),
                                          ("paligemma-3b", "vlm")])
 def test_unported_architectures_raise(arch, family):
     """The registry names only what the port serves; a config of another
