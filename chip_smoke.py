@@ -365,6 +365,32 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
       time there beside its plain version, ``scaled_dot_product_attention``
       with the window as a mask and its bound (the visible pairs'
       operations).  Times as 7g.
+   i. The encoder-decoder family: whisper-medium at full width and depth
+      (24 + 24 layers, d_model 1,024, 16 heads of 64, d_ff 4,096, vocab
+      51,865, 32,768 learned decoder positions; 794,755,072 parameters),
+      batch 4: 1,500 random frames a sequence (the stub frontend's input,
+      30 s of audio) and a 384-token decoder prompt through
+      ``Model.prefill`` with the tensor-core B7 (72 launches: 24 encoder
+      self-attentions and 24 cross-attentions unmasked, 24 causal decoder
+      self-attentions; the f32 B7 and B9 none), then 64 greedy steps
+      replayed (384 + 64 = 448, Whisper's text context).  Held: (1)
+      replayed vs eager as 7g; (2) the prefill through the chunked
+      attention, (3) a 383-token prompt plus one step, each within 0.05 x
+      the largest |logit|; (4) the tensor-core B7 on layer 0's encoder
+      self, decoder self and cross attention inputs within 7a's limit,
+      each timed beside its plain version, ``scaled_dot_product_attention``
+      (unmasked; causal for the decoder's self) and its bound.  Times as
+      7g.
+   j. The VLM family: paligemma-3b at full width and depth (18 layers,
+      d_model 2,048, 8/1 heads of 256, geglu d_ff 16,384, vocab 257,216;
+      2,512,728,064 parameters), batch 4: 256 random patches of width
+      1,152 (the stub vision tower's output) and 3,840 text tokens, a
+      4,096-position prefill through the tensor-core B7 (18 launches,
+      causal with the 256-position image prefix that every query sees),
+      then 64 greedy steps on the bf16 cache of 4,160 positions replayed.
+      Held as 7i, (3) with 3,839 text tokens plus one step, (4) on layer
+      0's input beside ``scaled_dot_product_attention`` with the prefix
+      mask given explicitly.  Times as 7g.
 8. Training qwen2.5-3b at full width, after the serving phases have
    dropped what they placed on the card:
    a. B8's two CUDA variants.  The f32 CUDA-core ``flash_attention_bwd``
@@ -5198,14 +5224,18 @@ def moe_phase(args, torch, smi: str):
 
 SSM_ARCH = "mamba2-2.7b"
 HYBRID_ARCH = "recurrentgemma-2b"
+ENCDEC_ARCH = "whisper-medium"
+VLM_ARCH = "paligemma-3b"
 # the live parameters at full width (the hybrid's JAX tree holds both
-# blocks of every layer: 3,416,404,480)
-RECURRENT_PARAMS = {SSM_ARCH: 2_704_590_336, HYBRID_ARCH: 1_832_798_720}
+# blocks of every layer: 3,416,404,480); the encoder-decoder's and the
+# VLM's as in the JAX tree
+FAMILY_PARAMS = {SSM_ARCH: 2_704_590_336, HYBRID_ARCH: 1_832_798_720,
+                 ENCDEC_ARCH: 794_755_072, VLM_ARCH: 2_512_728_064}
 RECURRENT_SHORT = 1000      # 7h (4): a prompt shorter than the window
 RECURRENT_EAGER_STEPS = LM_STEPS   # the replayed steps held against eager
 
 
-def _recurrent_model(torch, arch: str, label: str, keep_f32: bool = False):
+def _family_model(torch, arch: str, label: str, keep_f32: bool = False):
     """``arch`` at full width and depth: ``Model.init`` draws f32 from
     seed 0 on the card, ``Model.cast`` casts once to bf16 (the parameters
     the layers read in f32 stay f32) and the f32 copy is dropped unless
@@ -5227,10 +5257,12 @@ def _recurrent_model(torch, arch: str, label: str, keep_f32: bool = False):
     init_s = time.perf_counter() - t0
     param_bytes = sum(t.numel() * t.element_size()
                       for t in params.parameters())
-    if n_params != RECURRENT_PARAMS[arch]:
+    if n_params != FAMILY_PARAMS[arch]:
         fail(f"{label} {arch}: {n_params} parameters, expected "
-             f"{RECURRENT_PARAMS[arch]}")
-    print(f"{label} {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+             f"{FAMILY_PARAMS[arch]}")
+    depth = (f"{cfg.encdec.n_enc_layers} + {cfg.n_layers}" if cfg.encdec
+             else cfg.n_layers)
+    print(f"{label} {arch}: {depth} layers, d_model {cfg.d_model}, "
           f"vocab {cfg.vocab_size} padded to {cfg.padded_vocab()}: "
           f"{n_params} parameters, f32 {f32_bytes} B -> {param_bytes} B on "
           f"the card (bf16, the f32-read ones f32), initialised and cast in "
@@ -5241,20 +5273,22 @@ def _recurrent_model(torch, arch: str, label: str, keep_f32: bool = False):
     return (*out, p32) if keep_f32 else out
 
 
-def _recurrent_serve(torch, model, params, tokens, label: str, **kw):
-    """Prefill ``tokens`` into a new bf16 state, then LM_STEPS greedy steps
-    through ``decode_loop`` (one captured graph replayed), the launch
-    counters set to 0 just before and read just after.  Checks the
-    lengths, finite logits, the sharded head against argmax, and
-    RECURRENT_EAGER_STEPS of the replayed steps against the same steps run
-    eagerly on a copy of the state.  Returns (prefill logits, launches,
-    the replay-vs-eager difference, the head)."""
+def _family_serve(torch, model, params, batch, label: str, max_len: int = 0,
+                  **kw):
+    """Prefill ``batch`` (its ``tokens`` and the frontend's input) into a
+    new bf16 state of ``max_len`` positions (none for a recurrent state),
+    then LM_STEPS greedy steps through ``decode_loop`` (one captured graph
+    replayed), the launch counters set to 0 just before and read just
+    after.  Checks the lengths, finite logits, the sharded head against
+    argmax, and RECURRENT_EAGER_STEPS of the replayed steps against the
+    same steps run eagerly on a copy of the state.  Returns (prefill
+    logits, launches, the replay-vs-eager difference, the head)."""
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
     from repro_torch.serve import sampling
     from repro_torch.serve.engine import decode_loop
 
-    B, S = tokens.shape
+    B = batch["tokens"].shape[0]
     V = model.cfg.padded_vocab()
 
     def head(logits):
@@ -5263,15 +5297,15 @@ def _recurrent_serve(torch, model, params, tokens, label: str, **kw):
 
     logits_k = []
     ops.reset_launch_counts()
-    logits0, st = model.prefill(params, {"tokens": tokens},
-                                model.init_decode_state(B, 0), **kw)
+    logits0, st = model.prefill(params, batch,
+                                model.init_decode_state(B, max_len), **kw)
+    n = st.host_length.n + LM_STEPS
     first = torch.argmax(logits0, dim=-1)
     st_eager = T.copy_cache(st)
     toks, st = decode_loop(model, params, st, first, LM_STEPS,
                            shards=LM_SHARDS, k=LM_TOPK, logits_out=logits_k)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
-    n = S + LM_STEPS
     if (int(st.length) != n or st.host_length.n != n
             or toks.shape != (B, LM_STEPS + 1)):
         fail(f"{label}: state length {int(st.length)} (host "
@@ -5290,39 +5324,52 @@ def _recurrent_serve(torch, model, params, tokens, label: str, **kw):
     return logits0, launches, e_replay, head
 
 
-def _recurrent_times(torch, model, params, tokens, head, label: str, smi,
-                     **kw) -> dict:
+def _family_times(torch, model, params, batch, head, label: str, smi,
+                  max_len: int = 0, **kw) -> dict:
     """Prefill ms and time to first token (CUDA events, median of
     LM_REPEAT warm runs), decode ms a step replayed and eager, the device
     busy share of a replayed loop (torch.profiler), resident and peak
-    allocated bytes.  A state summarises its past, so the timed loops
-    step on from where the last one stopped (the same work a step)."""
+    allocated bytes.  A recurrent state summarises its past, so the timed
+    loops step on from where the last one stopped (the same work a step);
+    a KV cache (``max_len`` positions) is rewound to the prompt's length
+    before each loop."""
+    import math
+
     from repro_torch.models import transformer as T
     from repro_torch.serve.engine import decode_loop
 
+    tokens = batch["tokens"]
     B = tokens.shape[0]
     times = {}
-    st_t = model.init_decode_state(B, 0)
+    st_t = model.init_decode_state(B, max_len)
     state_bytes = sum(t.numel() * t.element_size() for t in st_t
                       if isinstance(t, torch.Tensor))
 
     def prefill():
-        return model.prefill(params, {"tokens": tokens}, st_t, **kw)
+        return model.prefill(params, batch, st_t, **kw)
 
     def prefill_and_head():
         lg, _ = prefill()
         return torch.argmax(lg, dim=-1)
 
     times["prefill_ms"], _ = _events_ms(torch, prefill, LM_REPEAT)
-    times["prefill_tokens_per_s"] = (B * tokens.shape[1]
-                                     / times["prefill_ms"] * 1e3)
     times["ttft_ms"], first = _events_ms(torch, prefill_and_head, LM_REPEAT)
+    n0 = st_t.host_length.n
+    times["prefill_tokens_per_s"] = B * n0 / times["prefill_ms"] * 1e3
+
+    def rewind():
+        if T.capacity(st_t) < math.inf:
+            T.set_length(st_t, n0)
 
     def replayed(steps):
-        return lambda: decode_loop(model, params, st_t, first, steps,
-                                   shards=LM_SHARDS, k=LM_TOPK)
+        def run():
+            rewind()
+            return decode_loop(model, params, st_t, first, steps,
+                               shards=LM_SHARDS, k=LM_TOPK)
+        return run
 
     def eager():
+        rewind()
         t_ = first
         for _ in range(LM_STEPS):
             lg, _ = model.decode_step(params, st_t, t_[:, None])
@@ -5375,15 +5422,15 @@ def ssm_phase(args, torch, smi: str):
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    model, params, out, p32 = _recurrent_model(torch, SSM_ARCH, "7g",
+    model, params, out, p32 = _family_model(torch, SSM_ARCH, "7g",
                                                keep_f32=True)
     cfg = model.cfg
     gen = torch.Generator(device="cuda").manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
                            generator=gen, device="cuda")
     zero = dict.fromkeys(ops.launch_counts(), 0)
-    logits0, got, e_replay, head = _recurrent_serve(
-        torch, model, params, tokens, "7g")
+    logits0, got, e_replay, head = _family_serve(
+        torch, model, params, {"tokens": tokens}, "7g")
     if got != zero:
         fail(f"7g: mamba2 launched {got}, no kernel expected")
     # (2) the prompt less its last token, then that token as a step, and
@@ -5424,7 +5471,8 @@ def ssm_phase(args, torch, smi: str):
           f"{e_chunk} (limit {LOGIT_RTOL} x max |logit|); not held, bf16: "
           f"(2) {e_step_bf16}, (3) {e_chunk_bf16}, the bf16 prefill vs its "
           f"f32 twin {e_bf16_f32}")
-    times = _recurrent_times(torch, model, params, tokens, head, "7g", smi)
+    times = _family_times(torch, model, params, {"tokens": tokens}, head,
+                          "7g", smi)
     del params, model, logits0
     torch.cuda.empty_cache()
     out.update(times=times, launches=got, logit_errs={
@@ -5458,7 +5506,7 @@ def hybrid_phase(args, torch, smi: str):
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    model, params, out = _recurrent_model(torch, HYBRID_ARCH, "7h")
+    model, params, out = _family_model(torch, HYBRID_ARCH, "7h")
     cfg = model.cfg
     n_attn = sum(hybrid.is_attn_layer(cfg, i) for i in range(cfg.n_layers))
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -5468,8 +5516,9 @@ def hybrid_phase(args, torch, smi: str):
     flash_in = []
     orig_fa = _recording(ops, "flash_attention_fwd", flash_in)
     try:
-        logits0, got, e_replay, head = _recurrent_serve(
-            torch, model, params, tokens, "7h", attn_impl="flash")
+        logits0, got, e_replay, head = _family_serve(
+            torch, model, params, {"tokens": tokens}, "7h",
+            attn_impl="flash")
     finally:
         ops.flash_attention_fwd = orig_fa
     want = {**zero, "flash_attention_fwd_tc": n_attn}
@@ -5552,8 +5601,8 @@ def hybrid_phase(args, torch, smi: str):
           f"{b7_plain:.3f} ms, sdpa with the window as a mask {b7_lib:.4f} "
           f"ms, bound {b7_bound:.4f} ms ({b7_by}: {b7_ops} FLOP of the "
           f"visible pairs at 989 TFLOP/s bf16; {b7_bytes} B) on {smi}")
-    times = _recurrent_times(torch, model, params, tokens, head, "7h", smi,
-                             attn_impl="flash")
+    times = _family_times(torch, model, params, {"tokens": tokens}, head,
+                          "7h", smi, attn_impl="flash")
     del params, model, logits0
     torch.cuda.empty_cache()
     out.update(times=times, launches=got, b7=b7, logit_errs={
@@ -5563,6 +5612,198 @@ def hybrid_phase(args, torch, smi: str):
         phase_s=time.perf_counter() - t_phase)
     print(f"phase 7h ({HYBRID_ARCH}): {out['phase_s']:.1f} s on {smi}")
     return {"flash_attention_fwd_tc": n_attn}, out
+
+
+# ---------------------------------------------------------------------------
+# phases 7i and 7j: the encoder-decoder and VLM families at full width
+# ---------------------------------------------------------------------------
+
+ENCDEC_PROMPT = 384   # decoder prompt: + LM_STEPS = 448, Whisper's context
+VLM_TEXT = 3840       # text tokens behind the 256 image positions: 4,096
+
+
+def _b7_case(torch, inputs, what: str) -> dict:
+    """The tensor-core B7 on one recorded call's inputs ((qg, kg, vg), its
+    mask keywords): held against its plain version with the same rounding
+    (7a's limit), timed beside that plain version,
+    ``scaled_dot_product_attention`` with the same mask and its bound (the
+    operations of the visible (query, key) pairs, the bytes of q, k, v,
+    out and lse)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    (qg, kg, vg), kw = inputs
+    bkv, g, s, d = qg.shape
+    sk = kg.shape[1]
+    causal, prefix = kw["causal"], kw["prefix"]
+    if kw["window"] is not None or not fa.uses_tensor_cores(qg.dtype, d):
+        fail(f"{what}: {tuple(qg.shape)} {qg.dtype} {kw} is no tensor-core "
+             f"case without a window")
+    o, _ = fa.flash_attention_fwd_tc_cuda(qg, kg, vg, **kw)
+    w, _, slack = ref.flash_attention_fwd(
+        qg.float(), kg.float(), vg.float(), p_dtype=qg.dtype, slack=True,
+        **kw)
+    slack_only = _hold_rounded(torch, o, w, slack,
+                               f"{what}: flash_attention_fwd_tc", 1e-5)
+    err = _errs(o, w)["max"]
+    del o, w, slack
+    ms = cuda_ms(lambda: fa.flash_attention_fwd_tc_cuda(qg, kg, vg, **kw),
+                 20)
+    plain = cuda_ms(lambda: ref.flash_attention_fwd(
+        qg, kg, vg, p_dtype=qg.dtype, **kw), 2)
+    kv = bkv // LM_BATCH
+    q4 = qg.reshape(LM_BATCH, kv * g, s, d)
+    k4, v4 = (t.reshape(LM_BATCH, kv, sk, d) for t in (kg, vg))
+    if causal and prefix:
+        qp = torch.arange(s, device="cuda")[:, None]
+        kp = torch.arange(sk, device="cuda")[None, :]
+        lib_kw = {"attn_mask": (kp <= qp) | (kp < prefix)}
+    else:
+        lib_kw = {"is_causal": causal}
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, enable_gqa=True, **lib_kw), 5)
+    pairs = (sum(min(sk, max(i + 1, prefix)) for i in range(s)) if causal
+             else s * sk)
+    nbytes = 2 * (2 * qg.numel() + kg.numel() + vg.numel()) + 4 * bkv * g * s
+    ops_ = 4 * d * bkv * g * pairs
+    b_ms, b_by = bound(nbytes, ops_, BF16_OPS_PER_S)
+    del q4, k4, v4, lib_kw
+    return {"shape": [bkv, g, s, sk, d], "causal": causal, "prefix": prefix,
+            "max_abs_err": err, "slack_only_elements": slack_only,
+            "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+            "bound_by": b_by, "flop": ops_, "bytes": nbytes}
+
+
+def _b7_line(name: str, c: dict) -> str:
+    return (f"{name} {tuple(c['shape'])} (BKV, G, S, Sk, D) causal "
+            f"{c['causal']} prefix {c['prefix']}: max abs err "
+            f"{c['max_abs_err']:.3e} ({c['slack_only_elements']} elements "
+            f"by the slack only), {c['ms']:.4f} ms, plain "
+            f"{c['plain_ms']:.3f} ms, sdpa {c['library_ms']:.4f} ms, bound "
+            f"{c['bound_ms']:.4f} ms ({c['bound_by']}: {c['flop']} FLOP at "
+            f"989 TFLOP/s bf16, {c['bytes']} B)")
+
+
+def _prefix_family_phase(torch, smi: str, label: str, arch: str, batch,
+                         max_len: int, picks: dict, short_batch):
+    """The body of 7i and 7j: ``arch`` at full width and depth serves
+    ``batch`` (random frontend inputs and tokens from seed 1) into a bf16
+    cache of ``max_len`` positions through the tensor-core B7 (one launch
+    an attention, none of the f32 B7 or B9), then LM_STEPS greedy steps
+    replayed; held: (1) replayed vs eager, (2) the prefill through the
+    chunked attention, (3) ``short_batch`` (the prompt less its last
+    token) plus that token as a step, (4) the tensor-core B7 on the
+    recorded calls ``picks`` (name -> index) within 7a's limit, timed.
+    Returns (B7's launches, a summary dict)."""
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, params, out = _family_model(torch, arch, label)
+    cfg = model.cfg
+    batch = batch(cfg)
+    n_attn = (cfg.n_layers if cfg.family == "vlm"
+              else cfg.encdec.n_enc_layers + 2 * cfg.n_layers)
+    zero = dict.fromkeys(ops.launch_counts(), 0)
+    flash_in = []
+    orig_fa = _recording(ops, "flash_attention_fwd", flash_in)
+    try:
+        logits0, got, e_replay, head = _family_serve(
+            torch, model, params, batch, label, max_len, attn_impl="flash")
+    finally:
+        ops.flash_attention_fwd = orig_fa
+    want = {**zero, "flash_attention_fwd_tc": n_attn}
+    if got != want:
+        fail(f"{label} launched {got}, expected {want}")
+    inputs = {name: flash_in[i] for name, i in picks.items()}
+    del flash_in
+
+    def prefill(b, impl):
+        return model.prefill(params, b, model.init_decode_state(
+            LM_BATCH, max_len), attn_impl=impl)
+
+    # (2) the chunked attention in plain PyTorch
+    e_xla = _logit_check(torch, logits0, prefill(batch, "xla")[0],
+                         f"{label} (2) prefill vs xla")
+    # (3) the prompt less its last token, then that token as a step
+    _, st = prefill(short_batch(batch), "flash")
+    ld, st = model.decode_step(params, st, batch["tokens"][:, -1:])
+    e_step = _logit_check(torch, ld, logits0,
+                          f"{label} (3) prefill S-1 + decode vs prefill S")
+    del st, ld
+    # (4) B7 on the layer-0 inputs
+    b7 = {name: _b7_case(torch, x, f"{label} (4) {name}")
+          for name, x in inputs.items()}
+    del inputs
+    S = batch["tokens"].shape[1]
+    print(f"{label}: prefill of {LM_BATCH} x {S} tokens "
+          f"({', '.join(f'{k} {tuple(v.shape)}' for k, v in batch.items())}) "
+          f"through the tensor-core B7 + {LM_STEPS} greedy steps replayed "
+          f"from one captured CUDA graph; launches {got}; the sharded head "
+          f"equals argmax on every step; (1) {RECURRENT_EAGER_STEPS} steps "
+          f"run eagerly on a copy of the state chose the same tokens, "
+          f"logits within rtol 2^-8 (max abs difference {e_replay}); (2) vs "
+          f"the chunked attention: {e_xla}; (3) prefill of {S - 1} + one "
+          f"step vs {S}: {e_step} (limit {LOGIT_RTOL} x max |logit|); (4) "
+          f"B7 on layer 0's inputs against the plain version with the same "
+          f"rounding, on {smi}: "
+          + "; ".join(_b7_line(k, c) for k, c in b7.items()))
+    times = _family_times(torch, model, params, batch, head, label, smi,
+                          max_len, attn_impl="flash")
+    del params, model, logits0, batch
+    torch.cuda.empty_cache()
+    out.update(times=times, launches=got, b7=b7, logit_errs={
+        "replayed_vs_eager": e_replay, "xla_prefill": e_xla,
+        "prefill_s_minus_1_plus_step": e_step},
+        phase_s=time.perf_counter() - t_phase)
+    print(f"phase {label} ({arch}): {out['phase_s']:.1f} s on {smi}")
+    return {"flash_attention_fwd_tc": n_attn}, out
+
+
+def encdec_phase(args, torch, smi: str):
+    """Phase 7i: whisper-medium at full width and depth, random bf16
+    weights, 1,500 random frames and an ENCDEC_PROMPT-token prompt a
+    sequence: the encoder's and the cross attention unmasked, 1,500 keys
+    (G = 1, D = 64; 1,500 no multiple of the tile)."""
+    def batch(cfg):
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        return {"tokens": torch.randint(0, cfg.vocab_size,
+                                        (LM_BATCH, ENCDEC_PROMPT),
+                                        generator=gen, device="cuda"),
+                "frames": torch.randn((LM_BATCH, cfg.encdec.enc_seq,
+                                       cfg.d_model), generator=gen,
+                                      device="cuda")}
+
+    from repro_torch.configs import get_arch
+
+    # the recorded calls: the encoder's layers, then each decoder layer's
+    # self attention and its cross attention
+    n_enc = get_arch(ENCDEC_ARCH).encdec.n_enc_layers
+    return _prefix_family_phase(
+        torch, smi, "7i", ENCDEC_ARCH, batch, ENCDEC_PROMPT + LM_STEPS,
+        {"encoder self": 0, "decoder self": n_enc, "cross": n_enc + 1},
+        lambda b: {**b, "tokens": b["tokens"][:, :-1]})
+
+
+def vlm_phase(args, torch, smi: str):
+    """Phase 7j: paligemma-3b at full width and depth, random bf16
+    weights, 256 random patches and VLM_TEXT text tokens a sequence: B7
+    causal with the 256-position prefix (G = 8, D = 256)."""
+    def batch(cfg):
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        return {"tokens": torch.randint(0, cfg.vocab_size,
+                                        (LM_BATCH, VLM_TEXT),
+                                        generator=gen, device="cuda"),
+                "patches": torch.randn((LM_BATCH, cfg.vlm.num_patches,
+                                        cfg.vlm.patch_dim), generator=gen,
+                                       device="cuda")}
+
+    return _prefix_family_phase(
+        torch, smi, "7j", VLM_ARCH, batch, VLM_TEXT + LM_STEPS,
+        {"layer 0": 0}, lambda b: {**b, "tokens": b["tokens"][:, :-1]})
 
 
 # ---------------------------------------------------------------------------
@@ -6069,6 +6310,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_s["hybrid"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    encdec_launches, encdec_summary = encdec_phase(args, torch, smi)
+    torch.cuda.empty_cache()
+    phase_s["encdec"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vlm_launches, vlm_summary = vlm_phase(args, torch, smi)
+    torch.cuda.empty_cache()
+    phase_s["vlm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     b8_kernels, train_launches, train = train_phases(args, torch, smi)
     phase_s["train"] = time.perf_counter() - t0
     for k in lm_kernels:
@@ -6076,14 +6325,17 @@ def main(argv=None) -> int:
                    "qwen3-moe serving": moe_launches.get(k["name"], 0),
                    "mamba2 serving": 0,
                    "recurrentgemma serving": hybrid_launches.get(k["name"],
-                                                                 0)}
+                                                                 0),
+                   "whisper serving": encdec_launches.get(k["name"], 0),
+                   "paligemma serving": vlm_launches.get(k["name"], 0)}
         if k["name"].startswith("flash_attention_fwd"):
             by_path["training"] = train_launches[k["name"]]
         k["launches_by_path"] = by_path
         k["launches"] = sum(by_path.values())
     kernels = tpch_kernels + lm_kernels + b8_kernels
     summary = {"card": smi, "tpch": tpch, "lm": lm, "moe": moe_summary,
-               "ssm": ssm_summary, "hybrid": hybrid_summary, "train": train}
+               "ssm": ssm_summary, "hybrid": hybrid_summary,
+               "encdec": encdec_summary, "vlm": vlm_summary, "train": train}
     for k in kernels:
         if k.get("main_path", True) and k["launches"] < 1:
             fail(f"{k['name']} was never launched on the main path")

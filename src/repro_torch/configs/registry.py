@@ -2,10 +2,11 @@
 ``repro.configs.registry``).
 
 It names only the architectures the port serves: qwen2.5-3b (dense),
-qwen3-moe-30b-a3b and phi3.5-moe-42b-a6.6b (MoE), mamba2-2.7b (SSM) and
-recurrentgemma-2b (hybrid).  The JAX package's other five wait for their
-families or their configs (``ROADMAP.md`` queue A, item 11); asking for
-one raises an error that says so.
+qwen3-moe-30b-a3b and phi3.5-moe-42b-a6.6b (MoE), mamba2-2.7b (SSM),
+recurrentgemma-2b (hybrid), whisper-medium (encoder-decoder) and
+paligemma-3b (VLM).  The JAX package's other three, dense, wait for their
+configs (``ROADMAP.md`` queue A, item 11); asking for one raises an error
+that says so.
 """
 from __future__ import annotations
 
@@ -36,11 +37,12 @@ _MODULES = {
     "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi3_5_moe_42b_a6_6b",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
+    "whisper-medium": "repro_torch.configs.whisper_medium",
+    "paligemma-3b": "repro_torch.configs.paligemma_3b",
 }
 
 # architectures of the JAX package the port does not serve yet
-_NOT_PORTED = ("yi-34b", "chatglm3-6b", "mistral-nemo-12b",
-               "whisper-medium", "paligemma-3b")
+_NOT_PORTED = ("yi-34b", "chatglm3-6b", "mistral-nemo-12b")
 
 ARCHS = tuple(_MODULES)
 
@@ -50,6 +52,6 @@ def get_arch(name: str, smoke: bool = False) -> ModelConfig:
         known = "not ported yet" if name in _NOT_PORTED else "unknown"
         raise KeyError(
             f"architecture {name!r} is {known}: the port serves {ARCHS}; "
-            f"the other families wait for ROADMAP.md queue A, item 11")
+            f"the others wait for ROADMAP.md queue A, item 11")
     mod = importlib.import_module(_MODULES[name])
     return mod.SMOKE if smoke else mod.CONFIG

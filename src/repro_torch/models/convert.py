@@ -9,11 +9,13 @@ stacked ``layers`` axis is split across the module list, through nested
 dicts of any depth (a mamba layer mixes arrays with a ``norm`` dict); a
 hybrid layer keeps only its live block (``attn_block`` on the attention
 layers, ``rec_block`` on the others: the JAX tree stores both, and the
-inert one is read by nothing).  Every array keeps its values and dtype
-(bfloat16 included).  :func:`jax_layout` is the
-inverse layout (layers stacked again), and :func:`train_state_from_jax`
-carries a whole JAX ``TrainState`` (parameters, AdamW step and moments)
-across.
+inert one is read by nothing).  An encoder-decoder tree's ``enc_layers``
+and ``dec_layers`` are split the same way, its ``enc_pos`` and
+``dec_pos`` kept as tensors; a VLM's ``patch_proj`` is one more dict.
+Every array keeps its values and dtype (bfloat16 included).
+:func:`jax_layout` is the inverse layout (layers stacked again), and
+:func:`train_state_from_jax` carries a whole JAX ``TrainState``
+(parameters, AdamW step and moments) across.
 """
 from __future__ import annotations
 
@@ -43,41 +45,52 @@ def _leaf(tree):
     return tree
 
 
+_STACKED = ("layers", "enc_layers", "dec_layers")
+
+
 def params_from_jax(tree: dict, *, trainable: bool = False,
                     cfg=None) -> Transformer:
     """The port's parameters of the JAX tree ``tree``; a hybrid tree
     (layers of ``attn_block`` and ``rec_block``) needs its ``cfg`` to
     tell which block of each layer is live."""
-    layers = tree["layers"]
-    n = len(_leaf(layers))
-    out = {name: {k: _tensor(v) for k, v in tree[name].items()}
-           for name in ("embedding", "final_norm", "head") if name in tree}
-    if set(layers) == {"attn_block", "rec_block"}:
-        if cfg is None or cfg.family != "hybrid":
-            raise ValueError("a hybrid tree needs its hybrid cfg")
-        from repro_torch.models.hybrid import is_attn_layer
+    out = {}
+    for name, sub in tree.items():
+        if name not in _STACKED:
+            out[name] = (_tensor(sub) if not isinstance(sub, dict)
+                         else {k: _tensor(v) for k, v in sub.items()})
+            continue
+        n = len(_leaf(sub))
+        if set(sub) == {"attn_block", "rec_block"}:
+            if cfg is None or cfg.family != "hybrid":
+                raise ValueError("a hybrid tree needs its hybrid cfg")
+            from repro_torch.models.hybrid import is_attn_layer
 
-        out["layers"] = [
-            _layer(layers["attn_block" if is_attn_layer(cfg, i)
-                          else "rec_block"], i)
-            for i in range(n)]
-    else:
-        out["layers"] = [_layer(layers, i) for i in range(n)]
+            out[name] = [
+                _layer(sub["attn_block" if is_attn_layer(cfg, i)
+                           else "rec_block"], i)
+                for i in range(n)]
+        else:
+            out[name] = [_layer(sub, i) for i in range(n)]
     return Transformer(out, trainable)
 
 
 def jax_layout(params: Transformer) -> dict:
-    """The JAX package's tree of ``params``: nested dicts, the layers'
-    tensors stacked on a leading (L, ...) axis (new tensors, detached)."""
+    """The JAX package's tree of ``params``: nested dicts, each list of
+    layers' tensors stacked on a leading (L, ...) axis (new tensors,
+    detached)."""
     def stack(layers):
         if isinstance(layers[0], dict):
             return {k: stack([lp[k] for lp in layers]) for k in layers[0]}
         return torch.stack([t.detach() for t in layers])
 
-    t = params.tree()
-    out = {name: {k: v.detach() for k, v in t[name].items()}
-           for name in ("embedding", "final_norm", "head") if name in t}
-    out["layers"] = stack(t["layers"])
+    out = {}
+    for name, sub in params.tree().items():
+        if isinstance(sub, list):
+            out[name] = stack(sub)
+        elif isinstance(sub, dict):
+            out[name] = {k: v.detach() for k, v in sub.items()}
+        else:
+            out[name] = sub.detach()
     return out
 
 

@@ -127,6 +127,15 @@ def _gqa_out(probs, v):
     return out.reshape(B, Sq, KV * g, v.shape[-1])
 
 
+def fit_chunk(S: int, target: int) -> int:
+    """The largest chunk up to ``target`` that divides ``S``, as the JAX
+    package's modules pick theirs."""
+    c = min(target, S)
+    while S % c:
+        c -= 1
+    return c
+
+
 def chunked_attention(q, k, v, mask: AttnMask, *, chunk_q: int = 1024,
                       chunk_k: int = 1024):
     """The JAX package's memory-efficient baseline: query chunks, an

@@ -4,12 +4,15 @@ the server.
 
 The loss computes cross-entropy in SEQUENCE CHUNKS, each checkpointed, so
 the (B, S, vocab) f32 logits never exist whole.  The port trains and
-serves the dense family and serves the MoE family (``models.moe``), the
-SSM family (``models.ssm``) and the hybrid family (``models.hybrid``),
-whose ``hidden`` and ``loss`` run too; the others wait for
-``ROADMAP.md`` queue A, item 11.3.  As in the JAX package,
-``cache_quant`` changes nothing for the SSM and hybrid families: their
-decode state is no KV cache.
+serves the dense family and serves every other family of the JAX
+package: MoE (``models.moe``), SSM (``models.ssm``), hybrid
+(``models.hybrid``), encoder-decoder (``models.encdec``) and VLM
+(``models.vlm``), whose ``hidden`` and ``loss`` run too.  The
+encoder-decoder reads ``batch["frames"]`` (B, enc_seq, d), the VLM
+``batch["patches"]`` (B, num_patches, patch_dim): the stub frontends'
+inputs.  As in the JAX package, ``cache_quant`` changes nothing for the
+SSM, hybrid and encoder-decoder families: their decode state is no
+``KVCache``.
 """
 from __future__ import annotations
 
@@ -19,16 +22,12 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.core.engine import resolve_device
-from repro_torch.models import hybrid, ssm
+from repro_torch.models import encdec, hybrid, ssm, vlm
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 
-_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-_NOT_PORTED = {
-    "encdec": "the encoder-decoder family (models/encdec.py)",
-    "vlm": "the VLM family (models/vlm.py)",
-}
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 @dataclasses.dataclass
@@ -38,10 +37,6 @@ class Model:
     cache_quant: bool = False      # int8 KV cache through the B9 kernel
 
     def __post_init__(self):
-        if self.cfg.family in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{self.cfg.name}: {_NOT_PORTED[self.cfg.family]} is not "
-                f"ported yet (ROADMAP.md queue A, item 11.3)")
         if self.cfg.family not in _FAMILIES:
             raise ValueError(f"unknown family {self.cfg.family!r}")
 
@@ -58,6 +53,10 @@ class Model:
             return ssm.init_mamba(self.cfg, gen, trainable)
         if self.cfg.family == "hybrid":
             return hybrid.init_hybrid(self.cfg, gen, self.tp, trainable)
+        if self.cfg.family == "encdec":
+            return encdec.init_encdec(self.cfg, gen, self.tp, trainable)
+        if self.cfg.family == "vlm":
+            return vlm.init_vlm(self.cfg, gen, self.tp, trainable)
         return T.init_transformer(self.cfg, gen, self.tp, trainable)
 
     def cast(self, params: T.Transformer) -> T.Transformer:
@@ -84,14 +83,25 @@ class Model:
             return hybrid.forward(params, batch["tokens"], cfg,
                                   chunk_q=chunk_q, chunk_k=chunk_k,
                                   attn_impl=attn_impl)
+        if cfg.family == "encdec":
+            return encdec.forward(params, batch["tokens"], batch["frames"],
+                                  cfg, chunk_q=chunk_q, chunk_k=chunk_k,
+                                  attn_impl=attn_impl)
+        if cfg.family == "vlm":
+            return vlm.forward(params, batch["tokens"], batch["patches"],
+                               cfg, chunk_q=chunk_q, chunk_k=chunk_k,
+                               attn_impl=attn_impl)
         return T.forward(params, batch["tokens"], self.cfg, chunk_q=chunk_q,
                          chunk_k=chunk_k, attn_impl=attn_impl,
                          remat_policy=remat_policy)
 
     def loss(self, params, batch, **fwd_kw):
         """Mean next-token cross-entropy of ``batch["tokens"]`` against
-        ``batch["labels"]`` (-1 masked), a 0-d f32 tensor."""
+        ``batch["labels"]`` (-1 masked), a 0-d f32 tensor; a VLM's
+        image positions carry no loss."""
         h = self.hidden(params, batch, **fwd_kw)
+        if self.cfg.family == "vlm":
+            h = h[:, self.cfg.vlm.num_patches:]
         nll, _ = chunked_cross_entropy(h, batch["labels"], self.cfg, params)
         return nll
 
@@ -101,12 +111,20 @@ class Model:
         """An empty cache: int8 codes and scales with ``cache_quant``, else
         ``dtype``; on ``cuda`` unless the caller names another device.  An
         SSM or hybrid model's state (``max_len`` unused: it has no
-        position limit), its conv tails and ring buffer in ``dtype``."""
+        position limit), its conv tails and ring buffer in ``dtype``; an
+        encoder-decoder's self and cross caches; a VLM's cache holds
+        ``max_len`` positions after its image prefix."""
         device = resolve_device(device)
-        if self.cfg.family == "ssm":
-            return ssm.init_state(self.cfg, batch, device, dtype)
-        if self.cfg.family == "hybrid":
-            return hybrid.init_state(self.cfg, batch, device, self.tp, dtype)
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            return ssm.init_state(cfg, batch, device, dtype)
+        if cfg.family == "hybrid":
+            return hybrid.init_state(cfg, batch, device, self.tp, dtype)
+        if cfg.family == "encdec":
+            return encdec.init_cache(cfg, batch, max_len, device, self.tp,
+                                     dtype)
+        if cfg.family == "vlm":
+            max_len += cfg.vlm.num_patches
         if self.cache_quant:
             return T.init_quant_cache(self.cfg, batch, max_len, device,
                                       self.tp)
@@ -120,12 +138,16 @@ class Model:
                 return ssm.decode_step(params, state, token, self.cfg)
             if self.cfg.family == "hybrid":
                 return hybrid.decode_step(params, state, token, self.cfg)
+            if self.cfg.family == "encdec":
+                return encdec.decode_step(params, state, token, self.cfg)
             return T.decode_step(params, state, token, self.cfg)
 
     def prefill(self, params, batch, state, *, chunk_q=1024, chunk_k=1024,
                 attn_impl="xla", ssm_chunk=None):
         """Prompt ``batch["tokens"]`` (B, S) into a float cache or an SSM
-        or hybrid state -> (last-position logits, state)."""
+        or hybrid state -> (last-position logits, state); an
+        encoder-decoder encodes ``batch["frames"]`` first, a VLM puts
+        ``batch["patches"]`` in front of the prompt."""
         cfg, tokens = self.cfg, batch["tokens"]
         with torch.no_grad():
             if cfg.family == "ssm":
@@ -135,6 +157,14 @@ class Model:
                 return hybrid.prefill(params, tokens, cfg, state,
                                       chunk_q=chunk_q, chunk_k=chunk_k,
                                       attn_impl=attn_impl)
+            if cfg.family == "encdec":
+                return encdec.prefill(params, tokens, batch["frames"], cfg,
+                                      state, chunk_q=chunk_q,
+                                      chunk_k=chunk_k, attn_impl=attn_impl)
+            if cfg.family == "vlm":
+                return vlm.prefill(params, tokens, batch["patches"], cfg,
+                                   state, chunk_q=chunk_q, chunk_k=chunk_k,
+                                   attn_impl=attn_impl)
             return T.prefill(params, batch["tokens"], self.cfg, state,
                              chunk_q=chunk_q, chunk_k=chunk_k,
                              attn_impl=attn_impl)

@@ -92,13 +92,6 @@ def _causal_conv(x, kernel):
     return out
 
 
-def _fit_chunk(S: int, target: int) -> int:
-    c = min(target, S)
-    while S % c:
-        c -= 1
-    return c
-
-
 def _segsum_exp(a):
     """a: (..., Lc) log-decays -> the lower-triangular exp(sum a[j+1..i])
     matrix of shape (..., Lc, Lc)."""
@@ -182,7 +175,7 @@ def _ssm_body(p, x, cfg, chunk, io_dtype):
     """One layer's prefix shared by training and prefill: -> (x + out,
     final SSD state, the conv input)."""
     di, H, N, P, W = dims(cfg)
-    chunk = _fit_chunk(x.shape[1], chunk or cfg.ssm.chunk)
+    chunk = L.fit_chunk(x.shape[1], chunk or cfg.ssm.chunk)
     h = L.apply_norm(p.norm, x, "rmsnorm")
     z, xin, bc, dt = _in_proj(p, h, cfg)
     conv_in = torch.cat([xin, bc], dim=-1)

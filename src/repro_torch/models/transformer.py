@@ -1,8 +1,10 @@
-"""Decoder-only transformer, dense and MoE families (counterpart of
-``repro.models.transformer``): parameters, the training forward, KV
-caches, prefill and decode.  The families differ in one block: a layer's
-feed-forward is the dense MLP or the MoE block (``models.moe``), chosen in
-:func:`_mlp_block`, which every path shares.
+"""Decoder-only transformer, dense and MoE families and the VLM's decoder
+(counterpart of ``repro.models.transformer``): parameters, the training
+forward, KV caches, prefill and decode.  The families differ in one block:
+a layer's feed-forward is the dense MLP or the MoE block (``models.moe``),
+chosen in :func:`_mlp_block`, which every path shares.  A VLM
+(``models.vlm``) puts its projected patches in front of the tokens
+(``embeddings=``), and every query sees them (the mask's ``prefix``).
 
 Where the JAX package scans stacked layers, the port keeps an
 ``nn.ModuleList`` of :class:`Layer` modules and loops over it; its remat
@@ -111,29 +113,38 @@ def _map_tree(tree, fn, name=None):
 
 
 class Transformer(nn.Module):
-    """All parameters of a model of any family the port serves:
-    ``embedding``, ``layers`` (one :class:`Layer` each: a transformer
-    layer, an SSM layer, or a hybrid model's attention or recurrent
-    layer), ``final_norm`` and, when the embedding is not tied, ``head``.
-    Frozen (``requires_grad`` False) for serving; ``trainable`` for
-    training, where autograd fills each ``.grad``."""
+    """All parameters of a model of any family the port serves, named as
+    in the JAX tree: ``embedding``, ``layers`` (one :class:`Layer` each: a
+    transformer layer, an SSM or recurrent layer, or a hybrid model's
+    attention layer), ``final_norm`` and, when the embedding is not tied,
+    ``head``; a VLM's ``patch_proj`` beside them; an encoder-decoder's
+    ``enc_layers`` and ``dec_layers`` in place of ``layers``, with
+    ``enc_pos``, ``dec_pos`` (tensors) and ``enc_norm``.  A list of the
+    tree becomes a ``ModuleList`` of layers, a dict a ``ParameterDict``, a
+    tensor a parameter; ``head`` is None when the tree has none.  Frozen
+    (``requires_grad`` False) for serving; ``trainable`` for training,
+    where autograd fills each ``.grad``."""
 
     def __init__(self, tree: dict, trainable: bool = False):
         super().__init__()
-        self.embedding = _param_dict(tree["embedding"], trainable)
-        self.layers = nn.ModuleList(Layer(t, trainable)
-                                    for t in tree["layers"])
-        self.final_norm = _param_dict(tree["final_norm"], trainable)
-        self.head = (_param_dict(tree["head"], trainable) if "head" in tree
-                     else None)
+        for name, sub in tree.items():
+            if isinstance(sub, list):
+                self.add_module(name, nn.ModuleList(Layer(t, trainable)
+                                                    for t in sub))
+            elif isinstance(sub, dict):
+                self.add_module(name, _param_dict(sub, trainable))
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(sub, requires_grad=trainable))
+        if "head" not in tree:
+            self.head = None
 
     def tree(self) -> dict:
         """The parameters as nested dicts of tensors (layers a list)."""
-        out = {"embedding": dict(self.embedding),
-               "layers": [lp.tree() for lp in self.layers],
-               "final_norm": dict(self.final_norm)}
-        if self.head is not None:
-            out["head"] = dict(self.head)
+        out = {n: ([lp.tree() for lp in m] if isinstance(m, nn.ModuleList)
+                   else dict(m))
+               for n, m in self.named_children()}
+        out.update(self.named_parameters(recurse=False))
         return out
 
     def map(self, fn) -> "Transformer":
@@ -160,9 +171,8 @@ def _norm(gen, d, kind, dtype):
     return p
 
 
-def _layer_tree(cfg, gen, tp, dtype):
-    d, f = cfg.d_model, cfg.d_ff
-    hd = cfg.resolved_head_dim
+def _attn_tree(cfg, gen, tp, dtype):
+    d, hd = cfg.d_model, cfg.resolved_head_dim
     H, KV = cfg.padded_heads(tp)
     attn = {"wq": param((d, H, hd), gen, dtype=dtype),
             "wk": param((d, KV, hd), gen, dtype=dtype),
@@ -172,27 +182,38 @@ def _layer_tree(cfg, gen, tp, dtype):
         attn["bq"] = param((H, hd), gen, init="zeros", dtype=dtype)
         attn["bk"] = param((KV, hd), gen, init="zeros", dtype=dtype)
         attn["bv"] = param((KV, hd), gen, init="zeros", dtype=dtype)
-    out = {"ln1": _norm(gen, d, cfg.norm, dtype), "attn": attn,
+    return attn
+
+
+def _mlp_tree(cfg, gen, dtype):
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.act in ("swiglu", "geglu"):
+        return {"w_gate": param((d, f), gen, dtype=dtype),
+                "w_up": param((d, f), gen, dtype=dtype),
+                "w_down": param((f, d), gen, dtype=dtype)}
+    return {"w_up": param((d, f), gen, dtype=dtype),
+            "b_up": param((f,), gen, init="zeros", dtype=dtype),
+            "w_down": param((f, d), gen, dtype=dtype),
+            "b_down": param((d,), gen, init="zeros", dtype=dtype)}
+
+
+def _layer_tree(cfg, gen, tp, dtype):
+    d = cfg.d_model
+    out = {"ln1": _norm(gen, d, cfg.norm, dtype),
+           "attn": _attn_tree(cfg, gen, tp, dtype),
            "ln2": _norm(gen, d, cfg.norm, dtype)}
     if cfg.family == "moe":
         # no dense mlp beside the experts, as in the JAX init_layer
         out["moe"] = moe.init_moe(gen, cfg, dtype)
-    elif cfg.act in ("swiglu", "geglu"):
-        out["mlp"] = {"w_gate": param((d, f), gen, dtype=dtype),
-                      "w_up": param((d, f), gen, dtype=dtype),
-                      "w_down": param((f, d), gen, dtype=dtype)}
     else:
-        out["mlp"] = {"w_up": param((d, f), gen, dtype=dtype),
-                      "b_up": param((f,), gen, init="zeros", dtype=dtype),
-                      "w_down": param((f, d), gen, dtype=dtype),
-                      "b_down": param((d,), gen, init="zeros", dtype=dtype)}
+        out["mlp"] = _mlp_tree(cfg, gen, dtype)
     return out
 
 
-def init_transformer(cfg, gen: torch.Generator, tp: int = 1,
-                     trainable: bool = False) -> Transformer:
-    """Random parameters in ``cfg.param_dtype`` on ``gen``'s device, by
-    the JAX package's init kinds and shapes (vocab padded)."""
+def transformer_tree(cfg, gen: torch.Generator, tp: int = 1) -> dict:
+    """The decoder's random parameters as a tree of tensors in
+    ``cfg.param_dtype`` on ``gen``'s device, by the JAX package's init
+    kinds and shapes (vocab padded)."""
     dtype = getattr(torch, cfg.param_dtype)
     V = cfg.padded_vocab()
     tree = {
@@ -204,7 +225,13 @@ def init_transformer(cfg, gen: torch.Generator, tp: int = 1,
     }
     if not cfg.tie_embeddings:
         tree["head"] = {"w": param((cfg.d_model, V), gen, dtype=dtype)}
-    return Transformer(tree, trainable)
+    return tree
+
+
+def init_transformer(cfg, gen: torch.Generator, tp: int = 1,
+                     trainable: bool = False) -> Transformer:
+    """Random parameters of :func:`transformer_tree`."""
+    return Transformer(transformer_tree(cfg, gen, tp), trainable)
 
 
 # ---------------------------------------------------------------------------
@@ -212,8 +239,14 @@ def init_transformer(cfg, gen: torch.Generator, tp: int = 1,
 # ---------------------------------------------------------------------------
 
 
+def _prefix(cfg) -> int:
+    """Key positions every query sees: a VLM's image prefix, else 0."""
+    return cfg.vlm.num_patches if (cfg.family == "vlm" and cfg.vlm) else 0
+
+
 def _layer_mask(cfg) -> L.AttnMask:
-    return L.AttnMask(causal=True, window=cfg.attn_window, prefix=0)
+    return L.AttnMask(causal=True, window=cfg.attn_window,
+                      prefix=_prefix(cfg))
 
 
 def _mlp_block(lp, x, cfg):
@@ -225,11 +258,11 @@ def _mlp_block(lp, x, cfg):
     return x + L.apply_mlp(lp.mlp, h, cfg.act)
 
 
-def apply_layer(lp, x, cfg, positions, *, chunk_q=1024, chunk_k=1024,
-                attn_impl="xla"):
+def apply_layer(lp, x, cfg, positions, *, mask=None, chunk_q=1024,
+                chunk_k=1024, attn_impl="xla"):
     h = L.apply_norm(lp.ln1, x, cfg.norm)
     q, k, v = L.qkv(lp.attn, h, cfg, positions)
-    o = L.attention(q, k, v, _layer_mask(cfg), impl=attn_impl,
+    o = L.attention(q, k, v, mask or _layer_mask(cfg), impl=attn_impl,
                     chunk_q=chunk_q, chunk_k=chunk_k)
     x = x + L.attn_out(lp.attn, o)
     return _mlp_block(lp, x, cfg)
@@ -253,7 +286,7 @@ def apply_layer_decode(lp, x, cfg, k_cache, v_cache, cache_len):
     k_cache.index_copy_(1, idx, k.to(k_cache.dtype))
     v_cache.index_copy_(1, idx, v.to(v_cache.dtype))
     o = L.decode_attention(q, k_cache, v_cache, cache_len,
-                           window=cfg.attn_window, prefix=0)
+                           window=cfg.attn_window, prefix=_prefix(cfg))
     x = x + L.attn_out(lp.attn, o)
     return _mlp_block(lp, x, cfg)
 
@@ -328,17 +361,30 @@ def remat_wrap(body, cfg, remat_policy: str = "full"):
                              use_reentrant=False, preserve_rng_state=False)
 
 
-def forward(params: Transformer, tokens, cfg, *, chunk_q=1024, chunk_k=1024,
-            attn_impl="xla", remat_policy="full"):
-    """Training and prefill-style forward -> final hidden states
-    (B, S, d), differentiable, each layer under ``remat_policy``."""
+def _embed(params: Transformer, tokens, cfg, embeddings):
+    """The token embeddings in the compute dtype, ``embeddings``
+    (B, S_extra, d) in front of them when given; with their positions
+    (1, S) int32, which count the prefix."""
     cd = getattr(torch, cfg.compute_dtype)
     x = L.embed(params.embedding, tokens, cd)
+    if embeddings is not None:
+        x = torch.cat([embeddings.to(cd), x], dim=1)
     S = x.shape[1]
-    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    return x, torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+
+
+def forward(params: Transformer, tokens, cfg, *, embeddings=None, mask=None,
+            chunk_q=1024, chunk_k=1024, attn_impl="xla",
+            remat_policy="full"):
+    """Training and prefill-style forward -> final hidden states
+    (B, S, d), differentiable, each layer under ``remat_policy``.
+    ``embeddings`` (B, S_extra, d), a VLM's projected patches, go in front
+    of the token embeddings; ``mask`` replaces the config's."""
+    x, positions = _embed(params, tokens, cfg, embeddings)
     body = remat_wrap(functools.partial(
-        apply_layer, cfg=cfg, positions=positions, chunk_q=chunk_q,
-        chunk_k=chunk_k, attn_impl=attn_impl), cfg, remat_policy)
+        apply_layer, cfg=cfg, positions=positions, mask=mask,
+        chunk_q=chunk_q, chunk_k=chunk_k, attn_impl=attn_impl), cfg,
+        remat_policy)
     for lp in params.layers:
         x = body(lp, x)
     return L.apply_norm(params.final_norm, x, cfg.norm)
@@ -375,11 +421,16 @@ def init_quant_cache(cfg, batch: int, max_len: int, device,
 
 
 def capacity(cache) -> float:
-    """Positions the cache has room for: a KV cache's positions; no limit
-    (``inf``) for any other decode state, an SSM state
-    (``models.ssm.SSMState``) or a hybrid's ring buffer
-    (``models.hybrid.HybridState``), which keep a summary or the last
-    window of any number of positions."""
+    """Positions the cache has room for: a KV cache's positions, an
+    encoder-decoder cache's decoder positions
+    (``models.encdec.EncDecCache``); no limit (``inf``) for any other
+    decode state, an SSM state (``models.ssm.SSMState``) or a hybrid's
+    ring buffer (``models.hybrid.HybridState``), which keep a summary or
+    the last window of any number of positions."""
+    from repro_torch.models.encdec import EncDecCache
+
+    if isinstance(cache, EncDecCache):
+        return cache.self_k.shape[2]
     if isinstance(cache, QuantKVCache):
         return cache.k.shape[3]
     if isinstance(cache, KVCache):
@@ -431,20 +482,19 @@ def decode_step(params: Transformer, cache, token, cfg):
 
 
 def prefill(params: Transformer, tokens, cfg, cache: KVCache, *,
-            chunk_q=1024, chunk_k=1024, attn_impl="xla"):
-    """Run the prompt (B, S), write its keys and values into the float
-    cache (positions 0 .. S - 1, in place) and set its length to S, return
-    (last-position logits (B, vocab), the cache)."""
+            embeddings=None, chunk_q=1024, chunk_k=1024, attn_impl="xla"):
+    """Run the prompt (B, S), ``embeddings`` (B, S_extra, d) in front of
+    it when given, write its keys and values into the float cache
+    (positions 0 .. S_extra + S - 1, in place) and set its length to
+    S_extra + S, return (last-position logits (B, vocab), the cache)."""
     if not isinstance(cache, KVCache):
         raise TypeError("prefill fills a float KVCache; an int8 cache takes "
                         "its prompt one token a step through decode_step")
-    cd = getattr(torch, cfg.compute_dtype)
-    x = L.embed(params.embedding, tokens, cd)
+    x, positions = _embed(params, tokens, cfg, embeddings)
     S = x.shape[1]
     if S > cache.k.shape[2]:
-        raise ValueError(f"prompt of {S} tokens, the cache holds "
+        raise ValueError(f"prompt of {S} positions, the cache holds "
                          f"{cache.k.shape[2]}")
-    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     mask = _layer_mask(cfg)
     for i, lp in enumerate(params.layers):
         hn = L.apply_norm(lp.ln1, x, cfg.norm)

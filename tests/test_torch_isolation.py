@@ -64,7 +64,9 @@ def test_port_file_list_is_complete():
                 "serve/__init__.py", "serve/olap_engine.py",
                 "serve/workload.py", "launch/serve_olap.py",
                 "launch/mesh.py", "models/ssm.py", "models/hybrid.py",
-                "configs/mamba2_2_7b.py", "configs/recurrentgemma_2b.py"):
+                "configs/mamba2_2_7b.py", "configs/recurrentgemma_2b.py",
+                "models/encdec.py", "models/vlm.py",
+                "configs/whisper_medium.py", "configs/paligemma_3b.py"):
         assert mod in names
 
 
