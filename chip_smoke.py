@@ -428,6 +428,20 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
       tokens/s, ``torch.cuda.max_memory_allocated``; both B8 variants at
       layer 0's training input beside their plain versions, the backward
       of ``scaled_dot_product_attention`` and the bound.
+   f. The sharded trainer (``train/trainer.py`` over a ``DeviceMesh``):
+      (i) a mesh (1, 1) on an NCCL group of one rank in this process,
+      qwen2.5-3b at full width and depth from 8b's initial state (seed 0)
+      and batch, 4 AdamW steps through ``Trainer.run`` with
+      ``attn_impl="flash"``: the state all DTensors, each loss within
+      1e-2 relative of 8b's, finite gradient norms, 72 tensor-core B7 and
+      36 tensor-core B8 launches a step, every one on the local blocks
+      (``ops.local_shard_counts``); (ii) ``remat_policy="save_hot"``
+      against ``"full"``: the first step's loss within 1e-2 and each
+      gradient within ``GRAD_RTOL``, then 4 AdamW steps a policy, the
+      step ms (median of the 3 warm steps) and peak allocated bytes of
+      each; (iii) ``launch/train.py --smoke --mesh 1x1 --steps 20`` under
+      ``torch.distributed.run`` on the card: exit 0, the final loss below
+      the first.
 9. One ``{"kernels": [...]}`` line (fifteen entries: B7 and B8 once for
    each variant, the f32 CUDA-core ones with ``"main_path": false`` and
    0 launches; B2's launches those of q1_kernel and the two
@@ -6242,6 +6256,243 @@ def train_phases(args, torch, smi: str):
     return b8_kernels, launches, summary
 
 
+# ---------------------------------------------------------------------------
+# phase 8f: the sharded trainer over a DeviceMesh, save_hot, the launcher
+# ---------------------------------------------------------------------------
+
+SAVE_HOT_STEPS = 4          # AdamW steps a remat policy, the first warm-up
+
+
+class _OneBatch:
+    """``SyntheticLM`` whose every step is step 0's batch: phase 8b's
+    AdamW steps on one batch, through the trainer."""
+
+    def __init__(self, data):
+        self.data, self.seed = data, data.seed
+        self.global_batch = data.global_batch
+
+    def device_batch(self, step, *, device):
+        return self.data.device_batch(0, device=device)
+
+
+def _policy_steps(torch, model, opt_cfg, policy: str, batch):
+    """``SAVE_HOT_STEPS`` AdamW steps from seed 0 under ``policy``:
+    (losses, step ms by CUDA events, peak allocated bytes)."""
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.train_step import TrainState, make_train_step
+
+    params = model.init(0, device="cuda", trainable=True)
+    state = TrainState(params, adamw_init(params))
+    del params
+    step_fn = make_train_step(model, opt_cfg, fwd_kw={
+        "attn_impl": "flash", "remat_policy": policy})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(SAVE_HOT_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, met = step_fn(state, batch)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(met["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    del state, step_fn
+    torch.cuda.empty_cache()
+    return losses, ms, peak
+
+
+def sharded_train_phase(args, torch, smi: str, phase8: dict):
+    """Phase 8f: (i) the sharded trainer over a ``DeviceMesh`` (1, 1) on an
+    NCCL group of one rank in this process: qwen2.5-3b at full width and
+    depth from phase 8b's initial state (seed 0) and batch, 4 AdamW steps
+    through ``Trainer.run`` with ``attn_impl="flash"``; every parameter
+    and moment a DTensor; each step's loss within ``TRAIN_LOSS_RTOL`` of
+    phase 8b's, finite gradient norms, 72 tensor-core B7 and 36
+    tensor-core B8 launches a step, every one inside the local-shard
+    wrapper (``ops.local_shard_counts``).  (ii) ``save_hot`` against
+    ``full``: the first step's loss and each parameter's gradient (within
+    ``TRAIN_LOSS_RTOL`` and ``GRAD_RTOL`` relative Frobenius distance),
+    then 4 AdamW steps a policy, the step ms (median of the 3 warm ones)
+    and peak allocated bytes of each.  (iii) ``launch/train.py --smoke
+    --mesh 1x1 --steps 20`` under ``torch.distributed.run`` on the card:
+    exit 0, its final loss below its first.  Returns (the launches of the
+    sharded steps by kernel, the phase's record)."""
+    import datetime
+    import os
+    import re
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.models.model import build
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    cfg = get_arch("qwen2.5-3b")
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                       global_batch=TRAIN_BATCH, seed=0)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                          total_steps=TRAIN_STEPS)
+    zero = dict.fromkeys(ops.launch_counts(), 0)
+    per_step = {**zero, "flash_attention_fwd_tc": 2 * cfg.n_layers,
+                "flash_attention_bwd_tc": cfg.n_layers}
+    local_per_step = {"flash_attention_fwd": 2 * cfg.n_layers,
+                      "flash_attention_bwd": cfg.n_layers}
+
+    # -- (i) the sharded trainer on a (1, 1) mesh ----------------------------
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = launch_mesh.parse_mesh("1x1", "cuda")
+        trainer = Trainer(build(cfg, tp=1), _OneBatch(data), mesh, opt_cfg,
+                          TrainerConfig(steps=TRAIN_STEPS, log_every=10 ** 9,
+                                        seed=0,
+                                        fwd_kw={"attn_impl": "flash"}))
+        t0 = time.perf_counter()
+        state, start = trainer.init_or_restore()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        tensors = [*state.params.parameters(), *state.opt.mu.parameters(),
+                   *state.opt.nu.parameters()]
+        if start != 0 or not all(isinstance(t, DTensor) for t in tensors):
+            fail("8f: the sharded trainer's state is not all DTensors")
+        counts = []
+        step_fn = trainer.step_fn
+
+        def counted(state, batch):
+            ops.reset_launch_counts()
+            out = step_fn(state, batch)
+            torch.cuda.synchronize()
+            counts.append((ops.launch_counts(), ops.local_shard_counts()))
+            return out
+
+        trainer.step_fn = counted
+        torch.cuda.reset_peak_memory_stats()
+        state, history = trainer.run(state, 0)
+        peak = torch.cuda.max_memory_allocated()
+        del state, trainer, tensors
+        torch.cuda.empty_cache()
+    finally:
+        launch_mesh.destroy()
+    launches = dict(zero)
+    for t, (got, local) in enumerate(counts):
+        if got != per_step or local != local_per_step:
+            fail(f"8f: sharded step {t + 1} launched {got} ({local} on "
+                 f"local blocks), expected {per_step} ({local_per_step})")
+        for k, n in got.items():
+            launches[k] += n
+    losses = [h["loss"] for h in history]
+    gnorms = [h["grad_norm"] for h in history]
+    if not all(map(math.isfinite, losses + gnorms)):
+        fail(f"8f: non-finite loss or gradient norm: {losses}, {gnorms}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, phase8["losses"],
+                                               strict=True)]
+    if max(rel) > TRAIN_LOSS_RTOL:
+        fail(f"8f: the sharded losses {losses} against phase 8b's "
+             f"{phase8['losses']}: relative {rel} > {TRAIN_LOSS_RTOL}")
+    step_s = [h["sec"] for h in history]
+    print(f"(8f i) the sharded trainer over a DeviceMesh (1, 1) (NCCL, one "
+          f"rank), qwen2.5-3b at full width and depth from phase 8b's "
+          f"initial state and batch: initialised and laid out in "
+          f"{init_s:.1f} s, losses {losses} (8b: {phase8['losses']}; "
+          f"relative at most {max(rel):.3e}, limit {TRAIN_LOSS_RTOL}), "
+          f"gradient norms {gnorms}; launches a step {per_step}, all on "
+          f"local blocks {local_per_step}; steps {step_s} s (host clock, "
+          f"each ending in the metrics' read-back); peak allocated {peak} B "
+          f"on {smi}")
+
+    # -- (ii) save_hot against full ------------------------------------------
+    model = build(cfg)
+    batch = data.device_batch(0, device="cuda")
+    params = model.init(0, device="cuda", trainable=True)
+    first = {}
+    for policy in ("full", "save_hot"):
+        loss = model.loss(params, batch, attn_impl="flash",
+                          remat_policy=policy)
+        loss.backward()
+        first[policy] = (float(loss.detach()), _named_grads(params))
+    del loss             # its graph's leaves hold the parameters
+    torch.cuda.synchronize()
+    dist_hot = grad_distances(torch, first["save_hot"][1], first["full"][1])
+    worst = max(dist_hot, key=dist_hot.get)
+    loss_rel = (abs(first["save_hot"][0] - first["full"][0])
+                / abs(first["full"][0]))
+    if not all(torch.isfinite(g).all()
+               for g in first["save_hot"][1].values()):
+        fail("8f: save_hot: non-finite gradients")
+    if loss_rel > TRAIN_LOSS_RTOL or dist_hot[worst] > GRAD_RTOL:
+        fail(f"8f: save_hot's first step: loss {first['save_hot'][0]} vs "
+             f"{first['full'][0]} (relative {loss_rel}), gradient of {worst} "
+             f"{dist_hot[worst]} from full's, limits {TRAIN_LOSS_RTOL}, "
+             f"{GRAD_RTOL}")
+    del params, first
+    torch.cuda.empty_cache()
+    policies = {}
+    for policy in ("full", "save_hot"):
+        p_losses, p_ms, p_peak = _policy_steps(torch, model, opt_cfg, policy,
+                                               batch)
+        policies[policy] = {"losses": p_losses, "step_ms": p_ms,
+                            "median_ms": statistics.median(p_ms[1:]),
+                            "peak_allocated_bytes": p_peak}
+    del batch
+    torch.cuda.empty_cache()
+    print(f"(8f ii) save_hot against full, the first step through B7 + B8: "
+          f"loss relative {loss_rel:.3e} (limit {TRAIN_LOSS_RTOL}), "
+          f"gradients' relative Frobenius distance at most "
+          f"{dist_hot[worst]:.4e} ({worst}; limit {GRAD_RTOL}); "
+          + "; ".join(f"{k}: step {v['median_ms']:.1f} ms (median of the "
+                      f"{SAVE_HOT_STEPS - 1} warm steps, CUDA events; all "
+                      f"{v['step_ms']}), peak allocated "
+                      f"{v['peak_allocated_bytes']} B, losses {v['losses']}"
+                      for k, v in policies.items()) + f" on {smi}")
+
+    # -- (iii) the launcher under torch.distributed.run ----------------------
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "repro_torch.launch.train",
+           "--arch", "qwen2.5-3b", "--smoke", "--mesh", "1x1", "--steps",
+           "20", "--batch", "8", "--seq", "32", "--lr", "1e-2"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=str(ROOT), timeout=300)
+    launcher_s = time.perf_counter() - t0
+    m = re.search(r"final loss (\S+) after 20 steps \(first (\S+)\)",
+                  proc.stdout)
+    if proc.returncode != 0 or m is None:
+        print(proc.stdout[-2000:], proc.stderr[-4000:], file=sys.stderr)
+        fail(f"8f: launch/train.py --mesh 1x1 under torch.distributed.run "
+             f"exited {proc.returncode}")
+    final, first_loss = float(m.group(1)), float(m.group(2))
+    if not final < first_loss:
+        fail(f"8f: the launcher's final loss {final} is not below its first "
+             f"{first_loss}")
+    print(f"(8f iii) torchrun --nproc-per-node 1 launch/train.py --smoke "
+          f"--mesh 1x1 --steps 20 (NCCL): exit 0, loss {first_loss} -> "
+          f"{final} in {launcher_s:.1f} s")
+    summary = {"losses": losses, "grad_norms": gnorms,
+               "loss_rel_to_8b": rel, "step_s": step_s,
+               "peak_allocated_bytes": peak, "init_s": init_s,
+               "launches_per_step": per_step,
+               "local_shard_per_step": local_per_step,
+               "save_hot": {"loss_rel": loss_rel,
+                            "grad_dist_max": dist_hot[worst],
+                            "grad_dist_argmax": worst, **policies},
+               "launcher": {"first": first_loss, "final": final,
+                            "s": launcher_s},
+               "phase_s": time.perf_counter() - t_phase}
+    return launches, summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=10.0,
@@ -6319,7 +6570,17 @@ def main(argv=None) -> int:
     phase_s["vlm"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     b8_kernels, train_launches, train = train_phases(args, torch, smi)
+    torch.cuda.empty_cache()
     phase_s["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sharded_launches, train["sharded"] = sharded_train_phase(args, torch, smi,
+                                                             train)
+    phase_s["sharded_train"] = time.perf_counter() - t0
+    for k in b8_kernels:
+        k["launches_by_path"] = {
+            "training": k["launches"],
+            "sharded training": sharded_launches[k["name"]]}
+        k["launches"] = sum(k["launches_by_path"].values())
     for k in lm_kernels:
         by_path = {"qwen2.5-3b serving": k["launches"],
                    "qwen3-moe serving": moe_launches.get(k["name"], 0),
@@ -6330,6 +6591,7 @@ def main(argv=None) -> int:
                    "paligemma serving": vlm_launches.get(k["name"], 0)}
         if k["name"].startswith("flash_attention_fwd"):
             by_path["training"] = train_launches[k["name"]]
+            by_path["sharded training"] = sharded_launches[k["name"]]
         k["launches_by_path"] = by_path
         k["launches"] = sum(by_path.values())
     kernels = tpch_kernels + lm_kernels + b8_kernels

@@ -80,8 +80,23 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
+    """Zero every launch counter, the local-shard counts too."""
     for fn in _WRAPPERS.values():
         fn.launches = 0
+    for k in _LOCAL_SHARD:
+        _LOCAL_SHARD[k] = 0
+
+
+# the grouped attention's directions run under a mesh on a rank's local
+# block (:func:`flash_attention`), counted whichever device runs them
+_LOCAL_SHARD = {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
+
+
+def local_shard_counts() -> dict:
+    """Direction -> runs of the grouped flash attention under a mesh, on
+    a rank's local (B*KV) block, since the last reset: the forward (B7 on
+    the card) and the backward (B8)."""
+    return dict(_LOCAL_SHARD)
 
 
 def add_launch_counts(counts: dict) -> None:
@@ -206,11 +221,14 @@ class _FlashAttention(torch.autograd.Function):
     card).  Each direction dispatches by device."""
 
     @staticmethod
-    def forward(ctx, qg, kg, vg, causal, window, prefix):
+    def forward(ctx, qg, kg, vg, causal, window, prefix, local):
         out, lse = flash_attention_fwd(qg, kg, vg, causal=causal,
                                        window=window, prefix=prefix)
         ctx.save_for_backward(qg, kg, vg, out, lse)
         ctx.mask = (causal, window, prefix)
+        ctx.local = local
+        if local:
+            _LOCAL_SHARD["flash_attention_fwd"] += 1
         return out
 
     @staticmethod
@@ -219,7 +237,48 @@ class _FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd(*ctx.saved_tensors, do.contiguous(),
                                          causal=causal, window=window,
                                          prefix=prefix)
-        return dq, dk, dv, None, None, None
+        if ctx.local:
+            _LOCAL_SHARD["flash_attention_bwd"] += 1
+        return dq, dk, dv, None, None, None, None
+
+
+def _flash(q, k, v, causal, window, prefix, local: bool):
+    B, KV = q.shape[0], k.shape[2]
+    qg, kg, vg = (t.contiguous() for t in group(q, k, v))
+    out = _FlashAttention.apply(qg, kg, vg, causal, window, prefix, local)
+    return ungroup(out, B, KV)
+
+
+def _local_blocks(q, k, v, causal, window, prefix):
+    """The grouped attention on this rank's block under the ambient mesh
+    (the reference's ``shard_map`` over the fused (B*KV) dim, the batch
+    axes outer and the kv-head axes inner).  Plain tensors are the rank's
+    blocks already (the model code's local heads of its batch rows).
+    DTensors must be laid out so: the batch sharded on the batch axes
+    (dim 0), the heads on the kv-head axes (dim 2); any other layout
+    raises, since the kernels never see a tensor gathered only to feed
+    them."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.models import runtime
+
+    if not isinstance(q, DTensor):
+        return _flash(q, k, v, causal, window, prefix, True)
+    mesh = q.device_mesh
+    batch, kv = runtime.axes_for("batch"), runtime.axes_for("kv_heads")
+    want = tuple(Shard(0) if n in batch else Shard(2) if n in kv
+                 else Replicate() for n in mesh.mesh_dim_names)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, DTensor) or any(
+                mesh.size(j) > 1 and got != w
+                for j, (got, w) in enumerate(zip(t.placements, want))):
+            raise ValueError(
+                f"flash attention under a mesh takes {name} sharded as "
+                f"{want} (batch axes {batch}, kv-head axes {kv}), got "
+                f"{getattr(t, 'placements', 'a plain tensor')}")
+    out = _flash(q.to_local(), k.to_local(), v.to_local(), causal, window,
+                 prefix, True)
+    return DTensor.from_local(out, mesh, q.placements, run_check=False)
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, prefix=0):
@@ -227,11 +286,14 @@ def flash_attention(q, k, v, *, causal=True, window=None, prefix=0):
     through the KV dim of k and v (B, Sk, KV, D): groups, runs
     :class:`_FlashAttention` (B7 forward, B8 backward), ungroups.
     Counterpart of ``repro.kernels.ops.flash_attention`` without block
-    sizes (the kernels take any S)."""
-    B, KV = q.shape[0], k.shape[2]
-    qg, kg, vg = (t.contiguous() for t in group(q, k, v))
-    out = _FlashAttention.apply(qg, kg, vg, causal, window, prefix)
-    return ungroup(out, B, KV)
+    sizes (the kernels take any S).  Under an ambient mesh
+    (``models.runtime``) it runs on each rank's local block, counted in
+    :func:`local_shard_counts`."""
+    from repro_torch.models import runtime
+
+    if runtime.current() is not None:
+        return _local_blocks(q, k, v, causal, window, prefix)
+    return _flash(q, k, v, causal, window, prefix, False)
 
 
 def decode_attention(q, k_cache, v_cache, length, *, k_scale=None,

@@ -1,5 +1,7 @@
-"""The cluster's process group: the counterpart of ``repro.launch.mesh``'s
-``olap_cluster``.
+"""The process groups and meshes of the port (counterpart of
+``repro.launch.mesh``): the OLAP cluster's group (``olap_cluster``), the
+LM meshes (:func:`make_production_mesh`, :func:`make_test_mesh`,
+:func:`parse_mesh`) and the card's :func:`hardware_constants`.
 
 The JAX package views its chips as a flat P-way ``nodes`` mesh.  The
 port's cluster spans the W ranks of a ``torch.distributed`` process
@@ -28,9 +30,16 @@ passes its own environment on to the ranks::
 Every OLAP path runs across the ranks: the queries, the cubes, prepared
 batches, EXPLAIN ANALYZE and ``serve_olap --serve``, ``--cubes`` and
 ``--lint``.  Per-node generation (each rank making only its own nodes'
-rows) waits in ROADMAP item 9.  The reference module's LM meshes and
-``hardware_constants`` have no counterpart here yet: they come with the
-sharded trainer (ROADMAP item 11.1).
+rows) waits in ROADMAP item 9.
+
+The LM meshes are ``DeviceMesh``es over the default group with the
+reference's axes, ``(data, model)`` or ``(pod, data, model)``, on
+``cuda`` under NCCL (one rank a card) or on ``cpu`` under gloo; the
+sharded trainer (``train/trainer.py``) lays its state out on them::
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 4 -m repro_torch.launch.train --arch qwen2.5-3b \
+        --smoke --mesh 2x2 --device cpu
 """
 from __future__ import annotations
 
@@ -103,7 +112,10 @@ def init_from_env(device=None, timeout_s: float = TIMEOUT_S):
     """Form the default process group from torchrun's environment and
     return it: NCCL for a CUDA ``device`` (the current device set to
     ``cuda:LOCAL_RANK`` first), gloo for the CPU.  The group is destroyed
-    at exit, so the process ends cleanly."""
+    at exit, so the process ends cleanly.  A process whose default group
+    exists already gets that group."""
+    if dist.is_initialized():
+        return dist.group.WORLD
     if not under_torchrun():
         raise RuntimeError(
             f"no torchrun environment: set {', '.join(_TORCHRUN_ENV)} or "
@@ -119,6 +131,75 @@ def init_from_env(device=None, timeout_s: float = TIMEOUT_S):
         timeout=datetime.timedelta(seconds=timeout_s))
     atexit.register(destroy)
     return dist.group.WORLD
+
+
+_AXES = {1: ("data",), 2: ("data", "model"), 3: ("pod", "data", "model")}
+
+
+def _lm_mesh(shape: tuple, device_type: str):
+    """A ``DeviceMesh`` of ``shape`` with the reference's axis names over
+    the default group, which must hold exactly prod(shape) ranks."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    n = 1
+    for s in shape:
+        n *= s
+    world = dist.get_world_size() if dist.is_initialized() else 0
+    if world != n:
+        raise ValueError(
+            f"a mesh of {shape} needs a process group of {n} ranks, this "
+            f"process has {world or 'none'}: launch with python -m "
+            f"torch.distributed.run (torchrun) --nproc-per-node {n}")
+    return init_device_mesh(device_type, shape,
+                            mesh_dim_names=_AXES[len(shape)])
+
+
+def parse_mesh(spec: str, device_type: str = "cuda"):
+    """``D``, ``DxM`` or ``PxDxM`` -> the mesh of that shape over the
+    default group (``data``; ``data, model``; ``pod, data, model``)."""
+    shape = tuple(int(x) for x in spec.split("x"))
+    if len(shape) not in _AXES or min(shape) < 1:
+        raise ValueError(f"--mesh {spec!r}: give D, DxM or PxDxM")
+    return _lm_mesh(shape, device_type)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """(16, 16) over (data, model), or (2, 16, 16) over (pod, data, model):
+    256 or 512 ranks."""
+    return _lm_mesh((2, 16, 16) if multi_pod else (16, 16), device_type)
+
+
+def make_test_mesh(*, multi_pod: bool = False, device_type: str = "cpu"):
+    """The scaled-down mesh of the reference's tests: (2, 2, 2) or (4, 2),
+    8 ranks."""
+    return _lm_mesh((2, 2, 2) if multi_pod else (4, 2), device_type)
+
+
+# NVIDIA H100 SXM5 80GB: dense bf16 tensor-core peak, HBM3 rate, NVLink 4
+# (18 links of 25 GB/s each way a card)
+H100 = {"name": "NVIDIA H100 80GB HBM3", "power_limit_w": 700.0,
+        "peak_flops_bf16": 989e12, "hbm_bandwidth": 3.35e12,
+        "nvlink_link_bandwidth": 25e9, "nvlink_links": 18,
+        "hbm_bytes": 80 * 10**9}
+
+
+def hardware_constants(device=None) -> dict:
+    """The card's roofline constants under the reference's keys
+    (``peak_flops_bf16`` FLOP/s, ``hbm_bandwidth`` B/s,
+    ``ici_link_bandwidth`` B/s a link: NVLink 4's, ``hbm_bytes``), with
+    its name and power limit beside them.  The H100's datasheet numbers;
+    ``hbm_bytes`` and the name from the card when one is present."""
+    out = {"peak_flops_bf16": H100["peak_flops_bf16"],
+           "hbm_bandwidth": H100["hbm_bandwidth"],
+           "ici_link_bandwidth": H100["nvlink_link_bandwidth"],
+           "hbm_bytes": H100["hbm_bytes"],
+           "links": H100["nvlink_links"],
+           "device": H100["name"], "power_limit_w": H100["power_limit_w"]}
+    if torch.cuda.is_available():
+        props = torch.cuda.get_device_properties(device or 0)
+        out.update(hbm_bytes=props.total_memory, device=props.name)
+    return out
 
 
 def olap_cluster(num_nodes: int = 8, device=None, group=None):

@@ -37,6 +37,9 @@ _SELF = L.AttnMask(causal=True)
 _UNMASKED = L.AttnMask(causal=False)
 
 
+_POS_AXES = ("seq", "embed_no_fsdp")
+
+
 class EncDecCache(NamedTuple):
     self_k: torch.Tensor       # (L, B, Smax, KV, hd)
     self_v: torch.Tensor
@@ -64,11 +67,12 @@ def init_encdec(cfg, gen: torch.Generator, tp: int = 1,
     dtype = getattr(torch, cfg.param_dtype)
     d = cfg.d_model
     tree = {
-        "embedding": {"table": param((cfg.padded_vocab(), d), gen,
-                                     init="embed", scale=0.02, dtype=dtype)},
-        "enc_pos": param((cfg.encdec.enc_seq, d), gen, init="embed",
+        "embedding": T.embedding_tree(gen, cfg.padded_vocab(), d, dtype),
+        "enc_pos": param((cfg.encdec.enc_seq, d), gen, axes=_POS_AXES,
+                         init="embed",
                          scale=0.02, dtype=dtype),
-        "dec_pos": param((cfg.max_seq, d), gen, init="embed", scale=0.02,
+        "dec_pos": param((cfg.max_seq, d), gen, axes=_POS_AXES, init="embed",
+                         scale=0.02,
                          dtype=dtype),
         "enc_layers": [{"ln1": T._norm(gen, d, _NORM, dtype),
                         "attn": T._attn_tree(cfg, gen, tp, dtype),
@@ -81,8 +85,7 @@ def init_encdec(cfg, gen: torch.Generator, tp: int = 1,
         "final_norm": T._norm(gen, d, _NORM, dtype),
     }
     if not cfg.tie_embeddings:
-        tree["head"] = {"w": param((d, cfg.padded_vocab()), gen,
-                                   dtype=dtype)}
+        tree["head"] = T.head_tree(gen, d, cfg.padded_vocab(), dtype)
     return T.Transformer(tree, trainable)
 
 

@@ -60,16 +60,18 @@ def init_rec_layer(cfg, gen: torch.Generator, dtype) -> dict:
     d = cfg.d_model
     lw = cfg.hybrid.lru_width or d
     return {
-        "norm": {"scale": param((d,), gen, init="ones", dtype=dtype)},
-        "w_x": param((d, lw), gen, dtype=dtype),
-        "w_gate": param((d, lw), gen, dtype=dtype),
-        "conv": param((_CONV, lw), gen, scale=0.1, dtype=dtype),
-        "lambda_p": param((lw,), gen, init="ones", dtype=dtype),
-        "w_a": param((lw, lw), gen, dtype=dtype),
-        "b_a": param((lw,), gen, init="zeros", dtype=dtype),
-        "w_i": param((lw, lw), gen, dtype=dtype),
-        "b_i": param((lw,), gen, init="zeros", dtype=dtype),
-        "out_proj": param((lw, d), gen, dtype=dtype),
+        "norm": T._norm(gen, d, "rmsnorm", dtype),
+        "w_x": param((d, lw), gen, axes=("embed", "mlp"), dtype=dtype),
+        "w_gate": param((d, lw), gen, axes=("embed", "mlp"), dtype=dtype),
+        "conv": param((_CONV, lw), gen, axes=("conv", "mlp"), scale=0.1,
+                      dtype=dtype),
+        "lambda_p": param((lw,), gen, axes=("mlp",), init="ones",
+                          dtype=dtype),
+        "w_a": param((lw, lw), gen, axes=("mlp", None), dtype=dtype),
+        "b_a": param((lw,), gen, axes=(None,), init="zeros", dtype=dtype),
+        "w_i": param((lw, lw), gen, axes=("mlp", None), dtype=dtype),
+        "b_i": param((lw,), gen, axes=(None,), init="zeros", dtype=dtype),
+        "out_proj": param((lw, d), gen, axes=("mlp", "embed"), dtype=dtype),
     }
 
 
@@ -79,13 +81,12 @@ def init_hybrid(cfg, gen: torch.Generator, tp: int = 1,
     ``gen``'s device, by the JAX package's init kinds and shapes."""
     dtype = getattr(torch, cfg.param_dtype)
     tree = {
-        "embedding": {"table": param((cfg.padded_vocab(), cfg.d_model), gen,
-                                     init="embed", scale=0.02, dtype=dtype)},
+        "embedding": T.embedding_tree(gen, cfg.padded_vocab(), cfg.d_model,
+                                      dtype),
         "layers": [T._layer_tree(cfg, gen, tp, dtype) if is_attn_layer(cfg, i)
                    else init_rec_layer(cfg, gen, dtype)
                    for i in range(cfg.n_layers)],
-        "final_norm": {"scale": param((cfg.d_model,), gen, init="ones",
-                                      dtype=dtype)},
+        "final_norm": T._norm(gen, cfg.d_model, "rmsnorm", dtype),
     }
     return T.Transformer(tree, trainable)
 

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models import runtime
 
 # ---------------------------------------------------------------------------
 # norms
@@ -250,21 +251,48 @@ def attn_out(p, o):
     return o.reshape(*o.shape[:-2], -1) @ wo.reshape(-1, wo.shape[-1])
 
 
-def apply_mlp(p, x, act: str):
+def mlp_hidden(p, x, act: str):
+    """The MLP's hidden activation, the tensor the reference names
+    ``mlp_hidden``: ``act(x @ w_gate) * (x @ w_up)`` for swiglu / geglu,
+    ``gelu(x @ w_up + b_up)`` otherwise."""
     cd = x.dtype
     if act in ("swiglu", "geglu"):
         gate = x @ p["w_gate"].to(cd)
         up = x @ p["w_up"].to(cd)
         g = F.silu(gate) if act == "swiglu" else F.gelu(gate,
                                                        approximate="tanh")
-        return (g * up) @ p["w_down"].to(cd)
-    h = F.gelu(x @ p["w_up"].to(cd) + p["b_up"].to(cd), approximate="tanh")
-    return h @ p["w_down"].to(cd) + p["b_down"].to(cd)
+        return g * up
+    return F.gelu(x @ p["w_up"].to(cd) + p["b_up"].to(cd), approximate="tanh")
+
+
+def mlp_out(p, h, reduce=None):
+    """``h @ w_down``, summed by ``reduce`` (the tensor-parallel sum of a
+    row-parallel product) before ``b_down`` is added."""
+    y = h @ p["w_down"].to(h.dtype)
+    if reduce is not None:
+        y = reduce(y)
+    if "b_down" in p:
+        y = y + p["b_down"].to(h.dtype)
+    return y
+
+
+def apply_mlp(p, x, act: str, reduce=None):
+    return mlp_out(p, mlp_hidden(p, x, act), reduce)
 
 
 def embed(p, tokens, dtype):
-    # gather, then cast: the same numbers as casting the whole table first
-    return p["table"][tokens].to(dtype)
+    """The rows of ``tokens``, gathered then cast (the same numbers as
+    casting the whole table first).  Under tensor parallelism the table
+    is this rank's vocab block: tokens outside it give zeros, and the
+    ranks' rows are summed."""
+    table = p["table"]
+    start = runtime.tp_offset(table.shape[0])
+    if start is None:
+        return table[tokens].to(dtype)
+    ids = tokens - start
+    inside = (ids >= 0) & (ids < table.shape[0])
+    x = table[ids.clamp(0, table.shape[0] - 1)].to(dtype)
+    return runtime.tp_sum(torch.where(inside[..., None], x, 0))
 
 
 def lm_logits(head, x, *, tied_table=None):

@@ -17,15 +17,16 @@ SSM, hybrid and encoder-decoder families: their decode state is no
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
-import torch.utils.checkpoint
 
 from repro_torch.core.engine import resolve_device
-from repro_torch.models import encdec, hybrid, ssm, vlm
+from repro_torch.models import encdec, hybrid, runtime, ssm, vlm
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import logical_axes
 
 _FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
@@ -48,7 +49,10 @@ class Model:
         ``torch.Generator`` seeded with ``seed``; frozen for serving,
         ``trainable`` for training.  A hybrid model holds each layer's
         live block only (the JAX tree holds both)."""
-        gen = torch.Generator(resolve_device(device)).manual_seed(seed)
+        return self._init(torch.Generator(resolve_device(device))
+                          .manual_seed(seed), trainable)
+
+    def _init(self, gen, trainable: bool = False) -> T.Transformer:
         if self.cfg.family == "ssm":
             return ssm.init_mamba(self.cfg, gen, trainable)
         if self.cfg.family == "hybrid":
@@ -58,6 +62,37 @@ class Model:
         if self.cfg.family == "vlm":
             return vlm.init_vlm(self.cfg, gen, self.tp, trainable)
         return T.init_transformer(self.cfg, gen, self.tp, trainable)
+
+    def param_axes(self):
+        """The parameters' logical-axes tree, without allocating them (the
+        tree made on the ``meta`` device), as nested dicts and lists in
+        the layout of ``Transformer.tree()``."""
+        return logical_axes(self._init(None).tree())
+
+    def decode_state_axes(self):
+        """The decode state's logical axes, a state of the same type
+        (``host_length`` None: a host count)."""
+        cfg = self.cfg
+        kv = ("layers", "batch", "seq", "kv_heads", "head_dim")
+        if cfg.family == "ssm":
+            return ssm.SSMState(
+                state=("layers", "batch", "heads", "head_dim", "state"),
+                conv=("layers", "batch", "conv", "mlp"), length=(),
+                host_length=None)
+        if cfg.family == "hybrid":
+            return hybrid.HybridState(
+                lru=("layers", "batch", "mlp"),
+                conv=("layers", "batch", "conv", "mlp"), k=kv, v=kv,
+                length=(), host_length=None)
+        if cfg.family == "encdec":
+            return encdec.EncDecCache(self_k=kv, self_v=kv, cross_k=kv,
+                                      cross_v=kv, length=(),
+                                      host_length=None)
+        if self.cache_quant:
+            q = ("layers", "batch", "kv_heads", "seq", "head_dim")
+            return T.QuantKVCache(k=q, v=q, k_scale=q[:-1], v_scale=q[:-1],
+                                  length=(), host_length=None)
+        return T.KVCache(k=kv, v=kv, length=(), host_length=None)
 
     def cast(self, params: T.Transformer) -> T.Transformer:
         """The parameters in ``cfg.compute_dtype``, for serving.  The JAX
@@ -74,8 +109,14 @@ class Model:
     def hidden(self, params, batch, *, chunk_q=1024, chunk_k=1024,
                attn_impl="xla", remat_policy="full", ssm_chunk=None,
                ssm_bf16=False):
-        """Final hidden states (B, S, d), under autograd when it is on."""
+        """Final hidden states (B, S, d), under autograd when it is on.
+        Under a mesh the dense family runs on local blocks layer by layer
+        (``models.runtime``); another family's parameters are all made
+        local first, which only a mesh of one rank allows (the trainer
+        refuses more)."""
         cfg = self.cfg
+        if cfg.family != "dense":
+            params = runtime.local_params(params)
         if cfg.family == "ssm":
             return ssm.forward(params, batch["tokens"], cfg, chunk=ssm_chunk,
                                bf16=ssm_bf16)
@@ -171,12 +212,26 @@ class Model:
 
 
 def _chunk_nll(h, lab, head_w, tied):
-    """Summed NLL and count of one chunk: logits (B, c, V) f32."""
+    """Summed NLL and count of one chunk: logits (B, c, V) f32.  Under
+    tensor parallelism the logits are this rank's vocab block: the
+    maximum, the sum of exponentials and the picked logit are reduced
+    over the ranks."""
     head = None if head_w is None else {"w": head_w}
     logits = L.lm_logits(head, h, tied_table=tied).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1,
-                          lab.clamp(min=0).long()[..., None])[..., 0]
+    start = runtime.tp_offset(logits.shape[-1])
+    if start is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1,
+                              lab.clamp(min=0).long()[..., None])[..., 0]
+    else:
+        m = runtime.tp_max(logits.amax(dim=-1))
+        lse = m + torch.log(runtime.tp_sum(
+            torch.exp(logits - m[..., None]).sum(dim=-1)))
+        ids = lab.long() - start
+        inside = (ids >= 0) & (ids < logits.shape[-1])
+        local = torch.gather(logits, -1, ids.clamp(
+            0, logits.shape[-1] - 1)[..., None])[..., 0]
+        picked = runtime.tp_sum(torch.where(inside, local, 0.0))
     mask = lab >= 0
     nll = torch.where(mask, lse - picked, 0.0)
     return nll.sum(), mask.sum(dtype=torch.int32)
@@ -188,19 +243,22 @@ def chunked_cross_entropy(hidden, labels, cfg, params, *, chunk: int = 512):
     hidden: (B, S, d), position t predicts labels[t]; labels: (B, S) int,
     -1 masked.  Chunks of ``chunk`` positions (shrunk to divide S), each
     checkpointed when ``cfg.remat``, summed in order.  Returns (mean_nll,
-    token count)."""
+    token count).  Under a mesh (``models.runtime``) ``hidden`` and
+    ``labels`` are this rank's batch rows and the head its vocab block;
+    the sum and the count are summed over the batch shards, so every rank
+    returns the mean over the whole batch."""
     B, S, _ = hidden.shape
     chunk = min(chunk, S)
     while S % chunk:
         chunk -= 1
-    tied = params.embedding["table"] if cfg.tie_embeddings else None
-    head_w = params.head["w"] if params.head is not None else None
+    hidden = runtime.tp_copy(hidden)
+    tied = (runtime.local_params(params.embedding)["table"]
+            if cfg.tie_embeddings else None)
+    head_w = (runtime.local_params(params.head)["w"]
+              if params.head is not None else None)
     body = _chunk_nll
     if cfg.remat and torch.is_grad_enabled():
-        def body(*a):
-            return torch.utils.checkpoint.checkpoint(
-                _chunk_nll, *a, use_reentrant=False,
-                preserve_rng_state=False)
+        body = functools.partial(runtime.checkpoint, _chunk_nll)
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.int32, device=hidden.device)
     for c0 in range(0, S, chunk):
@@ -208,6 +266,8 @@ def chunked_cross_entropy(hidden, labels, cfg, params, *, chunk: int = 512):
                       head_w, tied)
         tot = tot + nll
         cnt = cnt + n
+    tot = runtime.batch_sum(tot)
+    cnt = runtime.batch_sum(cnt)
     return tot / torch.clamp(cnt, min=1), cnt
 
 

@@ -42,10 +42,16 @@ def init_moe(gen: torch.Generator, cfg, dtype=torch.float32) -> dict:
     turns a rounding into other routing (``ROADMAP.md`` §C)."""
     m = cfg.moe
     d, f, E = cfg.d_model, m.d_ff_expert, m.num_experts
-    return {"router": param((d, E), gen, dtype=dtype),
-            "w_gate": param((E, d, f), gen, scale=d ** -0.5, dtype=dtype),
-            "w_up": param((E, d, f), gen, scale=d ** -0.5, dtype=dtype),
-            "w_down": param((E, f, d), gen, scale=f ** -0.5, dtype=dtype)}
+    up = ("expert", "embed", "expert_mlp")
+    return {"router": param((d, E), gen, axes=("embed_no_fsdp", "expert"),
+                            dtype=dtype),
+            "w_gate": param((E, d, f), gen, axes=up, scale=d ** -0.5,
+                            dtype=dtype),
+            "w_up": param((E, d, f), gen, axes=up, scale=d ** -0.5,
+                          dtype=dtype),
+            "w_down": param((E, f, d), gen,
+                            axes=("expert", "expert_mlp", "embed"),
+                            scale=f ** -0.5, dtype=dtype)}
 
 
 def capacity(n_tokens: int, num_experts: int, top_k: int, cf: float) -> int:

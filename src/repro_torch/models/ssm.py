@@ -51,16 +51,20 @@ def init_ssm_layer(cfg, gen: torch.Generator, dtype) -> dict:
     di, H, N, P, W = dims(cfg)
     d = cfg.d_model
     return {
-        "norm": {"scale": param((d,), gen, init="ones", dtype=dtype)},
-        "w_zx": param((d, 2 * di), gen, dtype=dtype),
-        "w_bc": param((d, 2 * N), gen, dtype=dtype),
-        "w_dt": param((d, H), gen, dtype=dtype),
-        "dt_bias": param((H,), gen, init="zeros", dtype=dtype),
-        "A_log": param((H,), gen, init="zeros", dtype=dtype),
-        "D": param((H,), gen, init="ones", dtype=dtype),
-        "conv": param((W, di + 2 * N), gen, scale=0.1, dtype=dtype),
-        "gated_norm": param((di,), gen, init="ones", dtype=dtype),
-        "out_proj": param((di, d), gen, dtype=dtype),
+        "norm": T._norm(gen, d, "rmsnorm", dtype),
+        "w_zx": param((d, 2 * di), gen, axes=("embed", "mlp"), dtype=dtype),
+        "w_bc": param((d, 2 * N), gen, axes=("embed", None), dtype=dtype),
+        "w_dt": param((d, H), gen, axes=("embed", "heads"), dtype=dtype),
+        "dt_bias": param((H,), gen, axes=("heads",), init="zeros",
+                         dtype=dtype),
+        "A_log": param((H,), gen, axes=("heads",), init="zeros",
+                       dtype=dtype),
+        "D": param((H,), gen, axes=("heads",), init="ones", dtype=dtype),
+        "conv": param((W, di + 2 * N), gen, axes=("conv", "mlp"), scale=0.1,
+                      dtype=dtype),
+        "gated_norm": param((di,), gen, axes=("mlp",), init="ones",
+                            dtype=dtype),
+        "out_proj": param((di, d), gen, axes=("mlp", "embed"), dtype=dtype),
     }
 
 
@@ -71,12 +75,11 @@ def init_mamba(cfg, gen: torch.Generator,
     tied)."""
     dtype = getattr(torch, cfg.param_dtype)
     tree = {
-        "embedding": {"table": param((cfg.padded_vocab(), cfg.d_model), gen,
-                                     init="embed", scale=0.02, dtype=dtype)},
+        "embedding": T.embedding_tree(gen, cfg.padded_vocab(), cfg.d_model,
+                                      dtype),
         "layers": [init_ssm_layer(cfg, gen, dtype)
                    for _ in range(cfg.n_layers)],
-        "final_norm": {"scale": param((cfg.d_model,), gen, init="ones",
-                                      dtype=dtype)},
+        "final_norm": T._norm(gen, cfg.d_model, "rmsnorm", dtype),
     }
     return T.Transformer(tree, trainable)
 

@@ -25,17 +25,17 @@ same positions, so the capacity check reads nothing from the device.
 """
 from __future__ import annotations
 
+import contextvars
 import functools
 import math
 from typing import NamedTuple
 
 import torch
-import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models import moe
+from repro_torch.models import moe, runtime
 from repro_torch.models.params import param
 
 
@@ -74,8 +74,16 @@ class QuantKVCache(NamedTuple):
     host_length: HostLength
 
 
+def _parameter(t: torch.Tensor, trainable: bool) -> nn.Parameter:
+    """``t`` as a parameter, its logical axes (``params.param``) kept."""
+    p = nn.Parameter(t, requires_grad=trainable)
+    if hasattr(t, "axes"):
+        p.axes = t.axes
+    return p
+
+
 def _param_dict(tensors: dict, trainable: bool) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(t, requires_grad=trainable)
+    return nn.ParameterDict({k: _parameter(t, trainable)
                              for k, t in tensors.items()})
 
 
@@ -92,8 +100,7 @@ class Layer(nn.Module):
             if isinstance(sub, dict):
                 self.add_module(name, _param_dict(sub, trainable))
             else:
-                self.register_parameter(
-                    name, nn.Parameter(sub, requires_grad=trainable))
+                self.register_parameter(name, _parameter(sub, trainable))
 
     def tree(self) -> dict:
         """The layer as nested dicts of tensors."""
@@ -134,8 +141,7 @@ class Transformer(nn.Module):
             elif isinstance(sub, dict):
                 self.add_module(name, _param_dict(sub, trainable))
             else:
-                self.register_parameter(
-                    name, nn.Parameter(sub, requires_grad=trainable))
+                self.register_parameter(name, _parameter(sub, trainable))
         if "head" not in tree:
             self.head = None
 
@@ -164,37 +170,52 @@ class Transformer(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+_NORM_AXES = ("embed_no_fsdp",)
+
+
 def _norm(gen, d, kind, dtype):
-    p = {"scale": param((d,), gen, init="ones", dtype=dtype)}
+    p = {"scale": param((d,), gen, axes=_NORM_AXES, init="ones",
+                       dtype=dtype)}
     if kind != "rmsnorm":
-        p["bias"] = param((d,), gen, init="zeros", dtype=dtype)
+        p["bias"] = param((d,), gen, axes=_NORM_AXES, init="zeros",
+                          dtype=dtype)
     return p
 
 
 def _attn_tree(cfg, gen, tp, dtype):
     d, hd = cfg.d_model, cfg.resolved_head_dim
     H, KV = cfg.padded_heads(tp)
-    attn = {"wq": param((d, H, hd), gen, dtype=dtype),
-            "wk": param((d, KV, hd), gen, dtype=dtype),
-            "wv": param((d, KV, hd), gen, dtype=dtype),
-            "wo": param((H, hd, d), gen, dtype=dtype)}
+    attn = {"wq": param((d, H, hd), gen, axes=("embed", "heads", "head_dim"),
+                         dtype=dtype),
+            "wk": param((d, KV, hd), gen,
+                        axes=("embed", "kv_heads", "head_dim"), dtype=dtype),
+            "wv": param((d, KV, hd), gen,
+                        axes=("embed", "kv_heads", "head_dim"), dtype=dtype),
+            "wo": param((H, hd, d), gen, axes=("heads", "head_dim", "embed"),
+                        dtype=dtype)}
     if cfg.qkv_bias:
-        attn["bq"] = param((H, hd), gen, init="zeros", dtype=dtype)
-        attn["bk"] = param((KV, hd), gen, init="zeros", dtype=dtype)
-        attn["bv"] = param((KV, hd), gen, init="zeros", dtype=dtype)
+        attn["bq"] = param((H, hd), gen, axes=("heads", "head_dim"),
+                           init="zeros", dtype=dtype)
+        attn["bk"] = param((KV, hd), gen, axes=("kv_heads", "head_dim"),
+                           init="zeros", dtype=dtype)
+        attn["bv"] = param((KV, hd), gen, axes=("kv_heads", "head_dim"),
+                           init="zeros", dtype=dtype)
     return attn
 
 
 def _mlp_tree(cfg, gen, dtype):
     d, f = cfg.d_model, cfg.d_ff
     if cfg.act in ("swiglu", "geglu"):
-        return {"w_gate": param((d, f), gen, dtype=dtype),
-                "w_up": param((d, f), gen, dtype=dtype),
-                "w_down": param((f, d), gen, dtype=dtype)}
-    return {"w_up": param((d, f), gen, dtype=dtype),
-            "b_up": param((f,), gen, init="zeros", dtype=dtype),
-            "w_down": param((f, d), gen, dtype=dtype),
-            "b_down": param((d,), gen, init="zeros", dtype=dtype)}
+        up = ("embed", "mlp")
+        return {"w_gate": param((d, f), gen, axes=up, dtype=dtype),
+                "w_up": param((d, f), gen, axes=up, dtype=dtype),
+                "w_down": param((f, d), gen, axes=("mlp", "embed"),
+                                dtype=dtype)}
+    return {"w_up": param((d, f), gen, axes=("embed", "mlp"), dtype=dtype),
+            "b_up": param((f,), gen, axes=("mlp",), init="zeros", dtype=dtype),
+            "w_down": param((f, d), gen, axes=("mlp", "embed"), dtype=dtype),
+            "b_down": param((d,), gen, axes=_NORM_AXES, init="zeros",
+                            dtype=dtype)}
 
 
 def _layer_tree(cfg, gen, tp, dtype):
@@ -210,6 +231,16 @@ def _layer_tree(cfg, gen, tp, dtype):
     return out
 
 
+def embedding_tree(gen, vocab: int, d: int, dtype) -> dict:
+    return {"table": param((vocab, d), gen, axes=("vocab", "embed"),
+                           init="embed", scale=0.02, dtype=dtype)}
+
+
+def head_tree(gen, d: int, vocab: int, dtype) -> dict:
+    return {"w": param((d, vocab), gen, axes=("embed", "vocab"),
+                       dtype=dtype)}
+
+
 def transformer_tree(cfg, gen: torch.Generator, tp: int = 1) -> dict:
     """The decoder's random parameters as a tree of tensors in
     ``cfg.param_dtype`` on ``gen``'s device, by the JAX package's init
@@ -217,14 +248,13 @@ def transformer_tree(cfg, gen: torch.Generator, tp: int = 1) -> dict:
     dtype = getattr(torch, cfg.param_dtype)
     V = cfg.padded_vocab()
     tree = {
-        "embedding": {"table": param((V, cfg.d_model), gen, init="embed",
-                                     scale=0.02, dtype=dtype)},
+        "embedding": embedding_tree(gen, V, cfg.d_model, dtype),
         "layers": [_layer_tree(cfg, gen, tp, dtype)
                    for _ in range(cfg.n_layers)],
         "final_norm": _norm(gen, cfg.d_model, cfg.norm, dtype),
     }
     if not cfg.tie_embeddings:
-        tree["head"] = {"w": param((cfg.d_model, V), gen, dtype=dtype)}
+        tree["head"] = head_tree(gen, cfg.d_model, V, dtype)
     return tree
 
 
@@ -251,21 +281,69 @@ def _layer_mask(cfg) -> L.AttnMask:
 
 def _mlp_block(lp, x, cfg):
     """The residual feed-forward of every path: the MoE block for the MoE
-    family, else the dense MLP."""
+    family, else the dense MLP (column-parallel ``w_gate``/``w_up``,
+    row-parallel ``w_down`` under a mesh)."""
     h = L.apply_norm(lp.ln2, x, cfg.norm)
     if cfg.family == "moe":
         return x + moe.apply_moe(lp.moe, h, cfg)
-    return x + L.apply_mlp(lp.mlp, h, cfg.act)
+    return x + L.apply_mlp(lp.mlp, runtime.tp_copy(h), cfg.act,
+                           reduce=runtime.tp_sum)
+
+
+# A layer in three parts, split at the tensors that ``save_hot`` keeps:
+# the attention output before ``wo`` (the reference names it ``attn_out``
+# on the flash path) and the MLP's hidden activation (``mlp_hidden``).
+# Each part reads its parameters through ``runtime.local_params``, which
+# under a mesh gathers only the weights the part uses.
+
+
+def _attn_part(lp, x, cfg, positions, mask, chunk_q, chunk_k, attn_impl):
+    lp = runtime.local_params(lp)
+    h = runtime.tp_copy(L.apply_norm(lp.ln1, x, cfg.norm))
+    q, k, v = L.qkv(lp.attn, h, cfg, positions)
+    return L.attention(q, k, v, mask, impl=attn_impl, chunk_q=chunk_q,
+                       chunk_k=chunk_k)
+
+
+def _mid_part(lp, x, o, cfg):
+    """-> (the residual after attention, the MLP's hidden activation); a
+    MoE layer's whole feed-forward, and no hidden activation."""
+    lp = runtime.local_params(lp)
+    x = x + runtime.tp_sum(L.attn_out(lp.attn, o))
+    if cfg.family == "moe":
+        return _mlp_block(lp, x, cfg), None
+    h = runtime.tp_copy(L.apply_norm(lp.ln2, x, cfg.norm))
+    return x, L.mlp_hidden(lp.mlp, h, cfg.act)
+
+
+def _out_part(lp, x, hidden):
+    if hidden is None:
+        return x
+    lp = runtime.local_params(lp)
+    return x + L.mlp_out(lp.mlp, hidden, reduce=runtime.tp_sum)
 
 
 def apply_layer(lp, x, cfg, positions, *, mask=None, chunk_q=1024,
                 chunk_k=1024, attn_impl="xla"):
-    h = L.apply_norm(lp.ln1, x, cfg.norm)
-    q, k, v = L.qkv(lp.attn, h, cfg, positions)
-    o = L.attention(q, k, v, mask or _layer_mask(cfg), impl=attn_impl,
-                    chunk_q=chunk_q, chunk_k=chunk_k)
-    x = x + L.attn_out(lp.attn, o)
-    return _mlp_block(lp, x, cfg)
+    """One layer.  Under ``save_hot`` (:func:`remat_wrap`) the parts up
+    to the kept tensors are checkpointed each: the attention (on the
+    flash path, whose output the reference keeps; the xla path recomputes
+    it with the next part), then up to the MLP's hidden activation; the
+    rest runs as it is."""
+    attn = functools.partial(_attn_part, cfg=cfg, positions=positions,
+                             mask=mask or _layer_mask(cfg), chunk_q=chunk_q,
+                             chunk_k=chunk_k, attn_impl=attn_impl)
+    if not _SAVE_HOT.get():
+        lp = runtime.local_params(lp)
+        return _out_part(lp, *_mid_part(lp, x, attn(lp, x), cfg))
+    if attn_impl == "flash":
+        o = runtime.checkpoint(attn, lp, x)
+        x, hidden = runtime.checkpoint(
+            functools.partial(_mid_part, cfg=cfg), lp, x, o)
+    else:
+        x, hidden = runtime.checkpoint(
+            lambda lp, x: _mid_part(lp, x, attn(lp, x), cfg), lp, x)
+    return _out_part(lp, x, hidden)
 
 
 def _position(cache_len: torch.Tensor) -> torch.Tensor:
@@ -337,28 +415,43 @@ def apply_layer_decode_quant(lp, x, cfg, kq, ks, vq, vs, cache_len):
 # ---------------------------------------------------------------------------
 
 
-REMAT_POLICIES = ("full", "none")
+REMAT_POLICIES = ("full", "save_hot", "none")
+
+# set while a layer runs under ``save_hot``: apply_layer checkpoints its
+# parts itself
+_SAVE_HOT: contextvars.ContextVar = contextvars.ContextVar("save_hot",
+                                                           default=False)
 
 
 def remat_wrap(body, cfg, remat_policy: str = "full"):
     """The layer's remat policy (counterpart of the JAX ``remat_wrap``):
-      full  -- checkpoint the whole layer: only its input is kept, the
-               layer runs again in the backward (non-reentrant
-               ``torch.utils.checkpoint``)
-      none  -- no remat (only viable for tiny configs and tests)
+      full      -- checkpoint the whole layer: only its input is kept, the
+                   layer runs again in the backward (non-reentrant
+                   ``torch.utils.checkpoint``)
+      save_hot  -- keep the attention output before ``wo`` (flash path)
+                   and the MLP's hidden activation, recompute the rest
+                   (the reference's ``save_only_these_names("mlp_hidden",
+                   "attn_out")``; :func:`apply_layer` splits the layer at
+                   those tensors)
+      none      -- no remat (only viable for tiny configs and tests)
     ``cfg.remat`` False means none.  Outside autograd nothing is kept
-    anyway, and the body runs as it is."""
-    if remat_policy == "save_hot":
-        raise NotImplementedError(
-            "remat policy 'save_hot' is not ported yet (ROADMAP.md queue A, "
-            "item 11.1, after optim/compression.py)")
+    anyway, and the body runs as it is.  The recompute runs under the
+    forward's mesh (``runtime.checkpoint``)."""
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat policy {remat_policy!r}")
     if (not cfg.remat or remat_policy == "none"
             or not torch.is_grad_enabled()):
         return body
-    return functools.partial(torch.utils.checkpoint.checkpoint, body,
-                             use_reentrant=False, preserve_rng_state=False)
+    if remat_policy == "full":
+        return functools.partial(runtime.checkpoint, body)
+
+    def hot(*a, **kw):
+        token = _SAVE_HOT.set(True)
+        try:
+            return body(*a, **kw)
+        finally:
+            _SAVE_HOT.reset(token)
+    return hot
 
 
 def _embed(params: Transformer, tokens, cfg, embeddings):
@@ -366,7 +459,9 @@ def _embed(params: Transformer, tokens, cfg, embeddings):
     (B, S_extra, d) in front of them when given; with their positions
     (1, S) int32, which count the prefix."""
     cd = getattr(torch, cfg.compute_dtype)
-    x = L.embed(params.embedding, tokens, cd)
+    x = runtime.constrain(
+        L.embed(runtime.local_params(params.embedding), tokens, cd),
+        "batch", None, None)
     if embeddings is not None:
         x = torch.cat([embeddings.to(cd), x], dim=1)
     S = x.shape[1]
@@ -387,7 +482,7 @@ def forward(params: Transformer, tokens, cfg, *, embeddings=None, mask=None,
         remat_policy)
     for lp in params.layers:
         x = body(lp, x)
-    return L.apply_norm(params.final_norm, x, cfg.norm)
+    return L.apply_norm(runtime.local_params(params.final_norm), x, cfg.norm)
 
 
 def logits_from_hidden(params: Transformer, hidden, cfg):

@@ -26,8 +26,10 @@ def init_vlm(cfg, gen: torch.Generator, tp: int = 1,
     dtype = getattr(torch, cfg.param_dtype)
     tree = T.transformer_tree(cfg, gen, tp)
     tree["patch_proj"] = {
-        "w": param((cfg.vlm.patch_dim, cfg.d_model), gen, dtype=dtype),
-        "b": param((cfg.d_model,), gen, init="zeros", dtype=dtype)}
+        "w": param((cfg.vlm.patch_dim, cfg.d_model), gen, axes=(None, "embed"),
+                   dtype=dtype),
+        "b": param((cfg.d_model,), gen, axes=("embed_no_fsdp",),
+                   init="zeros", dtype=dtype)}
     return T.Transformer(tree, trainable)
 
 

@@ -1,6 +1,6 @@
-"""Optimizer of the port (counterpart of ``repro.optim``): AdamW.  The
-JAX package's int8 gradient compression (``optim/compression.py``) is
-still to port (ROADMAP.md queue A, item 11.1)."""
+"""Optimizer of the port (counterpart of ``repro.optim``): AdamW, and the
+int8 gradient compression with error feedback (``optim/compression.py``),
+which, as in the reference, the train step does not call."""
 from repro_torch.optim.adamw import (  # noqa: F401
     AdamWConfig,
     AdamWState,
@@ -8,4 +8,11 @@ from repro_torch.optim.adamw import (  # noqa: F401
     adamw_update,
     global_norm,
     schedule,
+)
+from repro_torch.optim.compression import (  # noqa: F401
+    CompressionState,
+    Quantized,
+    compress_gradients,
+    compression_init,
+    decompress_gradients,
 )

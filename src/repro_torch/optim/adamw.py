@@ -5,7 +5,10 @@ The JAX package maps the update over parameter pytrees and returns new
 trees.  The port applies it per tensor in a plain loop and updates the
 parameters and the moments IN PLACE (at full width a functional update
 would hold a second copy of 13.6 GB of f32 parameters and 27 GB of
-moments); the arithmetic and its order are the JAX package's.  A "tree" is
+moments); the arithmetic and its order are the JAX package's.  Sharded
+leaves (DTensors, ``models.sharding``) are updated on each rank's local
+block, and the clipping norm is the norm of the whole gradient: each
+leaf's local sum of squares is summed over the mesh dims that shard it.  A "tree" is
 a :class:`torch.nn.Module` (its parameters by sorted name), a dict
 (values by sorted key, as ``jax.tree.leaves`` orders them), a list or tuple,
 or a tensor.
@@ -17,7 +20,9 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, Shard
 
 
 class AdamWState(NamedTuple):
@@ -78,10 +83,36 @@ def schedule(cfg: AdamWConfig, step):
     return cfg.lr * warm * frac
 
 
+def _local(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's block on this rank (the same storage), a plain tensor
+    as it is."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of their f32 squares, leaf by leaf."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in leaves(tree)))
+    """sqrt of the sum over leaves of their f32 squares, leaf by leaf.
+    Sharded leaves' local sums are summed over the mesh dims that shard
+    them, grouped by those dims (one reduction a group), so a replicated
+    block counts once."""
+    xs = leaves(tree)
+    if not any(isinstance(x, DTensor) for x in xs):
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in xs))
+    groups: dict = {}             # (mesh, sharded dims) -> local sum
+    for x in xs:
+        key = (None, ())
+        if isinstance(x, DTensor):
+            mesh = x.device_mesh
+            key = (mesh, tuple(j for j, pl in enumerate(x.placements)
+                               if isinstance(pl, Shard) and mesh.size(j) > 1))
+        s = torch.sum(torch.square(_local(x).float()))
+        groups[key] = groups[key] + s if key in groups else s
+    total = 0.0
+    for (mesh, dims), s in groups.items():
+        for j in dims:
+            dist.all_reduce(s, group=mesh.get_group(j))
+        total = total + s
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
@@ -99,6 +130,7 @@ def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig):
     b2c = 1 - torch.pow(torch.full((), cfg.b2, device=step.device), stepf)
     for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.mu),
                           leaves(state.nu), strict=True):
+        p, g, m, v = _local(p), _local(g), _local(m), _local(v)
         g = (g * scale).float()
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)

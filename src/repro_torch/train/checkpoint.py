@@ -13,6 +13,11 @@ restores into the other.
 - All but the last 3 checkpoints are removed after each save.
 - A save snapshots the leaves to host memory synchronously and can write
   them on a background thread, so the step loop does not wait for disk.
+- Mesh-agnostic: a sharded state (DTensor leaves, ``train/trainer.py``)
+  is saved as its full arrays, gathered on every rank and written by one
+  (rank 0 of the default group); a restore places each array by the
+  shardings of the state it fills, so a checkpoint saved under one mesh
+  restores under another (the reference's elastic re-mesh).
 """
 from __future__ import annotations
 
@@ -24,6 +29,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch.models import sharding as SH
 
 from repro_torch.models.convert import jax_layout
 from repro_torch.models.transformer import Transformer
@@ -31,10 +40,14 @@ from repro_torch.models.transformer import Transformer
 
 def _jax_trees(tree, where):
     """``tree`` with each Transformer replaced by its JAX tree, its
-    tensors first moved by ``to(where)`` (``"cpu"`` for a snapshot,
-    ``"meta"`` for the structure alone)."""
+    tensors first gathered whole and copied to ``where`` (``"cpu"`` for a
+    snapshot, a copy even of a CPU tensor: the step goes on updating the
+    state in place while a save writes in the background; ``"meta"`` for
+    the structure alone)."""
     if isinstance(tree, Transformer):
-        return jax_layout(tree.map(lambda t: t.to(where)))
+        return jax_layout(tree.map(lambda t: (
+            torch.empty(t.shape, dtype=t.dtype, device="meta")
+            if where == "meta" else SH.full(t).to(where, copy=True))))
     if isinstance(tree, dict):
         return {k: _jax_trees(v, where) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
@@ -57,8 +70,26 @@ def _flatten(tree) -> list:
 
 def _to_host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        return SH.full(x.detach()).cpu().numpy()
     return np.asarray(x)
+
+
+def _writer() -> bool:
+    """True on the one rank that writes: rank 0 of the default group, or
+    the only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _copy_into(x: torch.Tensor, host: np.ndarray) -> None:
+    """Overwrite ``x`` with ``host`` (its whole value); a DTensor keeps
+    its block of it."""
+    src = torch.from_numpy(np.array(host))
+    with torch.no_grad():
+        if isinstance(x, DTensor):
+            x.to_local().copy_(SH.local_block(
+                src, SH.Sharding(x.device_mesh, x.placements)))
+        else:
+            x.copy_(src)
 
 
 class _Stacked(list):
@@ -88,9 +119,8 @@ def _fill(like, it):
     if isinstance(like, _Stacked):
         host = next(it)
         _check(host, (len(like), *like[0].shape))
-        with torch.no_grad():
-            for x, h in zip(like, host):
-                x.copy_(torch.from_numpy(np.array(h)))
+        for x, h in zip(like, host):
+            _copy_into(x, h)
         return like
     if isinstance(like, (list, tuple)):
         return type(like)(_fill(x, it) for x in like)
@@ -99,8 +129,7 @@ def _fill(like, it):
     host = next(it)
     _check(host, tuple(like.shape))
     if isinstance(like, torch.Tensor):
-        with torch.no_grad():
-            like.copy_(torch.from_numpy(np.array(host)))
+        _copy_into(like, host)
         return like
     return host
 
@@ -113,11 +142,15 @@ def _check(host: np.ndarray, shape: tuple):
 def save(path: str, state, step: int, *, data_state: dict | None = None,
          blocking: bool = True):
     """Two-phase atomic save of a tree of tensors and arrays.  Returns the
-    writing thread when not ``blocking``."""
+    writing thread when not ``blocking``.  Every rank of a sharded state
+    must call it (the full arrays are gathered); rank 0 writes, the others
+    return None."""
+    host_leaves = [_to_host(x) for x in _flatten(_jax_trees(state, "cpu"))]
+    if not _writer():
+        return None
     os.makedirs(path, exist_ok=True)
     tmp = os.path.join(path, f"step_{step:08d}.tmp")
     final = os.path.join(path, f"step_{step:08d}")
-    host_leaves = [_to_host(x) for x in _flatten(_jax_trees(state, "cpu"))]
 
     def _write():
         if os.path.exists(tmp):
@@ -169,8 +202,9 @@ def latest_step(path: str) -> Optional[int]:
 def restore(path: str, like, step: int | None = None):
     """Restore the checkpoint of ``step`` (default the latest) into
     ``like`` IN PLACE: every tensor of it (a Transformer's too) is
-    overwritten, keeping its device and dtype; numpy leaves are replaced.
-    Returns (state, step, data_state)."""
+    overwritten, keeping its device and dtype (a DTensor its layout: it
+    takes its block of the array); numpy leaves are replaced.  Returns
+    (state, step, data_state)."""
     step = step if step is not None else latest_step(path)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {path}")

@@ -3,9 +3,11 @@ gradients -> AdamW, with optional microbatch accumulation (f32, in the
 parameters' ``.grad``).
 
 The JAX step is a pure function that XLA compiles; the port's runs eagerly
-on one device and updates the state in place (parameters, moments), so it
-returns the same state object with the new step.  Sharding waits for
-ROADMAP.md queue A, item 9.
+and updates the state in place (parameters, moments), so it returns the
+same state object with the new step.  Sharded, the state's tensors are
+DTensors laid out by :func:`train_state_axes` (``train/trainer.py``), the
+batch is the rank's rows, and the step runs under the ambient mesh
+(``models.runtime``): it takes the state sharded and returns it so.
 """
 from __future__ import annotations
 
@@ -27,6 +29,14 @@ def init_train_state(model, seed: int = 0, *, device=None) -> TrainState:
     ``cuda`` unless the caller names another device."""
     params = model.init(seed, device=device, trainable=True)
     return TrainState(params=params, opt=adamw_init(params))
+
+
+def train_state_axes(model) -> TrainState:
+    """Logical-axes tree of the whole TrainState: the moments mirror the
+    parameters, the step is replicated."""
+    paxes = model.param_axes()
+    return TrainState(params=paxes,
+                      opt=AdamWState(step=(), mu=paxes, nu=paxes))
 
 
 def _split_microbatches(batch: dict, n: int) -> list:

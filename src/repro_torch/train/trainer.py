@@ -1,24 +1,40 @@
 """The training loop (counterpart of ``repro.train.trainer``): train step
-+ checkpoint/restart + heartbeat + straggler hooks, on one device.  This
-is the piece ``launch/train.py`` drives.
++ checkpoint/restart + heartbeat + straggler hooks.  This is the piece
+``launch/train.py`` drives.
 
-Where the JAX trainer takes a mesh and jits the step with the state's
-shardings, the port's takes a device (``cuda`` unless the caller names
-another) and runs the step eagerly there; sharding waits for ROADMAP.md
-queue A, item 9.
+``Trainer(model, data, mesh_or_device, ...)``:
+
+- a ``DeviceMesh`` (``launch/mesh.py``) shards the state by
+  ``sharding_tree(train_state_axes(model), mesh)`` (parameters and AdamW
+  moments as DTensors: each rank holds its blocks only) and the batch by
+  ``("batch", "seq")``, as the reference's ``in_shardings`` do; each rank
+  takes its rows of ``data.device_batch(step)``, and the step runs under
+  the mesh (``models.runtime``), its kernels on local blocks.  The rules
+  are ``sharding.rules_for(mesh, global_batch)``: a batch that does not
+  divide the data-parallel shards is replicated.  The dense family runs
+  on a mesh of any size; another family only on a mesh of one rank;
+- a device (``cuda`` unless the caller names another) keeps the
+  one-device path: the step runs eagerly there.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Optional
 
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+
 from repro_torch.core.engine import resolve_device
-from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.models import runtime
+from repro_torch.models import sharding as SH
+from repro_torch.models.transformer import Transformer
+from repro_torch.optim.adamw import AdamWConfig, adamw_init
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.elastic import Heartbeat, StragglerMonitor
-from repro_torch.train.train_step import (TrainState, init_train_state,
-                                          make_train_step)
+from repro_torch.train.train_step import (TrainState, make_train_step,
+                                          train_state_axes)
 
 
 @dataclasses.dataclass
@@ -29,28 +45,81 @@ class TrainerConfig:
     checkpoint_dir: Optional[str] = None
     microbatches: int = 1
     seed: int = 0
+    fwd_kw: Optional[dict] = None   # Model.loss's keywords (attn_impl, ...)
+
+
+def _shard_tree(tree, shardings):
+    if isinstance(tree, dict):
+        return {k: _shard_tree(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_shard_tree(v, s) for v, s in zip(tree, shardings,
+                                                   strict=True)]
+    return SH.shard(tree.detach(), shardings)
 
 
 class Trainer:
-    def __init__(self, model, data, device, opt_cfg: AdamWConfig,
+    def __init__(self, model, data, mesh_or_device, opt_cfg: AdamWConfig,
                  tc: TrainerConfig):
         self.model = model
         self.data = data
-        self.device = resolve_device(device)
         self.opt_cfg = opt_cfg
         self.tc = tc
         self.heartbeat = Heartbeat()
         self.stragglers = StragglerMonitor()
+        self.mesh = self.state_shardings = self.batch_sharding = None
+        if isinstance(mesh_or_device, DeviceMesh):
+            mesh = self.mesh = mesh_or_device
+            if model.cfg.family != "dense" and mesh.size() > 1:
+                raise ValueError(
+                    f"the sharded trainer runs the dense family; "
+                    f"{model.cfg.family!r} over a mesh of {mesh.size()} "
+                    f"ranks waits for ROADMAP.md queue A, item 11.4")
+            self.device = (torch.device("cuda", torch.cuda.current_device())
+                           if mesh.device_type == "cuda"
+                           else torch.device(mesh.device_type))
+            self.rules = SH.rules_for(mesh, data.global_batch)
+            self.state_shardings = SH.sharding_tree(train_state_axes(model),
+                                                    mesh, self.rules)
+            self.batch_sharding = SH.Sharding(
+                mesh, SH.resolve(("batch", "seq"), mesh, self.rules))
+        else:
+            self.device = resolve_device(mesh_or_device)
         self.step_fn = make_train_step(model, opt_cfg,
-                                       microbatches=tc.microbatches)
+                                       microbatches=tc.microbatches,
+                                       fwd_kw=tc.fwd_kw)
+
+    def shard_params(self, params: Transformer) -> Transformer:
+        """Trainable parameters laid out by the state's shardings (each
+        rank keeps a copy of its blocks of ``params``, the same on every
+        rank); ``params`` as they are without a mesh."""
+        if self.mesh is None:
+            return params
+        return Transformer(_shard_tree(params.tree(),
+                                       self.state_shardings.params), True)
 
     def init_or_restore(self) -> tuple[TrainState, int]:
         tc = self.tc
-        state = init_train_state(self.model, tc.seed, device=self.device)
+        params = self.shard_params(self.model.init(
+            tc.seed, device=self.device, trainable=True))
+        state = TrainState(params, adamw_init(params))
         if tc.checkpoint_dir and ckpt.latest_step(tc.checkpoint_dir) is not None:
             state, step, _ = ckpt.restore(tc.checkpoint_dir, state)
             return state, step
         return state, 0
+
+    def local_batch(self, step: int) -> dict:
+        """This rank's rows of ``data.device_batch(step)`` (all of them
+        without a mesh)."""
+        batch = self.data.device_batch(step, device=self.device)
+        if self.mesh is None:
+            return batch
+        return {k: SH.local_block(v, self.batch_sharding)
+                for k, v in batch.items()}
+
+    def _under_mesh(self):
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return runtime.mesh_rules(self.mesh, self.rules)
 
     def run(self, state=None, start_step: int = 0):
         tc = self.tc
@@ -59,9 +128,10 @@ class Trainer:
         history = []
         pending_save = None
         for step in range(start_step, tc.steps):
-            batch = self.data.device_batch(step, device=self.device)
+            batch = self.local_batch(step)
             t0 = time.monotonic()
-            state, metrics = self.step_fn(state, batch)
+            with self._under_mesh():
+                state, metrics = self.step_fn(state, batch)
             metrics = {k: float(v) for k, v in metrics.items()}
             dt = time.monotonic() - t0
             self.heartbeat.beat()
