@@ -302,6 +302,26 @@ Phases, each of which fails the script (non-zero exit) on any mismatch:
       variants and B9 at their main-path inputs (B9 also at 32,768
       positions; device time from a graph of calls) beside their plain
       versions, ``scaled_dot_product_attention`` and their bounds.
+   k. Serving under a mesh, right after 7e on 7b's weights: an NCCL
+      group of one rank in this process and a ``DeviceMesh`` (1, 1).
+      (i) 7b's batch through ``launch.cells.build_cell``'s prefill step
+      (``prefill_32k`` cut to batch 4 and 4,160 positions: the weights
+      laid out as DTensors, the cache as this rank's blocks) and
+      ``decode_loop(mesh=...)``: 64 greedy steps replayed from one captured
+      graph; 7b's tokens, each step's logits within rtol 2^-8 of 7b's, B7
+      36 times on local blocks (``ops.local_shard_counts``).  (ii) 7c's
+      512 forced tokens and 64 greedy steps on the int8 cache through the
+      mesh path, replayed: 7c's tokens, B9 36 x 576 times on local blocks,
+      B7 never.  (iii) ``build_cell("qwen2.5-3b", "decode_32k", mesh,
+      layout="decode_opt", cache_quant=True, batch=8)``: the mesh (1, 1,
+      1), the int8 cache (36 x 8 x 2 x 32,768 x 128 codes) filled from
+      seed 0 with random codes and scales to 32,704 positions, 8 greedy
+      steps replayed against the same steps run eagerly on a copy of the
+      state (the same tokens, logits within rtol 2^-8), B9 on layer 0's
+      input at that length within one bf16 rounding of its plain
+      version.  Times (CUDA events, medians of 3 warm runs): (i)'s and
+      (ii)'s replayed ms a step beside 7e's, (iii)'s at 32,704 positions;
+      resident and peak allocated bytes; the phase's seconds.
    f. The MoE family, after 7a-7e dropped what they placed on the card:
       ``moe_block_sharded`` at qwen3-moe's full width in f32 (d 2,048,
       128 experts top 8, d_ff_expert 768) over 8 stacked nodes of 16
@@ -4528,7 +4548,7 @@ def lm_phases(args, torch, smi: str):
           f"the bf16 cache fed the same tokens: worst {worst} (rtol "
           f"{QUANT_RTOL}, atol {QUANT_ATOL}); int8 argmax in the bf16 top 5 "
           f"on every row and step")
-    del logits_q, logits_k, logits_f
+    del logits_q, logits_f
     torch.cuda.empty_cache()
 
     # -- times ----------------------------------------------------------------
@@ -4603,6 +4623,13 @@ def lm_phases(args, torch, smi: str):
                 "kv_cache_bf16": cache_bytes, "kv_cache_int8": qcache_bytes}
     print(f"resident bytes: {resident}")
     del st_t, st_after, sf, sf_prompt, sq, sq_prompt, st
+    torch.cuda.empty_cache()
+
+    # -- phase 7k: the same weights served under a mesh (1, 1) ----------------
+    mesh_launches, mesh_summary = mesh_serve_phase(
+        torch, smi, cfg, params, tokens, (gen_toks, [logits0, *logits_k]),
+        (prompt, q_toks), times)
+    del logits_k
     torch.cuda.empty_cache()
 
     # -- the kernels at their main-path inputs --------------------------------
@@ -4767,8 +4794,236 @@ def lm_phases(args, torch, smi: str):
                               "replayed_vs_eager_ii": e_replay_ii,
                               "replayed_vs_eager_ii_prompt":
                                   e_replay_prompt},
-               "sampled": sampled}
+               "sampled": sampled, "mesh_serving": mesh_summary,
+               "mesh_launches": mesh_launches}
     return kernels, summary
+
+# ---------------------------------------------------------------------------
+# phase 7k: serving under a mesh (1, 1), on 7b's weights
+# ---------------------------------------------------------------------------
+
+MESH_32K_BATCH = 8           # decode_32k's batch of 128 cut to fit the card
+MESH_32K_FILL = 32704        # cache positions filled before the steps
+MESH_32K_STEPS = 8
+
+
+def _mesh_replay_ms(torch, T, decode_loop, cell, state, tok, steps):
+    """Replayed ms a step of ``decode_loop`` under the cell's mesh from
+    ``state`` rewound to its length: (the ``steps``-step loop - one 2-step
+    loop) / (steps - 2), CUDA events, medians of ``LM_REPEAT`` warm
+    runs."""
+    n = state.host_length.n
+
+    def run(k):
+        def go():
+            T.set_length(state, n)
+            return decode_loop(cell.model, cell.params, state, tok, k,
+                               cell.mesh, rules=cell.rules)
+        return go
+
+    ms, _ = _events_ms(torch, run(steps), LM_REPEAT)
+    ms2, _ = _events_ms(torch, run(2), LM_REPEAT)
+    T.set_length(state, n)
+    return (ms - ms2) / (steps - 2)
+
+
+def mesh_serve_phase(torch, smi: str, cfg, params, tokens, ref_i, ref_ii,
+                     times: dict):
+    """Phase 7k: the serving path under a ``DeviceMesh`` (1, 1) over an
+    NCCL group of one rank in this process, on 7b's weights (``params``,
+    bf16 on the card).  (i) ``build_cell``'s prefill step and
+    ``decode_loop(mesh=...)``: ``ref_i`` = 7b's (tokens, [prefill logits,
+    each step's logits]) equal; (ii) the int8 cache: ``ref_ii`` = 7c's
+    (prompt tokens, greedy tokens) equal; (iii) the decode-opt
+    ``decode_32k`` cell at batch 8 and 32,704 positions, replayed against
+    eager.  Launches are counted around each main-path run only (not the
+    eager checks).  Returns (the launches by kernel, the phase's
+    record)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.models import runtime
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import decode_loop, make_head
+
+    t_phase = time.perf_counter()
+    L = cfg.n_layers
+    zero = dict.fromkeys(ops.launch_counts(), 0)
+    no_local = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
+                "decode_attention": 0}
+    launches = dict(zero)
+
+    def counted(what, want, want_local):
+        torch.cuda.synchronize()
+        got, local = ops.launch_counts(), ops.local_shard_counts()
+        if got != {**zero, **want} or local != {**no_local, **want_local}:
+            fail(f"7k {what}: launched {got} ({local} on local blocks), "
+                 f"expected {want} ({want_local})")
+        for k, n in got.items():
+            launches[k] += n
+
+    out = {}
+    torch.cuda.set_device(0)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = launch_mesh.parse_mesh("1x1", "cuda")
+        # -- (i) the prefill cell and the bf16 cache --------------------------
+        want_toks, want_logits = ref_i
+        cell = build_cell("qwen2.5-3b", "prefill_32k", mesh, batch=LM_BATCH,
+                          seq_len=LM_MAX_LEN, params=params)
+        torch.cuda.synchronize()
+        out["resident_i"] = {
+            "params": sum(p.to_local().numel() * p.element_size()
+                          for p in cell.params.parameters()),
+            "cache": sum(t.numel() * t.element_size()
+                         for t in cell.state[:2])}
+        head = make_head(cell.model, mesh=mesh, rules=cell.rules)
+        logits = []
+        ops.reset_launch_counts()
+        lg0, st = cell.step(cell.params, {"tokens": cell.local(tokens)},
+                            attn_impl="flash")
+        logits.append(lg0)
+        toks, st = decode_loop(cell.model, cell.params, st, head(lg0),
+                               LM_STEPS, mesh, rules=cell.rules,
+                               logits_out=logits)
+        counted("(i)", {"flash_attention_fwd_tc": L},
+                {"flash_attention_fwd": L})
+        if not torch.equal(toks, want_toks):
+            fail("7k (i): the mesh path chose other tokens than 7b")
+        worst = 0.0
+        for t, (got, want) in enumerate(zip(logits, want_logits,
+                                            strict=True)):
+            if not torch.allclose(got.float(), want.float(), rtol=BF16_ULP,
+                                  atol=0.0):
+                fail(f"7k (i) step {t}: logits differ from 7b's by "
+                     f"{_errs(got, want)} (rtol 2^-8)")
+            worst = max(worst, _errs(got, want)["max"])
+        out["cuts_i"] = cell.reduced
+        out["logits_vs_7b_max_abs"] = worst
+        T.set_length(st, LM_PROMPT)
+        out["decode_bf16_replay_ms_per_step"] = _mesh_replay_ms(
+            torch, T, decode_loop, cell, st, toks[:, 0], LM_STEPS)
+        print(f"(7k i) build_cell prefill_32k ({', '.join(cell.reduced)}) "
+              f"on a DeviceMesh (1, 1) (NCCL, one rank): prefill {LM_BATCH} "
+              f"x {LM_PROMPT} + {LM_STEPS} greedy steps replayed, 7b's "
+              f"tokens, logits within rtol 2^-8 of 7b's (max abs difference "
+              f"{worst}); B7 {L} launches on local blocks; replayed "
+              f"{out['decode_bf16_replay_ms_per_step']:.3f} ms a step beside "
+              f"7e's {times['decode_bf16_at_4096_replay_ms_per_step']:.3f} "
+              f"on {smi}")
+        del st, logits, lg0
+
+        # -- (ii) the int8 cache ----------------------------------------------
+        want_prompt, want_q = ref_ii
+        qcell = build_cell("qwen2.5-3b", "decode_32k", mesh, cache_quant=True,
+                           batch=LM_BATCH, seq_len=LM_MAX_LEN,
+                           params=cell.params)
+        ops.reset_launch_counts()
+        fed, sq = decode_loop(qcell.model, qcell.params, qcell.state,
+                              tokens[:, 0], LM_QUANT_PROMPT, mesh,
+                              rules=qcell.rules,
+                              forced=tokens[:, 1:LM_QUANT_PROMPT])
+        q_toks, sq = decode_loop(qcell.model, qcell.params, sq, fed[:, -1],
+                                 LM_STEPS, mesh, rules=qcell.rules)
+        n = L * (LM_QUANT_PROMPT + LM_STEPS)
+        counted("(ii)", {"decode_attention": n}, {"decode_attention": n})
+        if not (torch.equal(fed, want_prompt) and torch.equal(q_toks, want_q)):
+            fail("7k (ii): the mesh path chose other tokens than 7c")
+        T.set_length(sq, LM_QUANT_PROMPT)
+        out["decode_int8_replay_ms_per_step"] = _mesh_replay_ms(
+            torch, T, decode_loop, qcell, sq, fed[:, -1], LM_STEPS)
+        out["resident_ii_cache"] = sum(t.numel() * t.element_size()
+                                       for t in sq[:4])
+        print(f"(7k ii) the int8 cache through the mesh path: "
+              f"{LM_QUANT_PROMPT} forced + {LM_STEPS} greedy steps, each loop "
+              f"replayed, 7c's tokens; B9 {n} launches on local blocks, B7 "
+              f"none; replayed {out['decode_int8_replay_ms_per_step']:.3f} ms "
+              f"a step beside 7e's "
+              f"{times['decode_int8_at_512_replay_ms_per_step']:.3f} on {smi}")
+        del cell, qcell, sq, fed
+        torch.cuda.empty_cache()
+
+        # -- (iii) the decode_32k cell, decode-opt layout, int8 ---------------
+        ocell = build_cell("qwen2.5-3b", "decode_32k", mesh,
+                           layout="decode_opt", cache_quant=True,
+                           batch=MESH_32K_BATCH, params=params)
+        if tuple(ocell.mesh.shape) != (1, 1, 1):
+            fail(f"7k (iii): the decode-opt mesh is {tuple(ocell.mesh.shape)}")
+        st = ocell.state
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for codes in (st.k, st.v):
+            codes.random_(-127, 128, generator=gen)
+        for scale in (st.k_scale, st.v_scale):
+            scale.uniform_(0.005, 0.05, generator=gen)
+        T.set_length(st, MESH_32K_FILL)
+        first = torch.randint(0, cfg.vocab_size, (MESH_32K_BATCH,),
+                              generator=gen, device="cuda")
+        out["resident_iii_cache"] = sum(t.numel() * t.element_size()
+                                        for t in st[:4])
+        st_eager = T.copy_cache(st)
+        logits = []
+        ops.reset_launch_counts()
+        toks, st = decode_loop(ocell.model, ocell.params, st, first,
+                               MESH_32K_STEPS, ocell.mesh, rules=ocell.rules,
+                               logits_out=logits)
+        n = L * MESH_32K_STEPS
+        counted("(iii)", {"decode_attention": n}, {"decode_attention": n})
+        dec_in = collections.deque(maxlen=L)
+        orig_da = _recording(ops, "decode_attention", dec_in)
+        try:
+            with runtime.mesh_rules(ocell.mesh, ocell.rules):
+                e_iii = _replay_vs_eager(
+                    torch, ocell.model, ocell.params, st_eager, toks, logits,
+                    make_head(ocell.model, mesh=ocell.mesh,
+                              rules=ocell.rules), "7k (iii)")
+        finally:
+            ops.decode_attention = orig_da
+        del st_eager
+        out["replayed_vs_eager_iii"] = e_iii
+        (qd, kq, vq, length), kwd = dec_in[0]
+        b9 = da.decode_attention_cuda(qd, kq, vq, length, **kwd)
+        want = ref.decode_attention(qd.float(), kq, vq, length,
+                                    kwd["k_scale"], kwd["v_scale"])
+        _hold_bf16(torch, b9, want, "7k (iii) decode_attention on layer 0's "
+                   f"input at {int(length)} positions")
+        out["b9_layer0_max_abs_err"] = _errs(b9, want)["max"]
+        del dec_in, b9, want, qd, kq, vq
+        T.set_length(st, MESH_32K_FILL)
+        out["decode_32k_replay_ms_per_step"] = _mesh_replay_ms(
+            torch, T, decode_loop, ocell, st, first, MESH_32K_STEPS)
+        out["cuts_iii"] = ocell.reduced
+        out["peak_allocated"] = torch.cuda.max_memory_allocated()
+        out["allocated_before"] = base
+        print(f"(7k iii) build_cell decode_32k decode_opt int8 "
+              f"({', '.join(ocell.reduced)}; at batch 128 the int8 cache "
+              f"alone is 77 GB): mesh {tuple(ocell.mesh.shape)} "
+              f"{ocell.mesh.mesh_dim_names}, cache "
+              f"{out['resident_iii_cache']} B filled to {MESH_32K_FILL} "
+              f"positions from seed 0; {MESH_32K_STEPS} greedy steps replayed "
+              f"= the same steps eagerly on a copy (logits max abs "
+              f"difference {e_iii}); B9 on layer 0's input within rtol 2^-8 "
+              f"of its plain version ({out['b9_layer0_max_abs_err']:.3e}); "
+              f"replayed {out['decode_32k_replay_ms_per_step']:.3f} ms a step "
+              f"at {MESH_32K_FILL} positions on {smi}")
+        del ocell, st, logits
+        torch.cuda.empty_cache()
+    finally:
+        launch_mesh.destroy()
+    out["launches"] = {k: n for k, n in launches.items() if n}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 7k (serving under a mesh): {out}; {out['phase_s']:.1f} s "
+          f"on {smi}")
+    return launches, out
+
 
 
 # ---------------------------------------------------------------------------
@@ -6345,7 +6600,8 @@ def sharded_train_phase(args, torch, smi: str, phase8: dict):
     per_step = {**zero, "flash_attention_fwd_tc": 2 * cfg.n_layers,
                 "flash_attention_bwd_tc": cfg.n_layers}
     local_per_step = {"flash_attention_fwd": 2 * cfg.n_layers,
-                      "flash_attention_bwd": cfg.n_layers}
+                      "flash_attention_bwd": cfg.n_layers,
+                      "decode_attention": 0}
 
     # -- (i) the sharded trainer on a (1, 1) mesh ----------------------------
     torch.cuda.set_device(0)
@@ -6583,6 +6839,8 @@ def main(argv=None) -> int:
         k["launches"] = sum(k["launches_by_path"].values())
     for k in lm_kernels:
         by_path = {"qwen2.5-3b serving": k["launches"],
+                   "qwen2.5-3b serving under a mesh":
+                       lm["mesh_launches"].get(k["name"], 0),
                    "qwen3-moe serving": moe_launches.get(k["name"], 0),
                    "mamba2 serving": 0,
                    "recurrentgemma serving": hybrid_launches.get(k["name"],

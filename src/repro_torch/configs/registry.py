@@ -47,6 +47,15 @@ _NOT_PORTED = ("yi-34b", "chatglm3-6b", "mistral-nemo-12b")
 ARCHS = tuple(_MODULES)
 
 
+def cell_runnable(cfg: ModelConfig, shape: ShapeCell) -> tuple[bool, str]:
+    """(runnable, reason if skipped) for one (arch, shape) cell: the
+    reference's rule, long_500k only for a sub-quadratic decode state."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("full-attention KV state at 524288 tokens is not "
+                       "sub-quadratic; skipped as in the reference")
+    return True, ""
+
+
 def get_arch(name: str, smoke: bool = False) -> ModelConfig:
     if name not in _MODULES:
         known = "not ported yet" if name in _NOT_PORTED else "unknown"

@@ -87,23 +87,28 @@ def reset_launch_counts() -> None:
         _LOCAL_SHARD[k] = 0
 
 
-# the grouped attention's directions run under a mesh on a rank's local
-# block (:func:`flash_attention`), counted whichever device runs them
-_LOCAL_SHARD = {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
+# the grouped attention's directions (:func:`flash_attention`) and the
+# one-token attention (:func:`decode_attention`) run under a mesh on a
+# rank's local block, counted whichever device runs them
+_LOCAL_SHARD = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
+                "decode_attention": 0}
 
 
 def local_shard_counts() -> dict:
-    """Direction -> runs of the grouped flash attention under a mesh, on
-    a rank's local (B*KV) block, since the last reset: the forward (B7 on
-    the card) and the backward (B8)."""
+    """Function -> runs under a mesh on a rank's local (B*KV) block since
+    the last reset: the grouped flash attention's forward (B7 on the
+    card) and backward (B8), the one-token attention (B9)."""
     return dict(_LOCAL_SHARD)
 
 
-def add_launch_counts(counts: dict) -> None:
-    """Add ``counts`` (name -> launches) to the counters: the launches a
-    replayed CUDA graph makes without a Python call (``serve.engine``)."""
+def add_launch_counts(counts: dict, local: dict | None = None) -> None:
+    """Add ``counts`` (name -> launches) to the counters, and ``local``
+    (function -> runs) to :func:`local_shard_counts`: what a replayed CUDA
+    graph runs without a Python call (``serve.engine``)."""
     for name, n in counts.items():
         _WRAPPERS[name].launches += n
+    for name, n in (local or {}).items():
+        _LOCAL_SHARD[name] += n
 
 
 def filtered_group_sum(measures, groups, pred, *, cutoff, num_groups):
@@ -296,13 +301,42 @@ def flash_attention(q, k, v, *, causal=True, window=None, prefix=0):
     return _flash(q, k, v, causal, window, prefix, False)
 
 
-def decode_attention(q, k_cache, v_cache, length, *, k_scale=None,
-                     v_scale=None):
-    """One-token attention: q (BKV, G, D) against caches (BKV, Smax, D),
-    float or int8 with (BKV, Smax) f32 scales; positions >= ``length`` (a
-    0-d int32 tensor on q's device) masked -> (BKV, G, D) in q's dtype."""
+def _decode(q, k_cache, v_cache, length, k_scale, v_scale):
     if _kernel_path(q):
         return decode_attention_cuda(q, k_cache, v_cache, length,
                                      k_scale=k_scale, v_scale=v_scale)
     return ref.decode_attention(q, k_cache, v_cache, length, k_scale,
                                 v_scale)
+
+
+def _decode_local(q, k_cache, v_cache, length, k_scale, v_scale):
+    """The one-token attention on this rank's (B*KV) rows under the
+    ambient mesh (the reference's ``shard_map`` of B9 over the fused dim,
+    ``runtime.fused_bkv_spec()``: the batch axes outer, the kv-head axes
+    inner), counted in :func:`local_shard_counts`.  The tensors are the
+    rank's rows already (the model code's local kv heads of its batch
+    rows).  DTensors are refused: a DTensor nests its shards in mesh
+    order, which is not that split in general, and the kernel never sees
+    a tensor gathered only to feed it."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor)
+           for t in (q, k_cache, v_cache, k_scale, v_scale)):
+        raise ValueError("decode attention under a mesh takes this rank's "
+                         "(B*KV) rows as plain tensors, not DTensors")
+    _LOCAL_SHARD["decode_attention"] += 1
+    return _decode(q, k_cache, v_cache, length, k_scale, v_scale)
+
+
+def decode_attention(q, k_cache, v_cache, length, *, k_scale=None,
+                     v_scale=None):
+    """One-token attention: q (BKV, G, D) against caches (BKV, Smax, D),
+    float or int8 with (BKV, Smax) f32 scales; positions >= ``length`` (a
+    0-d int32 tensor on q's device) masked -> (BKV, G, D) in q's dtype.
+    Under an ambient mesh (``models.runtime``) it runs on each rank's
+    (B*KV) rows, counted in :func:`local_shard_counts`."""
+    from repro_torch.models import runtime
+
+    if runtime.current() is not None:
+        return _decode_local(q, k_cache, v_cache, length, k_scale, v_scale)
+    return _decode(q, k_cache, v_cache, length, k_scale, v_scale)

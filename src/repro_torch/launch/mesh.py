@@ -33,9 +33,11 @@ batches, EXPLAIN ANALYZE and ``serve_olap --serve``, ``--cubes`` and
 rows) waits in ROADMAP item 9.
 
 The LM meshes are ``DeviceMesh``es over the default group with the
-reference's axes, ``(data, model)`` or ``(pod, data, model)``, on
-``cuda`` under NCCL (one rank a card) or on ``cpu`` under gloo; the
-sharded trainer (``train/trainer.py``) lays its state out on them::
+reference's axes, ``(data, model)`` or ``(pod, data, model)`` (the
+decode-opt layout's ``(data, model_kv, model_b)``, ``launch/cells.py``),
+on ``cuda`` under NCCL (one rank a card) or on ``cpu`` under gloo; the
+sharded trainer (``train/trainer.py``) and the serve step
+(``serve/engine.py``) lay their state out on them::
 
     PYTHONPATH=src python -m torch.distributed.run --standalone \
         --nproc-per-node 4 -m repro_torch.launch.train --arch qwen2.5-3b \
@@ -136,11 +138,18 @@ def init_from_env(device=None, timeout_s: float = TIMEOUT_S):
 _AXES = {1: ("data",), 2: ("data", "model"), 3: ("pod", "data", "model")}
 
 
-def _lm_mesh(shape: tuple, device_type: str):
-    """A ``DeviceMesh`` of ``shape`` with the reference's axis names over
-    the default group, which must hold exactly prod(shape) ranks."""
+def _lm_mesh(shape: tuple, device_type: str, names: tuple | None = None):
+    """A ``DeviceMesh`` of ``shape`` over the default group, which must
+    hold exactly prod(shape) ranks, its dims named ``names``: by default
+    the reference's axes for its rank (``data``; ``data, model``; ``pod,
+    data, model``), or others such as the decode-opt layout's ``("data",
+    "model_kv", "model_b")`` (``launch.cells.decode_opt_layout``)."""
     from torch.distributed.device_mesh import init_device_mesh
 
+    names = _AXES[len(shape)] if names is None else tuple(names)
+    if len(names) != len(shape):
+        raise ValueError(f"a mesh of {shape} needs {len(shape)} dim names, "
+                         f"got {names}")
     n = 1
     for s in shape:
         n *= s
@@ -150,8 +159,7 @@ def _lm_mesh(shape: tuple, device_type: str):
             f"a mesh of {shape} needs a process group of {n} ranks, this "
             f"process has {world or 'none'}: launch with python -m "
             f"torch.distributed.run (torchrun) --nproc-per-node {n}")
-    return init_device_mesh(device_type, shape,
-                            mesh_dim_names=_AXES[len(shape)])
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)
 
 
 def parse_mesh(spec: str, device_type: str = "cuda"):

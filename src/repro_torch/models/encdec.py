@@ -49,18 +49,19 @@ class EncDecCache(NamedTuple):
     host_length: T.HostLength  # the same count on the host
 
 
-def _dec_layer_tree(cfg, gen, tp, dtype) -> dict:
+def _dec_layer_tree(cfg, gen, tp, dtype, tp_kv=None) -> dict:
     d = cfg.d_model
     return {"ln1": T._norm(gen, d, _NORM, dtype),
-            "self_attn": T._attn_tree(cfg, gen, tp, dtype),
+            "self_attn": T._attn_tree(cfg, gen, tp, dtype, tp_kv),
             "ln_cross": T._norm(gen, d, _NORM, dtype),
-            "cross_attn": T._attn_tree(cfg, gen, tp, dtype),
+            "cross_attn": T._attn_tree(cfg, gen, tp, dtype, tp_kv),
             "ln2": T._norm(gen, d, _NORM, dtype),
             "mlp": T._mlp_tree(cfg, gen, dtype)}
 
 
 def init_encdec(cfg, gen: torch.Generator, tp: int = 1,
-                trainable: bool = False) -> T.Transformer:
+                trainable: bool = False, tp_kv: int | None = None
+                ) -> T.Transformer:
     """Random parameters in ``cfg.param_dtype`` on ``gen``'s device, by
     the JAX package's init kinds and shapes (vocab padded; ``dec_pos`` has
     ``cfg.max_seq`` rows)."""
@@ -75,11 +76,11 @@ def init_encdec(cfg, gen: torch.Generator, tp: int = 1,
                          scale=0.02,
                          dtype=dtype),
         "enc_layers": [{"ln1": T._norm(gen, d, _NORM, dtype),
-                        "attn": T._attn_tree(cfg, gen, tp, dtype),
+                        "attn": T._attn_tree(cfg, gen, tp, dtype, tp_kv),
                         "ln2": T._norm(gen, d, _NORM, dtype),
                         "mlp": T._mlp_tree(cfg, gen, dtype)}
                        for _ in range(cfg.encdec.n_enc_layers)],
-        "dec_layers": [_dec_layer_tree(cfg, gen, tp, dtype)
+        "dec_layers": [_dec_layer_tree(cfg, gen, tp, dtype, tp_kv)
                        for _ in range(cfg.n_layers)],
         "enc_norm": T._norm(gen, d, _NORM, dtype),
         "final_norm": T._norm(gen, d, _NORM, dtype),
@@ -168,13 +169,14 @@ def forward(params: T.Transformer, tokens, frames, cfg, attn_impl="xla",
 
 
 def init_cache(cfg, batch: int, max_len: int, device, tp: int = 1,
-               dtype=torch.bfloat16) -> EncDecCache:
+               dtype=torch.bfloat16, tp_kv: int | None = None
+               ) -> EncDecCache:
     """An empty cache of ``max_len`` decoder positions (at most
     ``cfg.max_seq``: the learned positions end there)."""
     if max_len > cfg.max_seq:
         raise ValueError(f"{max_len} decoder positions, the model's learned "
                          f"positions end at {cfg.max_seq}")
-    _, KV = cfg.padded_heads(tp)
+    _, KV = cfg.padded_heads(tp, tp_kv)
     hd = cfg.resolved_head_dim
     self_shape = (cfg.n_layers, batch, max_len, KV, hd)
     cross_shape = (cfg.n_layers, batch, cfg.encdec.enc_seq, KV, hd)

@@ -76,14 +76,15 @@ def init_rec_layer(cfg, gen: torch.Generator, dtype) -> dict:
 
 
 def init_hybrid(cfg, gen: torch.Generator, tp: int = 1,
-                trainable: bool = False) -> T.Transformer:
+                trainable: bool = False, tp_kv: int | None = None
+                ) -> T.Transformer:
     """Random parameters of the live blocks in ``cfg.param_dtype`` on
     ``gen``'s device, by the JAX package's init kinds and shapes."""
     dtype = getattr(torch, cfg.param_dtype)
     tree = {
         "embedding": T.embedding_tree(gen, cfg.padded_vocab(), cfg.d_model,
                                       dtype),
-        "layers": [T._layer_tree(cfg, gen, tp, dtype) if is_attn_layer(cfg, i)
+        "layers": [T._layer_tree(cfg, gen, tp, dtype, tp_kv) if is_attn_layer(cfg, i)
                    else init_rec_layer(cfg, gen, dtype)
                    for i in range(cfg.n_layers)],
         "final_norm": T._norm(gen, cfg.d_model, "rmsnorm", dtype),
@@ -160,9 +161,9 @@ def forward(params: T.Transformer, tokens, cfg, *, chunk_q=1024,
 
 
 def init_state(cfg, batch: int, device, tp: int = 1,
-               dtype=torch.bfloat16) -> HybridState:
+               dtype=torch.bfloat16, tp_kv: int | None = None) -> HybridState:
     lw = cfg.hybrid.lru_width or cfg.d_model
-    _, KV = cfg.padded_heads(tp)
+    _, KV = cfg.padded_heads(tp, tp_kv)
     ring = (cfg.n_layers, batch, cfg.hybrid.window, KV,
             cfg.resolved_head_dim)
     return HybridState(

@@ -35,6 +35,7 @@ _FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 class Model:
     cfg: ModelConfig
     tp: int = 1                    # head-shard degree: pads the heads
+    tp_kv: int | None = None       # kv-head shard degree (decode-opt layout)
     cache_quant: bool = False      # int8 KV cache through the B9 kernel
 
     def __post_init__(self):
@@ -53,15 +54,16 @@ class Model:
                           .manual_seed(seed), trainable)
 
     def _init(self, gen, trainable: bool = False) -> T.Transformer:
-        if self.cfg.family == "ssm":
-            return ssm.init_mamba(self.cfg, gen, trainable)
-        if self.cfg.family == "hybrid":
-            return hybrid.init_hybrid(self.cfg, gen, self.tp, trainable)
-        if self.cfg.family == "encdec":
-            return encdec.init_encdec(self.cfg, gen, self.tp, trainable)
-        if self.cfg.family == "vlm":
-            return vlm.init_vlm(self.cfg, gen, self.tp, trainable)
-        return T.init_transformer(self.cfg, gen, self.tp, trainable)
+        cfg, tp, tp_kv = self.cfg, self.tp, self.tp_kv
+        if cfg.family == "ssm":
+            return ssm.init_mamba(cfg, gen, trainable)
+        if cfg.family == "hybrid":
+            return hybrid.init_hybrid(cfg, gen, tp, trainable, tp_kv)
+        if cfg.family == "encdec":
+            return encdec.init_encdec(cfg, gen, tp, trainable, tp_kv)
+        if cfg.family == "vlm":
+            return vlm.init_vlm(cfg, gen, tp, trainable, tp_kv)
+        return T.init_transformer(cfg, gen, tp, trainable, tp_kv)
 
     def param_axes(self):
         """The parameters' logical-axes tree, without allocating them (the
@@ -147,6 +149,14 @@ class Model:
         return nll
 
     # ---- serving -----------------------------------------------------------
+    def _serving_params(self, params):
+        """The dense family reads its parameters layer by layer
+        (``runtime.local_params`` in ``models.transformer``); another
+        family's are made local whole (a mesh of one rank)."""
+        if self.cfg.family == "dense":
+            return params
+        return runtime.local_params(params)
+
     def init_decode_state(self, batch: int, max_len: int,
                           dtype=torch.bfloat16, *, device=None):
         """An empty cache: int8 codes and scales with ``cache_quant``, else
@@ -156,24 +166,28 @@ class Model:
         encoder-decoder's self and cross caches; a VLM's cache holds
         ``max_len`` positions after its image prefix."""
         device = resolve_device(device)
-        cfg = self.cfg
+        cfg, tp, tp_kv = self.cfg, self.tp, self.tp_kv
         if cfg.family == "ssm":
             return ssm.init_state(cfg, batch, device, dtype)
         if cfg.family == "hybrid":
-            return hybrid.init_state(cfg, batch, device, self.tp, dtype)
+            return hybrid.init_state(cfg, batch, device, tp, dtype, tp_kv)
         if cfg.family == "encdec":
-            return encdec.init_cache(cfg, batch, max_len, device, self.tp,
-                                     dtype)
+            return encdec.init_cache(cfg, batch, max_len, device, tp, dtype,
+                                     tp_kv)
         if cfg.family == "vlm":
             max_len += cfg.vlm.num_patches
         if self.cache_quant:
-            return T.init_quant_cache(self.cfg, batch, max_len, device,
-                                      self.tp)
-        return T.init_cache(self.cfg, batch, max_len, device, self.tp, dtype)
+            return T.init_quant_cache(cfg, batch, max_len, device, tp, tp_kv)
+        return T.init_cache(cfg, batch, max_len, device, tp, dtype, tp_kv)
 
     def decode_step(self, params, state, token):
         """token (B, 1) -> (logits (B, padded vocab), state); the state's
-        tensors, its device ``length`` included, are updated in place."""
+        tensors, its device ``length`` included, are updated in place.
+        Under a mesh (``models.runtime``) the dense family runs on local
+        blocks layer by layer: ``token`` and the state are this rank's
+        blocks, the logits its (B_local, V_local) block; another family's
+        parameters are made local whole, as in :meth:`hidden`."""
+        params = self._serving_params(params)
         with torch.no_grad():
             if self.cfg.family == "ssm":
                 return ssm.decode_step(params, state, token, self.cfg)
@@ -188,8 +202,10 @@ class Model:
         """Prompt ``batch["tokens"]`` (B, S) into a float cache or an SSM
         or hybrid state -> (last-position logits, state); an
         encoder-decoder encodes ``batch["frames"]`` first, a VLM puts
-        ``batch["patches"]`` in front of the prompt."""
+        ``batch["patches"]`` in front of the prompt.  Under a mesh as
+        :meth:`decode_step`."""
         cfg, tokens = self.cfg, batch["tokens"]
+        params = self._serving_params(params)
         with torch.no_grad():
             if cfg.family == "ssm":
                 return ssm.prefill(params, tokens, cfg, state,
@@ -272,4 +288,8 @@ def chunked_cross_entropy(hidden, labels, cfg, params, *, chunk: int = 512):
 
 
 def build(cfg: ModelConfig, tp: int = 1, **kw) -> Model:
+    """The model of ``cfg``, its q heads padded to ``tp`` and its kv heads
+    to ``tp_kv`` (``tp`` by default; the decode-opt layout of
+    ``launch.cells`` shards the kv heads over fewer ranks than the q
+    heads), ``cache_quant`` for the int8 cache."""
     return Model(cfg, tp, **kw)

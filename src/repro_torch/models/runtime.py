@@ -22,9 +22,11 @@ GSPMD would insert are explicit here:
 - :func:`tp_offset`: where this rank's vocab block starts.
 
 Without an active mesh every function returns its input: the
-one-device path is unchanged.  The step builders (``train/trainer.py``)
-set the mesh here, and ``kernels/ops.py`` runs B7 / B8 on the local
-blocks.  A mesh dim of size 1 makes no collective call.
+one-device path is unchanged.  The step builders set the mesh here: the
+trainer (``train/trainer.py``), the serve step and its decode loop
+(``serve/engine.py``) and the cells' prefill step (``launch/cells.py``).
+Under it ``kernels/ops.py`` runs B7 / B8 and the one-token attention B9
+on the local blocks.  A mesh dim of size 1 makes no collective call.
 """
 from __future__ import annotations
 

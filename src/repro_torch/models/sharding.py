@@ -46,8 +46,6 @@ DEFAULT_RULES: dict = {
     "layers": None,           # the reference's scanned-stack leading axis
 }
 
-_BATCH_AXES = ("pod", "data")
-
 
 class MeshShape(NamedTuple):
     """A mesh's axis names and sizes, without devices."""
@@ -75,11 +73,14 @@ def mesh_axes(mesh) -> Tuple[str, ...]:
     return tuple(mesh_shape(mesh))
 
 
-def batch_shards(mesh) -> int:
-    """The data-parallel degree: the product of the batch axes' sizes."""
+def batch_shards(mesh, rules: dict | None = None) -> int:
+    """The data-parallel degree: the product of the sizes of the mesh
+    axes the batch rule names (``("pod", "data")`` by default; the
+    decode-opt layout's ``("data", "model_b")``)."""
     shape = mesh_shape(mesh)
+    axes = (rules or DEFAULT_RULES).get("batch") or ()
     n = 1
-    for ax in _BATCH_AXES:
+    for ax in ((axes,) if isinstance(axes, str) else axes):
         n *= shape.get(ax, 1)
     return n
 
@@ -87,9 +88,9 @@ def batch_shards(mesh) -> int:
 def rules_for(mesh, batch: int, rules: dict | None = None) -> dict:
     """The rules with the batch rule degraded to replication when
     ``batch`` does not divide the data-parallel shards (the reference's
-    ``launch/cells._rules_for``)."""
+    ``launch/cells._rules_for``, and its serve step's for other rules)."""
     rules = dict(rules or DEFAULT_RULES)
-    if batch % max(batch_shards(mesh), 1):
+    if batch % max(batch_shards(mesh, rules), 1):
         rules["batch"] = None
     return rules
 
@@ -196,6 +197,32 @@ def shard(full: torch.Tensor, sharding: Sharding) -> DTensor:
         memory_format=torch.contiguous_format)
     return DTensor.from_local(local, sharding.mesh, sharding.placements,
                               run_check=False)
+
+
+def shard_tree(tree, shardings):
+    """:func:`shard` of every tensor of nested dicts and lists (a
+    ``Transformer.tree()``), each by its entry of ``shardings``."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [shard_tree(v, s) for v, s in zip(tree, shardings,
+                                                  strict=True)]
+    return shard(tree.detach(), shardings)
+
+
+def place_state(state, shardings, device):
+    """This rank's blocks of an empty decode state: ``state`` made on the
+    ``meta`` device (its shapes only), each tensor field's block by its
+    entry of ``shardings`` (``sharding_tree(model.decode_state_axes(),
+    mesh, rules)``) allocated as zeros on ``device``, plain tensors the
+    model code runs on.  The whole state is never allocated."""
+    blocks = {}
+    for f in state._fields:
+        t = getattr(state, f)
+        if isinstance(t, torch.Tensor):
+            blocks[f] = torch.zeros(local_block(t, getattr(shardings, f)).shape,
+                                    dtype=t.dtype, device=device)
+    return state._replace(host_length=type(state.host_length)(), **blocks)
 
 
 def full(x: torch.Tensor) -> torch.Tensor:

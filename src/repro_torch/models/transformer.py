@@ -182,9 +182,9 @@ def _norm(gen, d, kind, dtype):
     return p
 
 
-def _attn_tree(cfg, gen, tp, dtype):
+def _attn_tree(cfg, gen, tp, dtype, tp_kv=None):
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    H, KV = cfg.padded_heads(tp)
+    H, KV = cfg.padded_heads(tp, tp_kv)
     attn = {"wq": param((d, H, hd), gen, axes=("embed", "heads", "head_dim"),
                          dtype=dtype),
             "wk": param((d, KV, hd), gen,
@@ -218,10 +218,10 @@ def _mlp_tree(cfg, gen, dtype):
                             dtype=dtype)}
 
 
-def _layer_tree(cfg, gen, tp, dtype):
+def _layer_tree(cfg, gen, tp, dtype, tp_kv=None):
     d = cfg.d_model
     out = {"ln1": _norm(gen, d, cfg.norm, dtype),
-           "attn": _attn_tree(cfg, gen, tp, dtype),
+           "attn": _attn_tree(cfg, gen, tp, dtype, tp_kv),
            "ln2": _norm(gen, d, cfg.norm, dtype)}
     if cfg.family == "moe":
         # no dense mlp beside the experts, as in the JAX init_layer
@@ -241,15 +241,17 @@ def head_tree(gen, d: int, vocab: int, dtype) -> dict:
                        dtype=dtype)}
 
 
-def transformer_tree(cfg, gen: torch.Generator, tp: int = 1) -> dict:
+def transformer_tree(cfg, gen: torch.Generator, tp: int = 1,
+                     tp_kv: int | None = None) -> dict:
     """The decoder's random parameters as a tree of tensors in
     ``cfg.param_dtype`` on ``gen``'s device, by the JAX package's init
-    kinds and shapes (vocab padded)."""
+    kinds and shapes (vocab padded; q heads padded to ``tp``, kv heads to
+    ``tp_kv``, ``tp`` by default)."""
     dtype = getattr(torch, cfg.param_dtype)
     V = cfg.padded_vocab()
     tree = {
         "embedding": embedding_tree(gen, V, cfg.d_model, dtype),
-        "layers": [_layer_tree(cfg, gen, tp, dtype)
+        "layers": [_layer_tree(cfg, gen, tp, dtype, tp_kv)
                    for _ in range(cfg.n_layers)],
         "final_norm": _norm(gen, cfg.d_model, cfg.norm, dtype),
     }
@@ -259,9 +261,10 @@ def transformer_tree(cfg, gen: torch.Generator, tp: int = 1) -> dict:
 
 
 def init_transformer(cfg, gen: torch.Generator, tp: int = 1,
-                     trainable: bool = False) -> Transformer:
+                     trainable: bool = False,
+                     tp_kv: int | None = None) -> Transformer:
     """Random parameters of :func:`transformer_tree`."""
-    return Transformer(transformer_tree(cfg, gen, tp), trainable)
+    return Transformer(transformer_tree(cfg, gen, tp, tp_kv), trainable)
 
 
 # ---------------------------------------------------------------------------
@@ -297,10 +300,15 @@ def _mlp_block(lp, x, cfg):
 # under a mesh gathers only the weights the part uses.
 
 
+def _layer_qkv(lp, x, cfg, positions):
+    """A layer's q, k, v of ``x`` (column-parallel under a mesh)."""
+    h = runtime.tp_copy(L.apply_norm(lp.ln1, x, cfg.norm))
+    return L.qkv(lp.attn, h, cfg, positions)
+
+
 def _attn_part(lp, x, cfg, positions, mask, chunk_q, chunk_k, attn_impl):
     lp = runtime.local_params(lp)
-    h = runtime.tp_copy(L.apply_norm(lp.ln1, x, cfg.norm))
-    q, k, v = L.qkv(lp.attn, h, cfg, positions)
+    q, k, v = _layer_qkv(lp, x, cfg, positions)
     return L.attention(q, k, v, mask, impl=attn_impl, chunk_q=chunk_q,
                        chunk_k=chunk_k)
 
@@ -356,16 +364,19 @@ def apply_layer_decode(lp, x, cfg, k_cache, v_cache, cache_len):
     """One-token decode step of one layer against a float cache.
 
     x: (B, 1, d); caches: (B, Smax, KV, hd), the new position written in
-    place at cache_len - 1 (cache_len a 0-d int32 tensor on the device)."""
+    place at cache_len - 1 (cache_len a 0-d int32 tensor on the device).
+    Under a mesh (``models.runtime``) the layer's parameters are read
+    through ``runtime.local_params``, and x and the caches are this rank's
+    batch rows and kv heads."""
+    lp = runtime.local_params(lp)
     positions = _position(cache_len)
-    h = L.apply_norm(lp.ln1, x, cfg.norm)
-    q, k, v = L.qkv(lp.attn, h, cfg, positions)
+    q, k, v = _layer_qkv(lp, x, cfg, positions)
     idx = positions.view(1).long()
     k_cache.index_copy_(1, idx, k.to(k_cache.dtype))
     v_cache.index_copy_(1, idx, v.to(v_cache.dtype))
     o = L.decode_attention(q, k_cache, v_cache, cache_len,
                            window=cfg.attn_window, prefix=_prefix(cfg))
-    x = x + L.attn_out(lp.attn, o)
+    x = x + runtime.tp_sum(L.attn_out(lp.attn, o))
     return _mlp_block(lp, x, cfg)
 
 
@@ -385,11 +396,14 @@ def apply_layer_decode_quant(lp, x, cfg, kq, ks, vq, vs, cache_len):
 
     kq, vq: (B, KV, Smax, hd) int8; ks, vs: (B, KV, Smax) f32; the new
     position is quantised and written in place at cache_len - 1 (a 0-d
-    int32 tensor on the device, which B9 reads there)."""
+    int32 tensor on the device, which B9 reads there).  Under a mesh these
+    are this rank's blocks (:func:`apply_layer_decode`), and B9 runs on
+    the rank's (B*KV) rows, its batch rows outer and its kv heads inner
+    (``runtime.fused_bkv_spec``)."""
     assert cfg.attn_window is None, "quant decode kernel: no window support"
+    lp = runtime.local_params(lp)
     positions = _position(cache_len)
-    h = L.apply_norm(lp.ln1, x, cfg.norm)
-    q, k, v = L.qkv(lp.attn, h, cfg, positions)
+    q, k, v = _layer_qkv(lp, x, cfg, positions)
     idx = positions.view(1).long()
     nk, nks = _quantize_kv(k)
     nv, nvs = _quantize_kv(v)
@@ -406,7 +420,7 @@ def apply_layer_decode_quant(lp, x, cfg, kq, ks, vq, vs, cache_len):
         cache_len, k_scale=ks.reshape(B * KV, Smax),
         v_scale=vs.reshape(B * KV, Smax))
     o = o.reshape(B, 1, H, hd)
-    x = x + L.attn_out(lp.attn, o.to(x.dtype))
+    x = x + runtime.tp_sum(L.attn_out(lp.attn, o.to(x.dtype)))
     return _mlp_block(lp, x, cfg)
 
 
@@ -486,8 +500,11 @@ def forward(params: Transformer, tokens, cfg, *, embeddings=None, mask=None,
 
 
 def logits_from_hidden(params: Transformer, hidden, cfg):
-    tied = params.embedding["table"] if cfg.tie_embeddings else None
-    return L.lm_logits(params.head, hidden, tied_table=tied)
+    """The head's logits; under a mesh this rank's vocab block."""
+    tied = (runtime.local_params(params.embedding)["table"]
+            if cfg.tie_embeddings else None)
+    return L.lm_logits(runtime.local_params(params.head),
+                       runtime.tp_copy(hidden), tied_table=tied)
 
 
 def _zero_length(device) -> torch.Tensor:
@@ -495,8 +512,8 @@ def _zero_length(device) -> torch.Tensor:
 
 
 def init_cache(cfg, batch: int, max_len: int, device, tp: int = 1,
-               dtype=torch.bfloat16) -> KVCache:
-    _, KV = cfg.padded_heads(tp)
+               dtype=torch.bfloat16, tp_kv: int | None = None) -> KVCache:
+    _, KV = cfg.padded_heads(tp, tp_kv)
     shape = (cfg.n_layers, batch, max_len, KV, cfg.resolved_head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device),
@@ -504,8 +521,8 @@ def init_cache(cfg, batch: int, max_len: int, device, tp: int = 1,
 
 
 def init_quant_cache(cfg, batch: int, max_len: int, device,
-                     tp: int = 1) -> QuantKVCache:
-    _, KV = cfg.padded_heads(tp)
+                     tp: int = 1, tp_kv: int | None = None) -> QuantKVCache:
+    _, KV = cfg.padded_heads(tp, tp_kv)
     shape = (cfg.n_layers, batch, KV, max_len, cfg.resolved_head_dim)
     return QuantKVCache(
         torch.zeros(shape, dtype=torch.int8, device=device),
@@ -554,13 +571,17 @@ def decode_step(params: Transformer, cache, token, cfg):
     """One decode step: token (B, 1) -> (logits (B, vocab), cache).  The
     cache's lengths, on the device and on the host, advance in place, the
     new position is written at length - 1, and nothing is read back from
-    the device, so the step can be captured in a CUDA graph.  The cache flavour picks the attention:
-    plain over a float cache, the B9 kernel over int8."""
+    the device, so the step can be captured in a CUDA graph.  The cache
+    flavour picks the attention: plain over a float cache, the B9 kernel
+    over int8.  Under a mesh (``models.runtime``) ``token`` and the cache
+    are this rank's blocks (the batch rows and kv heads that
+    ``decode_state_axes`` give it) and the logits its (B_local, V_local)
+    block."""
     if cache.host_length.n >= capacity(cache):
         raise ValueError(f"the cache holds {cache.host_length.n} positions, "
                          f"all it has room for")
     cd = getattr(torch, cfg.compute_dtype)
-    x = L.embed(params.embedding, token, cd)
+    x = L.embed(runtime.local_params(params.embedding), token, cd)
     cache.length.add_(1)
     cache.host_length.n += 1
     for i, lp in enumerate(params.layers):
@@ -571,7 +592,7 @@ def decode_step(params: Transformer, cache, token, cfg):
         else:
             x = apply_layer_decode(lp, x, cfg, cache.k[i], cache.v[i],
                                    cache.length)
-    h = L.apply_norm(params.final_norm, x, cfg.norm)
+    h = L.apply_norm(runtime.local_params(params.final_norm), x, cfg.norm)
     logits = logits_from_hidden(params, h, cfg)
     return logits[:, 0], cache
 
@@ -581,7 +602,10 @@ def prefill(params: Transformer, tokens, cfg, cache: KVCache, *,
     """Run the prompt (B, S), ``embeddings`` (B, S_extra, d) in front of
     it when given, write its keys and values into the float cache
     (positions 0 .. S_extra + S - 1, in place) and set its length to
-    S_extra + S, return (last-position logits (B, vocab), the cache)."""
+    S_extra + S, return (last-position logits (B, vocab), the cache).
+    Under a mesh the prompt and the cache are this rank's blocks, B7 runs
+    on its local (B*KV) block (``kernels.ops.flash_attention``) and the
+    logits are its (B_local, V_local) block."""
     if not isinstance(cache, KVCache):
         raise TypeError("prefill fills a float KVCache; an int8 cache takes "
                         "its prompt one token a step through decode_step")
@@ -592,15 +616,16 @@ def prefill(params: Transformer, tokens, cfg, cache: KVCache, *,
                          f"{cache.k.shape[2]}")
     mask = _layer_mask(cfg)
     for i, lp in enumerate(params.layers):
-        hn = L.apply_norm(lp.ln1, x, cfg.norm)
-        q, k, v = L.qkv(lp.attn, hn, cfg, positions)
+        lp = runtime.local_params(lp)
+        q, k, v = _layer_qkv(lp, x, cfg, positions)
         cache.k[i, :, :S] = k
         cache.v[i, :, :S] = v
         o = L.attention(q, k, v, mask, impl=attn_impl, chunk_q=chunk_q,
                         chunk_k=chunk_k)
-        x = x + L.attn_out(lp.attn, o)
+        x = x + runtime.tp_sum(L.attn_out(lp.attn, o))
         x = _mlp_block(lp, x, cfg)
     set_length(cache, S)
-    h = L.apply_norm(params.final_norm, x[:, -1:], cfg.norm)
+    h = L.apply_norm(runtime.local_params(params.final_norm), x[:, -1:],
+                     cfg.norm)
     logits = logits_from_hidden(params, h, cfg)
     return logits[:, 0], cache

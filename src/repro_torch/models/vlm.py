@@ -19,12 +19,13 @@ from repro_torch.models.params import param
 
 
 def init_vlm(cfg, gen: torch.Generator, tp: int = 1,
-             trainable: bool = False) -> T.Transformer:
+             trainable: bool = False, tp_kv: int | None = None
+             ) -> T.Transformer:
     """The decoder's random parameters and ``patch_proj`` (``w``
     (patch_dim, d_model), ``b`` zeros) in ``cfg.param_dtype`` on ``gen``'s
     device."""
     dtype = getattr(torch, cfg.param_dtype)
-    tree = T.transformer_tree(cfg, gen, tp)
+    tree = T.transformer_tree(cfg, gen, tp, tp_kv)
     tree["patch_proj"] = {
         "w": param((cfg.vlm.patch_dim, cfg.d_model), gen, axes=(None, "embed"),
                    dtype=dtype),

@@ -1,8 +1,9 @@
 """Serving (counterpart of ``repro.serve``): the language model's
 sampling head and engine, and the OLAP serving tier.
 
-  sampling     the §3.2.3 distributed top-k head over stacked vocab shards
-  engine       make_serve_step / decode_loop
+  sampling     the §3.2.3 distributed top-k head, across the ranks of a
+               mesh or over stacked vocab shards in one process
+  engine       make_serve_step / decode_loop, with or without a mesh
   olap_engine  OLAPEngine: continuous batching over prepared plans
   workload     the mixed request stream and its load generators
 

@@ -48,15 +48,6 @@ class TrainerConfig:
     fwd_kw: Optional[dict] = None   # Model.loss's keywords (attn_impl, ...)
 
 
-def _shard_tree(tree, shardings):
-    if isinstance(tree, dict):
-        return {k: _shard_tree(v, shardings[k]) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_shard_tree(v, s) for v, s in zip(tree, shardings,
-                                                   strict=True)]
-    return SH.shard(tree.detach(), shardings)
-
-
 class Trainer:
     def __init__(self, model, data, mesh_or_device, opt_cfg: AdamWConfig,
                  tc: TrainerConfig):
@@ -94,8 +85,8 @@ class Trainer:
         rank); ``params`` as they are without a mesh."""
         if self.mesh is None:
             return params
-        return Transformer(_shard_tree(params.tree(),
-                                       self.state_shardings.params), True)
+        return Transformer(SH.shard_tree(params.tree(),
+                                         self.state_shardings.params), True)
 
     def init_or_restore(self) -> tuple[TrainState, int]:
         tc = self.tc

@@ -299,7 +299,8 @@ def test_flash_attention_on_dtensors(runs):
         got = r["flash_dtensor"]
         assert max(got["errs"]) < 1e-5, got["errs"]
         assert got["counts"] == {"flash_attention_fwd": 1,
-                                 "flash_attention_bwd": 1}
+                                 "flash_attention_bwd": 1,
+                                 "decode_attention": 0}
         assert "kv-head axes" in got["refused"]
         assert got["placements"] == [(0, 0), (1, 2)]
         assert r["refuse_moe"] and "item 11.4" in r["refuse_moe"]
